@@ -1,0 +1,333 @@
+"""Tensor codec: pytrees of numpy arrays <-> wire frames, and the flat layer.
+
+Two jobs, both host-side numpy:
+
+1. **The flat layer.** The model and every gradient ride the wire as ONE
+   float32 vector: the leaves of the parameter tree concatenated in the
+   reference's leaf order (`jax.tree_util` order: dict keys sorted,
+   depth-first; lists and tuples in order; None has no leaves). PS
+   updates and every gradient are positions in this vector, so the
+   order here must equal the reference's `codec.ravel_np` exactly — a
+   different order would misroute updates without raising.
+   `tree_flatten` / `tree_unflatten` / `ravel_np` / `make_unraveler`
+   reproduce that contract with the standard library alone.
+
+2. **Frames.** A pytree (nested dict/list/tuple of arrays, scalars,
+   strings, None) packs into one buffer:
+
+       offset  size  field
+       0       1     0xC1 frame magic
+       1       1     codec version (0x01: JSON header)
+       2       4     u32 LE header length H
+       6       2     u16 LE header pad P (zeros aligning the payload)
+       8       H     UTF-8 JSON header: the pytree with every array
+                     replaced by a descriptor {"__nd__": 1, "d": dtype,
+                     "s": shape, "o": payload offset, "n": byte length}
+       8+H     P     zero padding so the payload starts 64-byte aligned
+       8+H+P   ...   payload: raw array bytes, each segment 64-byte
+                     aligned relative to the frame start
+
+   The layout follows the reference's v2 frame with a JSON header in
+   place of msgpack; the bytes are not compatible with the reference's.
+   Decoding returns `np.frombuffer` views into the frame.
+
+bfloat16 has no numpy dtype without `ml_dtypes`, so a bf16 array travels
+as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
+`BF16Bits`; `as_f32` widens it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import struct
+from typing import Any, Callable, List, Tuple
+
+import numpy as np
+
+FRAME_MAGIC = 0xC1
+CODEC_VERSION = 1
+#: magic, version, u32 header length, u16 header pad
+_FRAME_PREFIX = struct.Struct("<BBIH")
+_SEGMENT_ALIGN = 64
+
+_ND_KEY = "__nd__"
+_TUPLE_KEY = "__tp__"
+_BF16_TAG = "bfloat16"
+
+
+# --------------------------------------------------------------------------
+# bfloat16 as bits
+
+
+@dataclasses.dataclass
+class BF16Bits:
+    """A bfloat16 array held as its uint16 bit patterns."""
+
+    bits: np.ndarray  # uint16, any shape
+
+    def __post_init__(self):
+        self.bits = np.asarray(self.bits)
+        if self.bits.dtype != np.uint16:
+            raise TypeError(f"BF16Bits needs uint16 bits, got {self.bits.dtype}")
+
+    @property
+    def shape(self):
+        return self.bits.shape
+
+    @classmethod
+    def from_f32(cls, a) -> "BF16Bits":
+        """Round float32 to bfloat16, nearest-even (NaN stays NaN)."""
+        u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+        rounded = (u + (0x7FFF + ((u >> 16) & 1))) >> 16
+        nan = (u & 0x7FFFFFFF) > 0x7F800000
+        bits = np.where(nan, (u >> 16) | 0x40, rounded).astype(np.uint16)
+        return cls(bits)
+
+    def to_f32(self) -> np.ndarray:
+        return (self.bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def as_f32(a: Any) -> np.ndarray:
+    """Float32 view of `a` when it already is f32, else a widening copy."""
+    if isinstance(a, BF16Bits):
+        return a.to_f32()
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        return a
+    return a.astype(np.float32)
+
+
+def delta_to_f32(obj: Any, n: int | None = None) -> np.ndarray:
+    """Decode a flat wire vector (f32 or bf16 bits) to dense f32."""
+    out = as_f32(obj)
+    if n is not None and out.size != n:
+        raise ValueError(f"delta length {out.size} != expected {n}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the flat layer (reference leaf order)
+
+_LEAF = ("leaf",)
+
+
+def tree_flatten(tree) -> Tuple[list, tuple]:
+    """(leaves, treedef) in the reference's leaf order."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, list):
+            return ("list", tuple(walk(v) for v in node))
+        if isinstance(node, tuple):
+            return ("tuple", tuple(walk(v) for v in node))
+        if node is None:
+            return ("none",)
+        leaves.append(node)
+        return _LEAF
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: tuple, leaves) -> Any:
+    it = iter(leaves)
+
+    def build(d):
+        kind = d[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        if kind == "list":
+            return [build(c) for c in d[1]]
+        if kind == "tuple":
+            return tuple(build(c) for c in d[1])
+        return None
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree structure holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        r_leaves, r_def = tree_flatten(r)
+        if r_def != treedef:
+            raise ValueError("tree structures differ")
+        others.append(r_leaves)
+    return tree_unflatten(
+        treedef, [fn(*xs) for xs in zip(leaves, *others)]
+    )
+
+
+def tree_paths(tree) -> List[Tuple[str, ...]]:
+    """Key path of every leaf, in leaf order (dict keys and list indices
+    as strings) — how the worker finds a module parameter for a leaf."""
+    paths: list = []
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], prefix + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, prefix + (str(i),))
+        elif node is not None:
+            paths.append(prefix)
+
+    walk(tree, ())
+    return paths
+
+
+def ravel_np(tree) -> np.ndarray:
+    """Concatenate a float pytree into ONE contiguous float32 vector."""
+    return np.concatenate(
+        [as_f32(leaf).ravel() for leaf in tree_leaves(tree)]
+    )
+
+
+def template_meta(template) -> tuple:
+    """(shapes, sizes, treedef) of a pytree — the unravel plan."""
+    leaves, treedef = tree_flatten(template)
+    shapes = [tuple(np.shape(leaf)) for leaf in leaves]
+    sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    return shapes, sizes, treedef
+
+
+def make_unraveler(template):
+    """Reusable `vec -> pytree` closure (slice + reshape views)."""
+    shapes, sizes, treedef = template_meta(template)
+    total = sum(sizes)
+
+    def unravel(vec) -> Any:
+        vec = np.asarray(vec, dtype=np.float32)
+        if vec.size != total:
+            raise ValueError(
+                f"flat vector size {vec.size} != template size {total}"
+            )
+        out, off = [], 0
+        for shape, n in zip(shapes, sizes):
+            out.append(vec[off : off + n].reshape(shape))
+            off += n
+        return tree_unflatten(treedef, out)
+
+    return unravel
+
+
+# --------------------------------------------------------------------------
+# frames
+
+
+class _FrameBuilder:
+    """Collects payload segments and assigns 64-byte-aligned offsets."""
+
+    __slots__ = ("segments", "offset")
+
+    def __init__(self):
+        self.segments: list = []  # [(pad_before, uint8 view)]
+        self.offset = 0
+
+    def add(self, seg: np.ndarray) -> int:
+        pad = (-self.offset) % _SEGMENT_ALIGN
+        off = self.offset + pad
+        self.segments.append((pad, seg))
+        self.offset = off + seg.nbytes
+        return off
+
+
+def _descriptor(a: np.ndarray, dtype_tag: str, builder: _FrameBuilder) -> dict:
+    shape = list(a.shape)
+    seg = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    off = builder.add(seg)
+    return {_ND_KEY: 1, "d": dtype_tag, "s": shape, "o": off, "n": seg.nbytes}
+
+
+def _build_header_tree(obj: Any, builder: _FrameBuilder) -> Any:
+    if isinstance(obj, BF16Bits):
+        return _descriptor(obj.bits, _BF16_TAG, builder)
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.kind not in "biuf":
+            raise TypeError(f"cannot encode array of dtype {obj.dtype}")
+        return _descriptor(obj, obj.dtype.str, builder)
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"frame dict keys must be str, got {k!r}")
+            out[k] = _build_header_tree(v, builder)
+        return out
+    if isinstance(obj, list):
+        return [_build_header_tree(v, builder) for v in obj]
+    if isinstance(obj, tuple):
+        return {_TUPLE_KEY: [_build_header_tree(v, builder) for v in obj]}
+    if isinstance(obj, (np.floating, np.integer, np.bool_)):
+        return obj.item()
+    if isinstance(obj, (str, bool, int, float)) or obj is None:
+        return obj
+    raise TypeError(f"cannot encode {type(obj)!r}")
+
+
+def dumps(obj: Any) -> bytes:
+    """Serialize a pytree as one frame."""
+    builder = _FrameBuilder()
+    header = json.dumps(
+        _build_header_tree(obj, builder), separators=(",", ":")
+    ).encode()
+    head_pad = (-(_FRAME_PREFIX.size + len(header))) % _SEGMENT_ALIGN
+    parts = [
+        _FRAME_PREFIX.pack(FRAME_MAGIC, CODEC_VERSION, len(header), head_pad),
+        header,
+        b"\x00" * head_pad,
+    ]
+    for pad, seg in builder.segments:
+        parts.append(b"\x00" * pad)
+        parts.append(seg)
+    return b"".join(parts)
+
+
+def _read_descriptor(m: dict, frame, payload_start: int) -> Any:
+    tag = m["d"]
+    dt = np.dtype(np.uint16) if tag == _BF16_TAG else np.dtype(tag)
+    shape = [int(s) for s in m["s"]]
+    count = int(np.prod(shape, dtype=np.int64))
+    if m["n"] != count * dt.itemsize:
+        raise ValueError(
+            f"corrupt frame descriptor: {m['n']} bytes for dtype {tag} "
+            f"shape {shape}"
+        )
+    arr = np.frombuffer(
+        frame, dtype=dt, count=count, offset=payload_start + int(m["o"])
+    ).reshape(shape)
+    return BF16Bits(arr) if tag == _BF16_TAG else arr
+
+
+def loads(data) -> Any:
+    """Deserialize a frame; arrays are read-only views into `data`."""
+    if len(data) < _FRAME_PREFIX.size or data[0] != FRAME_MAGIC:
+        raise ValueError("not a codec frame (bad magic)")
+    _magic, version, hlen, pad = _FRAME_PREFIX.unpack_from(data, 0)
+    if version != CODEC_VERSION:
+        raise ValueError(f"unsupported codec frame version {version}")
+    header_end = _FRAME_PREFIX.size + hlen
+    payload_start = header_end + pad
+
+    def hook(m: dict) -> Any:
+        if _ND_KEY in m:
+            return _read_descriptor(m, data, payload_start)
+        if _TUPLE_KEY in m:
+            return tuple(m[_TUPLE_KEY])
+        return m
+
+    return json.loads(
+        bytes(data[_FRAME_PREFIX.size:header_end]), object_hook=hook
+    )

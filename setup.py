@@ -16,9 +16,17 @@ setup(
         "TPU-native elastic deep learning: Kubernetes-elastic PS "
         "training on JAX/XLA"
     ),
-    packages=find_packages(include=["elasticdl_tpu", "elasticdl_tpu.*"]),
+    packages=find_packages(
+        include=[
+            "elasticdl_tpu",
+            "elasticdl_tpu.*",
+            "elasticdl_tpu_torch",
+            "elasticdl_tpu_torch.*",
+        ]
+    ),
     package_data={
         "elasticdl_tpu.data": ["recordio_cpp/*.cc"],
+        "elasticdl_tpu_torch.ops": ["csrc/*.cu"],
         "elasticdl_tpu.master": ["embedding_cpp/*.cc"],
         "elasticdl_tpu.chaos": ["traces/*.json"],
     },
