@@ -23,7 +23,10 @@ kernel's rounding points. `flash_attention` is the autograd Function
 over the three; `attention` is the dispatcher model code calls.
 
 Layout: [B, L, H, D] ("blhd"); compute is float32, operands float32 or
-bfloat16. The kernels take D = 64 and L a multiple of BLOCK.
+bfloat16. The kernels take D = 64 and L a multiple of BLOCK. The C
+entry points pick a kernel by dtype: for bfloat16 the forward and dk+dv
+run their products on the tensor cores, for float32 every kernel stays
+on the CUDA cores (the tensor cores would round f32 to TF32).
 """
 
 from __future__ import annotations
@@ -154,7 +157,8 @@ def _lib() -> ctypes.CDLL:
 
 def _check_operands(*ts: torch.Tensor):
     """The kernels take CUDA tensors of one float dtype, contiguous
-    [B, L, H, 64] with L % BLOCK == 0, all of one shape."""
+    [B, L, H, 64] with L % BLOCK == 0, all of one shape, 16-byte-aligned
+    (the bfloat16 kernels copy 16-byte chunks)."""
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash-attention kernels need CUDA tensors, got {q.device}")
@@ -170,6 +174,8 @@ def _check_operands(*ts: torch.Tensor):
             raise ValueError("q, k, v (and do) must share device, dtype and shape")
         if not t.is_contiguous():
             raise ValueError("flash-attention kernels take contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash-attention kernels take 16-byte-aligned tensors")
 
 
 def _check_rows(q: torch.Tensor, *rows: torch.Tensor):
@@ -179,6 +185,8 @@ def _check_rows(q: torch.Tensor, *rows: torch.Tensor):
             raise ValueError("lse and delta must be contiguous float32 [B, H, L]")
         if r.device != q.device:
             raise ValueError("lse and delta must lie on q's device")
+        if r.data_ptr() % 16:
+            raise ValueError("lse and delta must be 16-byte-aligned")
 
 
 def _launch(fn, what: str, *args):

@@ -49,27 +49,21 @@ def _close(got, want, tol):
     np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L", [128, 256])
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_forward_matches_pallas_kernel(causal, L, dtype):
-    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(L, dtype)
+def _check_plain_forward(causal, L, dtype, d, seed):
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(L, dtype, d=d, seed=seed)
     jo, jlse = jfa._flash_forward(jq, jk, jv, causal, interpret=True)
     to, tlse = tfa.plain_forward(tq, tk, tv, causal)
     assert to.dtype == tq.dtype and tlse.dtype == torch.float32
     tol = F32 if dtype == "float32" else BF16
     _close(to, jo, tol)
     # reference lse is [B*H, L, 1]; the port's [B, H, L]
-    _close(tlse.reshape(-1, L, 1), jlse, F32 if dtype == "float32" else BF16)
+    _close(tlse.reshape(-1, L, 1), jlse, tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L", [128, 256])
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_matches_pallas_kernels(causal, L, dtype):
+def _check_plain_backward(causal, L, dtype, d, seed):
     """plain_dq / plain_dkv against the reference's dq and dk+dv
     kernels, fed the same o, lse and cotangent."""
-    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(L, dtype, seed=1)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(L, dtype, d=d, seed=seed)
     jo, jlse = jfa._flash_forward(jq, jk, jv, causal, interpret=True)
     jdq, jdk, jdv = jfa._flash_backward(jq, jk, jv, jo, jlse, jdo, causal, interpret=True)
     _, tdt = DTYPES[dtype]
@@ -80,8 +74,39 @@ def test_plain_backward_matches_pallas_kernels(causal, L, dtype):
     tdk, tdv = tfa.plain_dkv(tq, tk, tv, tdo, tlse, delta, causal)
     tol = F32_GRAD if dtype == "float32" else BF16
     for got, want in ((tdq, jdq), (tdk, jdk), (tdv, jdv)):
-        assert got.dtype == tdt
+        assert got.dtype == tdt and got.shape == tq.shape
         _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_matches_pallas_kernel(causal, L, dtype):
+    _check_plain_forward(causal, L, dtype, d=16, seed=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_pallas_kernels(causal, L, dtype):
+    _check_plain_backward(causal, L, dtype, d=16, seed=1)
+
+
+# head_dim 64, the only width the CUDA kernels take: the plain versions
+# that chip_smoke.py holds the kernels against agree with the reference's
+# Pallas kernels at the kernels' own width
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_matches_pallas_kernel_at_kernel_width(causal, dtype):
+    _check_plain_forward(causal, 256, dtype, d=tfa.HEAD_DIM, seed=6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_pallas_kernels_at_kernel_width(causal, dtype):
+    _check_plain_backward(causal, 256, dtype, d=tfa.HEAD_DIM, seed=7)
 
 
 @pytest.mark.parametrize("causal", [True, False])
