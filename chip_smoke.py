@@ -14,18 +14,21 @@ its result lines only when every phase passed:
    and at [1, 192, 3, 64] (L a multiple of 64 but not of 128, B*H odd)
    in both dtypes, causal and not, under a limit per output; each
    backward check runs once on the plain forward's lse and once on the
-   kernel's own lse and o. Times
-   kernel, plain version and the library yardstick
-   (`F.scaled_dot_product_attention`, which the port never calls), and
-   checks the model's forward and backward against the materializing
-   reference;
+   kernel's own lse and o. Times kernel, plain version and the library
+   yardsticks, which the port never calls: `F.scaled_dot_product_attention`
+   for the forward, and one call of aten's flash-attention backward
+   (dq, dk and dv together, checked against the plain versions) for the
+   backward pair. Then checks the model's forward and backward against
+   the materializing reference;
 4. trains the base transformer (vocab 8192, d_model 512, 8 heads,
    d_ff 2048, 8 layers, bfloat16 compute, batch 8 x seq 1024) for 8
    per-step updates through the port's in-process master/PS loop, and
    checks the exactness block, the losses, the kernels' launch counts
    and that the parameters moved; then profiles a short second run for
    the device time by kernel;
-5. prints the kernels' JSON line, the card line, and the result line.
+5. prints the kernels' JSON line (one row per kernel; the backward
+   pair's yardstick once, as `backward_pair`, since no single kernel's
+   row matches it), the card line, and the result line.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.
@@ -35,6 +38,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -67,7 +71,7 @@ SLICE = dict(vocab=8192, d_model=512, n_heads=8, d_ff=2048, n_layers=8)
 BATCH, SEQ, STEPS = 8, 1024, 8
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 # kernels that must not spill (ptxas's report): the tensor-core ones
-NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dkv_bf16_kernel")
+NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel")
 REPLACES = {
     "flash_forward": "elasticdl_tpu/ops/flash_attention.py:79",
     "flash_dq": "elasticdl_tpu/ops/flash_attention.py:161",
@@ -83,19 +87,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call, CUDA events around `iters` calls."""
+def time_ms(fn, iters: int = 20, batches: int = 5) -> float:
+    """Device time of one call: the median over `batches` of the mean of
+    `iters` calls between two CUDA events."""
     for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
 
 
 def check_close(name, got, want, tols, failures) -> list:
@@ -162,9 +170,56 @@ def backward_errs(fa, q, k, v, do, lse, delta, causal, tols, tag, failures):
     }
 
 
+def library_backward(fa, q, k, v, do) -> dict:
+    """The backward pair's yardstick: one call of aten's flash-attention
+    backward, which computes dq, dk and dv together (the port never calls
+    it), on [B, H, L, D] views of the same bf16 inputs, causal. Its
+    gradients are held against plain_dq / plain_dkv fed its own lse and o;
+    it is timed beside attention_delta + flash_dq + flash_dkv on the same
+    lse and o. No single kernel's row carries it: returns both times as
+    the kernels line's `backward_pair`."""
+    aten = torch.ops.aten
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = (
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+    )
+
+    def call():
+        return aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset
+        )
+
+    o = out.transpose(1, 2).contiguous()
+    lse = lse[..., : q.shape[1]].contiguous()
+    delta = fa.attention_delta(do, o)
+    failures = []
+    readings = check_close(
+        "aten flash backward", [g.transpose(1, 2) for g in call()],
+        (fa.plain_dq(q, k, v, do, lse, delta, True), *fa.plain_dkv(q, k, v, do, lse, delta, True)),
+        (BF16_TOL["grad"],) * 3, failures,
+    )
+    if failures:
+        raise AssertionError("the backward yardstick disagrees with the plain versions:\n"
+                             + "\n".join(failures))
+
+    def kernels():
+        d = fa.attention_delta(do, o)
+        fa.flash_dq(q, k, v, do, lse, d, True)
+        fa.flash_dkv(q, k, v, do, lse, d, True)
+
+    library_ms, kernels_ms = time_ms(call), time_ms(kernels)
+    print(f"library yardstick aten._scaled_dot_product_flash_attention_backward "
+          f"(causal) {tuple(qt.shape)} bf16, dq, dk, dv in one call: {library_ms:.4f} ms "
+          f"(vs plain (dq, dk, dv) {reading_text(readings)}); kernels attention_delta + "
+          f"flash_dq + flash_dkv: {kernels_ms:.4f} ms")
+    return {"library_call": "aten._scaled_dot_product_flash_attention_backward",
+            "library_ms": library_ms, "kernels_ms": kernels_ms}
+
+
 def phase_kernels(fa):
     """Kernel vs plain version on the card; returns the per-kernel rows
-    (without launches) at the slice's shapes. Prints every check's
+    (without launches) at the slice's shapes and the backward pair's
+    yardstick. Prints every check's
     readings (max |err| and share of the limit, per output) and raises
     after the last if any was beyond its limit."""
     import torch.nn.functional as F
@@ -206,6 +261,7 @@ def phase_kernels(fa):
 
     # the slice's shapes (bf16) stay from the loop's last pass
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pair = library_backward(fa, q, k, v, do)
     timings = {
         "flash_forward": (
             time_ms(lambda: fa.flash_forward(q, k, v, True)),
@@ -223,20 +279,9 @@ def phase_kernels(fa):
             None,
         ),
     }
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
-    dot = do.transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(out, (qg, kg, vg), dot)
-
-    sdpa_fwd = timings["flash_forward"][2]
-    sdpa_bwd = time_ms(sdpa_fwd_bwd) - sdpa_fwd
     print(f"library yardstick F.scaled_dot_product_attention(is_causal=True) "
-          f"{tuple(qt.shape)} bf16: forward {sdpa_fwd:.4f} ms, backward "
-          f"(forward+backward - forward) {sdpa_bwd:.4f} ms; kernels: forward "
-          f"{timings['flash_forward'][0]:.4f} ms, dq + dk+dv "
-          f"{timings['flash_dq'][0] + timings['flash_dkv'][0]:.4f} ms")
+          f"{tuple(qt.shape)} bf16: forward {timings['flash_forward'][2]:.4f} ms; "
+          f"kernel {timings['flash_forward'][0]:.4f} ms")
 
     rows = {}
     for name, (ops, nbytes) in bounds(BATCH, SEQ, SLICE["n_heads"], 64).items():
@@ -258,7 +303,7 @@ def phase_kernels(fa):
         print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
               f"{rows[name]['bound_ms']:.4f} ms by {rows[name]['bound_by']}, "
               f"share {rows[name]['bound_share']:.3f}, {ops / ms / 1e9:.1f} TFLOP/s)")
-    return rows
+    return rows, pair
 
 
 def check_ptxas(log: str):
@@ -429,14 +474,14 @@ def main() -> int:
     with open(os.path.join(build.BUILD_DIR, "flash_attention.log")) as f:
         check_ptxas(f.read())
 
-    rows = phase_kernels(fa)
+    rows, pair = phase_kernels(fa)
     phase_model_reference()
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_train(fa, tmp)
         phase_profile(tmp)
     for name, row in rows.items():
         row["launches"] = launches[name]
-    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"kernels": list(rows.values()), "backward_pair": pair}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,21 +28,21 @@
 //
 // Two designs, chosen by dtype in the C entry points, never on failure:
 //
-// - bfloat16 forward and dk+dv (`fa_fwd_bf16_kernel`,
+// - bfloat16 (`fa_fwd_bf16_kernel`, `fa_dq_bf16_kernel`,
 //   `fa_dkv_bf16_kernel`): the products run on the tensor cores
 //   (`mma.sync.m16n8k16` bf16 x bf16 -> f32). Streamed tiles stay bf16 in
 //   shared memory (8 KB per 64 x 64 tile, 16-byte chunks XOR-swizzled by
 //   row so `ldmatrix` reads are free of bank conflicts) and arrive by
 //   16-byte `cp.async` into a three-stage ring, the next tiles' copies in
 //   flight while the current one is multiplied. Each of 4 warps owns 32
-//   q rows (forward) or 16 k rows (dk+dv); the score accumulator of m16n8
-//   is the A-operand layout of m16n8k16, so p (and ds) are rounded to
-//   bf16 and fed to the next product from registers, with no trip
-//   through shared memory.
-// - float32 (all three kernels) and the bfloat16 dq kernel: float32 FMAs
-//   on the CUDA cores, 256 threads with a 4x4 register tile each over
-//   float32 tiles padded to 68 floats. The tensor cores would take f32
-//   only as TF32 (about 3 decimal digits), so f32 stays on this path.
+//   q rows (forward), 16 q rows (dq) or 16 k rows (dk+dv); the score
+//   accumulator of m16n8 is the A-operand layout of m16n8k16, so p and ds
+//   are rounded to bf16 and fed to the next product from registers, with
+//   no trip through shared memory.
+// - float32 (all three kernels): float32 FMAs on the CUDA cores, 256
+//   threads with a 4x4 register tile each over float32 tiles padded to 68
+//   floats. The tensor cores would take f32 only as TF32 (about 3 decimal
+//   digits), so f32 stays on this path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,34 +57,16 @@ constexpr int NT = 256;          // threads per block: a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;
 constexpr size_t TILE_BYTES = sizeof(float) * T64 * LD;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T's precision, back in float32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
 __device__ __forceinline__ size_t gidx(int b, int l, int h, int d, int L, int H) {
   return (((size_t)b * L + l) * H + h) * D + d;
 }
 
-// rows [row0, row0 + 64) of head (b, h) -> s[r * LD + d] in float32
-template <typename T>
-__device__ __forceinline__ void load_tile(float* s, const T* g, int b, int h, int row0,
+// rows [row0, row0 + 64) of head (b, h) -> s[r * LD + d]
+__device__ __forceinline__ void load_tile(float* s, const float* g, int b, int h, int row0,
                                           int L, int H) {
   for (int idx = threadIdx.x; idx < T64 * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    s[r * LD + d] = to_f32<T>(g[gidx(b, row0 + r, h, d, L, H)]);
+    s[r * LD + d] = g[gidx(b, row0 + r, h, d, L, H)];
   }
 }
 
@@ -177,7 +159,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(const float* __restrict__ q,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = qt * T64;
 
-  load_tile<float>(Qs, q, b, h, q0, L, H);
+  load_tile(Qs, q, b, h, q0, L, H);
   float m[4], l[4], acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -190,8 +172,8 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(const float* __restrict__ q,
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * T64;
     __syncthreads();  // the previous tile's reads of Ks/Vs/Ps are done
-    load_tile<float>(Ks, k, b, h, k0, L, H);
-    load_tile<float>(Vs, v, b, h, k0, L, H);
+    load_tile(Ks, k, b, h, k0, L, H);
+    load_tile(Vs, v, b, h, k0, L, H);
     __syncthreads();
     float s[4][4];
     zero(s);
@@ -234,15 +216,15 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(const float* __restrict__ q,
 
 // dq; replaces `_dq_kernel` (elasticdl_tpu/ops/flash_attention.py:161).
 // grid (L/64, B*H): one block per (head, 64-row q tile); k/v tiles stream.
-// Bound at the slice's shapes: operations (~0.013 ms).
-template <typename T>
-__global__ void __launch_bounds__(NT) fa_dq_kernel(const T* __restrict__ q,
-                                                   const T* __restrict__ k,
-                                                   const T* __restrict__ v,
-                                                   const T* __restrict__ dout,
+// Bound at the slice's shapes: operations (~0.013 ms). Float32 only:
+// bfloat16 takes the tensor-core `fa_dq_bf16_kernel` below.
+__global__ void __launch_bounds__(NT) fa_dq_kernel(const float* __restrict__ q,
+                                                   const float* __restrict__ k,
+                                                   const float* __restrict__ v,
+                                                   const float* __restrict__ dout,
                                                    const float* __restrict__ lse,
                                                    const float* __restrict__ delta,
-                                                   T* __restrict__ dq, int L, int H,
+                                                   float* __restrict__ dq, int L, int H,
                                                    int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -254,8 +236,8 @@ __global__ void __launch_bounds__(NT) fa_dq_kernel(const T* __restrict__ q,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = qt * T64;
 
-  load_tile<T>(Qs, q, b, h, q0, L, H);
-  load_tile<T>(dOs, dout, b, h, q0, L, H);
+  load_tile(Qs, q, b, h, q0, L, H);
+  load_tile(dOs, dout, b, h, q0, L, H);
   float lse_r[4], delta_r[4], acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -268,8 +250,8 @@ __global__ void __launch_bounds__(NT) fa_dq_kernel(const T* __restrict__ q,
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * T64;
     __syncthreads();
-    load_tile<T>(Ks, k, b, h, k0, L, H);
-    load_tile<T>(Vs, v, b, h, k0, L, H);
+    load_tile(Ks, k, b, h, k0, L, H);
+    load_tile(Vs, v, b, h, k0, L, H);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -283,8 +265,7 @@ __global__ void __launch_bounds__(NT) fa_dq_kernel(const T* __restrict__ q,
         float x = s[i][j] * scale;
         if (causal && q0 + ty * 4 + i < k0 + tx + 16 * j) x = NEG_INF;
         const float p = expf(x - lse_r[i]);
-        DSs[(ty * 4 + i) * LD + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - delta_r[i]) * scale);
+        DSs[(ty * 4 + i) * LD + tx + 16 * j] = p * (dp[i][j] - delta_r[i]) * scale;
       }
     __syncthreads();
     mm_nn(DSs, Ks, acc, ty, tx);
@@ -293,7 +274,7 @@ __global__ void __launch_bounds__(NT) fa_dq_kernel(const T* __restrict__ q,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      dq[gidx(b, q0 + ty * 4 + i, h, tx * 4 + j, L, H)] = from_f32<T>(acc[i][j]);
+      dq[gidx(b, q0 + ty * 4 + i, h, tx * 4 + j, L, H)] = acc[i][j];
 }
 
 // dk and dv; replaces `_dkv_kernel` (elasticdl_tpu/ops/flash_attention.py:204).
@@ -323,8 +304,8 @@ __global__ void __launch_bounds__(NT) fa_dkv_kernel(const float* __restrict__ q,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int k0 = kt * T64;
 
-  load_tile<float>(Ks, k, b, h, k0, L, H);
-  load_tile<float>(Vs, v, b, h, k0, L, H);
+  load_tile(Ks, k, b, h, k0, L, H);
+  load_tile(Vs, v, b, h, k0, L, H);
   float dk_acc[4][4], dv_acc[4][4];
   zero(dk_acc);
   zero(dv_acc);
@@ -332,8 +313,8 @@ __global__ void __launch_bounds__(NT) fa_dkv_kernel(const float* __restrict__ q,
   for (int qt = causal ? kt : 0; qt < L / T64; ++qt) {
     const int q0 = qt * T64;
     __syncthreads();
-    load_tile<float>(Qs, q, b, h, q0, L, H);
-    load_tile<float>(dOs, dout, b, h, q0, L, H);
+    load_tile(Qs, q, b, h, q0, L, H);
+    load_tile(dOs, dout, b, h, q0, L, H);
     if (threadIdx.x < T64) {
       lse_s[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
       delta_s[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
@@ -661,6 +642,111 @@ __global__ void __launch_bounds__(NT_TC) fa_fwd_bf16_kernel(
   }
 }
 
+// dq, bfloat16; replaces `_dq_kernel`
+// (elasticdl_tpu/ops/flash_attention.py:161). Bound at the slice's
+// shapes: operations (~0.013 ms), three products per (q, k) pair, so the
+// design keeps all three on the tensor cores: each warp loads the Q and
+// dO fragments of its 16 q rows into registers once (with its rows' lse,
+// in base 2, and delta), k/v tiles arrive through the three-stage
+// cp.async ring, and per tile the warp forms s = q.k^T and dp = do.v^T,
+// then p = exp(s scale - lse) and ds = p (dp - delta) scale on the
+// accumulator fragments, and feeds ds, rounded to bf16, from registers
+// into dQ += ds.k (k by transposing ldmatrix from the same stage), so no
+// shared-memory round trip or extra __syncthreads sits between the
+// products. A k tile wholly after a warp's last row is skipped. 4 warps,
+// 64 q rows a block, grid (B*H, L/64); causal blocks take q tiles
+// last-first, so the longest are dispatched first. Two blocks an SM
+// (198 registers): ptxas spills at a minimum of three blocks (168
+// registers) and, oddly, with no minimum given.
+__global__ void __launch_bounds__(NT_TC, 2) fa_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int L, int H, int causal,
+    float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + TILE;
+  bf16* Ks = dOs + TILE;          // STAGES tiles
+  bf16* Vs = Ks + STAGES * TILE;  // STAGES tiles
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int n_qt = L / T64;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) * T64;
+  const int n_k = (causal ? q0 + T64 : L) / T64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = q0 + warp * 16;  // this warp's first q row
+  const int row = lane >> 2, col = 2 * (lane & 3);  // of element 0, within a 16 x 8 tile
+  const float sl2 = scale * LOG2E;
+
+  cp_tile(Qs, q, b, h, q0, L, H);
+  cp_tile(dOs, dout, b, h, q0, L, H);
+  // k/v tiles 0 .. STAGES-2 in flight, one commit group each (q and do
+  // join the first)
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_k) {
+      cp_tile(Ks + t * TILE, k, b, h, t * T64, L, H);
+      cp_tile(Vs + t * TILE, v, b, h, t * T64, L, H);
+    }
+    cp_commit();
+  }
+
+  // lse (base 2) and delta of this thread's rows w0 + row, w0 + row + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = lse[(size_t)bh * L + w0 + row + 8 * i] * LOG2E;
+    dl[i] = delta[(size_t)bh * L + w0 + row + 8 * i];
+  }
+  unsigned qa[4][4], doa[4][4];
+  float acc[8][4];
+  zero8(acc);
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt % STAGES, k0 = kt * T64;
+    cp_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();        // ... everyone's, and the stage read at kt-1 is free
+    const int nt = kt + STAGES - 1, ns = nt % STAGES;
+    if (nt < n_k) {
+      cp_tile(Ks + ns * TILE, k, b, h, nt * T64, L, H);
+      cp_tile(Vs + ns * TILE, v, b, h, nt * T64, L, H);
+    }
+    cp_commit();  // possibly empty, so that every iteration commits one group
+    if (kt == 0) {
+      load_a(qa, Qs, warp * 16);
+      load_a(doa, dOs, warp * 16);
+    }
+
+    // a k tile wholly after this warp's last row adds nothing to it
+    if (!(causal && k0 > w0 + 15)) {
+      const bf16* Kt = Ks + st * TILE;
+      float s[8][4], dp[8][4];  // s then ds; dp
+      zero8(s);
+      zero8(dp);
+      mm_a_bt<1>(&s, &qa, Kt);
+      mm_a_bt<1>(&dp, &doa, Vs + st * TILE);
+
+      const bool part = causal && k0 + T64 - 1 > w0;  // some (q, k) pairs are masked
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+          if (part && w0 + row + (e >> 1) * 8 < k0 + j * 8 + col + (e & 1)) p = 0.f;  // q before k
+          s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        unsigned a[4];
+        acc_to_a(a, s[2 * kk], s[2 * kk + 1]);  // ds rounded to bf16
+        mm_a_b<1>(&acc, &a, Kt, kk * 16);
+      }
+    }
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq, acc, one, b, h, w0, L, H);
+}
+
 // dk and dv, bfloat16; replaces `_dkv_kernel`
 // (elasticdl_tpu/ops/flash_attention.py:204). Bound at the slice's
 // shapes: operations (~0.017 ms), four products per (q, k) pair, so the
@@ -782,18 +868,17 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* l
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int L, int H, int causal, float scale,
-              cudaStream_t stream) {
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int B, int L, int H, int causal,
+                  float scale, cudaStream_t stream) {
   const size_t smem = 5 * TILE_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(fa_dq_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(fa_dq_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fa_dq_kernel<T><<<dim3(L / T64, B * H), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), L, H, causal, scale);
+  fa_dq_kernel<<<dim3(L / T64, B * H), NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), L, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -826,6 +911,21 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* 
   return (int)cudaGetLastError();
 }
 
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int B, int L, int H, int causal,
+                   float scale, cudaStream_t stream) {
+  // q and do tiles of the block and the k/v stages: 64 KB
+  const size_t smem = (2 + 2 * STAGES) * TILE * sizeof(bf16);
+  cudaError_t e = cudaFuncSetAttribute(fa_dq_bf16_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fa_dq_bf16_kernel<<<dim3(B * H, L / T64), NT_TC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), L, H, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int L, int H,
                     int causal, float scale, cudaStream_t stream) {
@@ -845,8 +945,8 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dou
 }  // namespace
 
 // C entry points. dtype: 0 = float32, 1 = bfloat16; the dtype alone picks
-// the kernel (forward and dk+dv: the CUDA-core kernel for float32, the
-// tensor-core kernel for bfloat16). Each returns the cudaError_t of the
+// the kernel (the CUDA-core kernel for float32, the tensor-core kernel for
+// bfloat16). Each returns the cudaError_t of the
 // launch (0 on success); the kernel runs on `stream`.
 extern "C" {
 
@@ -864,10 +964,8 @@ int edl_fa_dq(const void* q, const void* k, const void* v, const void* dout, con
               int dtype, void* stream) {
   if (bad_shape(B, L, H, Dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, s);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, s);
+  if (dtype == 0) return launch_dq_f32(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, s);
+  if (dtype == 1) return launch_dq_bf16(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,11 +5,11 @@ softmax(QK^T)V over [B, L, H, D] tensors. Three CUDA kernels in
 `csrc/flash_attention.cu` replace the reference's three Pallas TPU
 kernels (elasticdl_tpu/ops/flash_attention.py):
 
-| wrapper         | kernel          | replaces                        |
-| --------------- | --------------- | ------------------------------- |
-| `flash_forward` | `fa_fwd_kernel` | `_fa_kernel` (:79), forward     |
-| `flash_dq`      | `fa_dq_kernel`  | `_dq_kernel` (:161), dq         |
-| `flash_dkv`     | `fa_dkv_kernel` | `_dkv_kernel` (:204), dk and dv |
+| wrapper         | bfloat16 kernel      | float32 kernel  | replaces                        |
+| --------------- | -------------------- | --------------- | ------------------------------- |
+| `flash_forward` | `fa_fwd_bf16_kernel` | `fa_fwd_kernel` | `_fa_kernel` (:79), forward     |
+| `flash_dq`      | `fa_dq_bf16_kernel`  | `fa_dq_kernel`  | `_dq_kernel` (:161), dq         |
+| `flash_dkv`     | `fa_dkv_bf16_kernel` | `fa_dkv_kernel` | `_dkv_kernel` (:204), dk and dv |
 
 The forward keeps the [L, L] scores out of device memory with the
 online-softmax accumulator and also writes lse = m + log l; the backward
@@ -24,9 +24,9 @@ over the three; `attention` is the dispatcher model code calls.
 
 Layout: [B, L, H, D] ("blhd"); compute is float32, operands float32 or
 bfloat16. The kernels take D = 64 and L a multiple of BLOCK. The C
-entry points pick a kernel by dtype: for bfloat16 the forward and dk+dv
-run their products on the tensor cores, for float32 every kernel stays
-on the CUDA cores (the tensor cores would round f32 to TF32).
+entry points pick a kernel by dtype: for bfloat16 all three run their
+products on the tensor cores, for float32 all three stay on the CUDA
+cores (the tensor cores would round f32 to TF32).
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ reference test's own bound); bfloat16 operands 2e-2 absolute+relative,
 about two bf16 ulps at the outputs' magnitude.
 """
 
+import math
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,7 @@ from elasticdl_tpu.ops import flash_attention as jfa
 from elasticdl_tpu_torch.ops import flash_attention as tfa
 from _torch_threads import two_torch_threads  # noqa: F401 (autouse fixture)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(atol=2e-5, rtol=2e-5)
 F32_GRAD = dict(atol=5e-4, rtol=5e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
@@ -107,6 +112,47 @@ def test_plain_forward_matches_pallas_kernel_at_kernel_width(causal, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_pallas_kernels_at_kernel_width(causal, dtype):
     _check_plain_backward(causal, 256, dtype, d=tfa.HEAD_DIM, seed=7)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_reference_vjp_at_half_empty_tile(causal):
+    """plain_dq / plain_dkv against jax.vjp of the reference's
+    materializing attention at [1, 192, 3, 64] float32: L a multiple of 64
+    but not of 128, so a 128-row kernel tile is half empty, and B*H odd.
+    chip_smoke.py holds the CUDA kernels against these plain versions at
+    this shape; the Pallas kernels take only L % 128 == 0, so the
+    reference's math is the counterpart here, and lse and o come from it
+    too."""
+    L = 192
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(L, "float32", b=1, h=3, d=64, seed=8)
+    jo, vjp = jax.vjp(
+        lambda q, k, v: jfa.reference_attention(q, k, v, causal=causal), jq, jk, jv
+    )
+    s = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) / math.sqrt(64)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((L, L), dtype=bool)), s, -1e30)
+    lse = torch.from_numpy(_np(jax.nn.logsumexp(s, axis=-1)))  # [B, H, L]
+    delta = tfa.attention_delta(tdo, torch.from_numpy(_np(jo)))
+    got = (tfa.plain_dq(tq, tk, tv, tdo, lse, delta, causal),
+           *tfa.plain_dkv(tq, tk, tv, tdo, lse, delta, causal))
+    for g, want in zip(got, vjp(jdo)):
+        assert g.dtype == torch.float32 and g.shape == tq.shape
+        _close(g, want, F32_GRAD)
+
+
+def test_every_tensor_core_kernel_is_held_to_no_spills():
+    """chip_smoke.py fails a run whose tensor-core kernels spill: each
+    `__global__ ..._bf16_kernel` of the CUDA source is in its NO_SPILL."""
+    import chip_smoke
+
+    with open(os.path.join(REPO, "elasticdl_tpu_torch", "ops", "csrc", "flash_attention.cu")) as f:
+        names = re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", f.read()
+        )
+    assert {"fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel"} <= set(names)
+    tensor_core = {n for n in names if n.endswith("_bf16_kernel")}
+    assert "fa_dq_bf16_kernel" in tensor_core
+    assert tensor_core <= set(chip_smoke.NO_SPILL)
 
 
 @pytest.mark.parametrize("causal", [True, False])
