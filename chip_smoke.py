@@ -26,7 +26,19 @@ its result lines only when every phase passed:
    checks the exactness block, the losses, the kernels' launch counts
    and that the parameters moved; then profiles a short second run for
    the device time by kernel;
-5. prints the kernels' JSON line (one row per kernel; the backward
+5. process mode (`phase_process_job`): the port's `master.main` with two
+   `elasticdl_tpu_torch.worker.main` subprocesses on the card, over the
+   TCP transport, trains the same model for 16 updates (2 shards of 64
+   records); checks the exit code, the `--output` version, that the
+   parameters are finite and moved, and each worker's summary line
+   (device, accepted steps, and each kernel launched n_layers times per
+   step computed);
+6. preemption (`phase_preemption`): the same model, 2 workers and 4
+   shards, with the master's parts driven directly; worker 0 is
+   SIGKILLed once it holds a task, and the job must recover its tasks,
+   relaunch a worker with a fresh id, finish without failed tasks and
+   keep the exactness block;
+7. prints the kernels' JSON line (one row per kernel; the backward
    pair's yardstick once, as `backward_pair`, since no single kernel's
    row matches it), the card line, and the result line.
 
@@ -34,10 +46,12 @@ Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.
 """
 
+import contextlib
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -69,6 +83,10 @@ PEAK_BYTES = 3.35e12
 
 SLICE = dict(vocab=8192, d_model=512, n_heads=8, d_ff=2048, n_layers=8)
 BATCH, SEQ, STEPS = 8, 1024, 8
+# process mode: shards of 64 records, tasks of 32 (4 minibatches)
+SHARD_RECORDS, TASK_RECORDS = 64, 32
+ZOO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "elasticdl_tpu_torch", "models")
+KERNELS = ("flash_forward", "flash_dq", "flash_dkv")
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 # kernels that must not spill (ptxas's report): the tensor-core ones
 NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel")
@@ -104,6 +122,10 @@ def time_ms(fn, iters: int = 20, batches: int = 5) -> float:
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / iters)
     return statistics.median(means)
+
+
+def rounded(c) -> dict:
+    return {k: round(v, 3) for k, v in c.items()}
 
 
 def check_close(name, got, want, tols, failures) -> list:
@@ -407,7 +429,6 @@ def phase_train(fa, tmp):
     times = [t for t, _loss in worker.step_log]
     tokens = BATCH * SEQ
     steady = (len(times) - 1) * tokens / (times[-1] - times[0])
-    rounded = lambda c: {k: round(v, 3) for k, v in c.items()}  # noqa: E731
     print(f"slice throughput: {STEPS * tokens / wall:.1f} tokens/s over the whole "
           f"run ({wall:.2f} s incl. model init), {steady:.1f} tokens/s over "
           f"steps 2-{STEPS}")
@@ -453,6 +474,207 @@ def phase_profile(tmp):
               f"{e.count // len(times):4d}x  {e.key[:90]}")
 
 
+def write_shards(data_dir, n_files):
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+
+    os.makedirs(data_dir)
+    for i in range(n_files):
+        write_learnable_token_records(os.path.join(data_dir, f"shard-{i}.rio"),
+                                      SHARD_RECORDS, SEQ, SLICE["vocab"], seed=i)
+
+
+def master_argv(data_dir, num_workers, output):
+    """The port's master command line for the slice's model on the card."""
+    params = ",".join(f"{k}={v}" for k, v in SLICE.items()) + ",dtype=bfloat16"
+    return [
+        "--model_zoo", ZOO, "--model_def", "transformer_lm_zoo.custom_model",
+        "--model_params", params, "--minibatch_size", str(BATCH),
+        "--training_data_dir", data_dir, "--records_per_task", str(TASK_RECORDS),
+        "--num_epochs", "1", "--grads_to_wait", "1", "--num_workers", str(num_workers),
+        "--worker_backend", "process", "--device", "cuda", "--output", output,
+    ]
+
+
+@contextlib.contextmanager
+def logs_on_failure(log_dir):
+    """On an error, print the end of each worker's log before raising."""
+    try:
+        yield
+    except BaseException:
+        for name in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []:
+            with open(os.path.join(log_dir, name)) as f:
+                print(f"--- {name}, last lines:\n" + "".join(f.readlines()[-25:]))
+        raise
+
+
+def steady_tokens_per_s(summaries) -> float:
+    """Tokens/s between the first and the last accepted step of all
+    workers (perf_counter is the host's monotonic clock in every process)."""
+    times = sorted(t for s in summaries.values() for t in s["accepted_at"])
+    return (len(times) - 1) * BATCH * SEQ / (times[-1] - times[0])
+
+
+def check_params(params, what):
+    """Finite, and moved from both workers' lazy inits (seeds 0 and 1)."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+
+    flat = codec.ravel_np(params)
+    if not np.isfinite(flat).all():
+        raise AssertionError(f"{what}: the parameters are not finite")
+    model = zoo.custom_model(**SLICE)
+    for seed in (0, 1):
+        if np.array_equal(flat, codec.ravel_np(model.init_params(seed))):
+            raise AssertionError(f"{what}: the parameters did not move from init {seed}")
+
+
+def phase_process_job(tmp) -> dict:
+    """`python -m elasticdl_tpu_torch.master.main ... --worker_backend
+    process`, run in this process through `run(argv)`: 2 worker
+    processes on the card, 2 shards of 64 records, 16 updates. Returns
+    the kernels' launches summed over the workers."""
+    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    data, log_dir = os.path.join(tmp, "process-data"), os.path.join(tmp, "process-logs")
+    with logs_on_failure(log_dir):
+        output = os.path.join(tmp, "process.ckpt")
+        write_shards(data, 2)
+        steps = 2 * SHARD_RECORDS // BATCH
+        os.environ[ENV_WORKER_LOG_DIR] = log_dir
+        try:
+            t0 = time.perf_counter()
+            rc, master = master_main.run(master_argv(data, 2, output))
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ[ENV_WORKER_LOG_DIR]
+        if rc != 0:
+            raise AssertionError(f"master.main exited {rc}")
+        model = load_model_file(output)
+        if model.version != steps:
+            raise AssertionError(f"--output version {model.version}, {steps} expected")
+        check_params(model.params, "process job")
+        summaries = read_summaries(log_dir)
+        card = torch.cuda.get_device_name(0)
+        if sorted(summaries) != [0, 1]:
+            raise AssertionError(f"worker summaries of {sorted(summaries)}, of [0, 1] expected")
+        accepted = sum(s["steps_accepted"] for s in summaries.values())
+        if accepted != steps:
+            raise AssertionError(f"the workers' accepted steps sum to {accepted}, not {steps}")
+        for wid, s in summaries.items():
+            want = SLICE["n_layers"] * s["steps_computed"]
+            if s["device"] != card:
+                raise AssertionError(f"worker {wid} ran on {s['device']!r}, not {card!r}")
+            if any(s["launches"][k] != want for k in KERNELS):
+                raise AssertionError(f"worker {wid} launches {s['launches']}, {want} each "
+                                     f"expected ({s['steps_computed']} steps computed)")
+        exactness = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
+        print(f"process job: rc {rc}, version {model.version}, {wall:.2f} s, "
+              f"{steps * BATCH * SEQ / wall:.1f} tokens/s over the whole run (worker boot "
+              f"included), {steady_tokens_per_s(summaries):.1f} tokens/s between the first "
+              f"and last accepted steps; exactness {exactness}")
+        for wid, s in summaries.items():
+            recomputes = s["steps_computed"] - s["steps_accepted"]
+            print(f"process job worker {wid} on {s['device']}: {s['steps_accepted']} steps "
+                  f"accepted, {s['steps_computed']} computed ({recomputes} stale recomputes), "
+                  f"phase seconds {rounded(s['phase_seconds'])}, client seconds "
+                  f"{rounded(s['rpc_seconds'])} (codec {rounded(s['rpc_codec_seconds'])}), "
+                  f"launches {s['launches']}")
+        server = master["server"]
+        print(f"process job master: server handler seconds {rounded(server['handler_seconds'])}, "
+              f"codec seconds {rounded(server['codec_seconds'])}, calls {server['calls']}")
+        # the socket hop: each method's client wall clock less the client's
+        # codec and the server's handler and codec time, over both workers
+        hop = {
+            m: sum(s["rpc_seconds"].get(m, 0.0) - s["rpc_codec_seconds"].get(m, 0.0)
+                   for s in summaries.values())
+            - server["handler_seconds"][m] - server["codec_seconds"][m]
+            for m in server["calls"]
+        }
+        print(f"process job socket hop (s, both workers): {rounded(hop)}")
+        return {k: sum(s["launches"][k] for s in summaries.values()) for k in KERNELS}
+
+
+def phase_preemption(tmp):
+    """2 workers on the card over 4 shards (32 minibatches); worker 0 is
+    SIGKILLed once it holds a task. The master's parts are driven
+    directly, as master.main wires them."""
+    from elasticdl_tpu_torch.cluster.pod_backend import ProcessBackend
+    from elasticdl_tpu_torch.common.args import master_parser, parse_envs, worker_forward_args
+    from elasticdl_tpu_torch.master.main import build_master
+    from elasticdl_tpu_torch.master.worker_manager import WorkerManager
+    from elasticdl_tpu_torch.rpc.server import RpcServer
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    data, log_dir = os.path.join(tmp, "preempt-data"), os.path.join(tmp, "preempt-logs")
+    with logs_on_failure(log_dir):
+        write_shards(data, 4)
+        minibatches = 4 * SHARD_RECORDS // BATCH
+        args = master_parser().parse_args(master_argv(data, 2, ""))
+        _spec, dispatcher, servicer = build_master(args)
+        server = RpcServer(servicer.handlers(), port=0)
+        server.start()
+        addr = f"localhost:{server.port}"
+        backend = ProcessBackend(log_dir=log_dir)
+        manager = WorkerManager(backend, dispatcher, num_workers=2,
+                                worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
+                                envs=parse_envs(args.envs), max_relaunches=4)
+        t0 = time.perf_counter()
+        manager.start_workers()
+        try:
+            deadline = time.monotonic() + 300
+            holds, victim = [], None
+            while time.monotonic() < deadline:
+                with dispatcher._lock:
+                    holds = [t for t, (wid, _) in dispatcher._doing.items() if wid == 0]
+                victim = backend.pid_of(0)
+                if holds and victim:
+                    break
+                time.sleep(0.02)
+            if not (holds and victim):
+                raise AssertionError("worker 0 never held a task")
+            os.kill(victim, signal.SIGKILL)
+            killed_at = time.perf_counter()
+            deadline = time.monotonic() + 600
+            while not dispatcher.finished() and time.monotonic() < deadline:
+                time.sleep(0.2)
+            wall = time.perf_counter() - t0
+            deadline = time.monotonic() + 60
+            while not manager.all_exited() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            finished, failed = dispatcher.finished(), dispatcher.has_failed_tasks()
+            relaunches, phases = manager.relaunches(), manager.phases()
+        finally:
+            manager.stop_relaunch_and_remove_workers()
+            backend.stop()
+            server.stop()
+        ex = servicer.exactness()
+        summaries = read_summaries(log_dir)
+        losses = [x for s in summaries.values() for x in s["losses"]]
+        replacement = summaries.get(2, {}).get("accepted_at", [])
+        print(f"preemption: worker 0 (pid {victim}) SIGKILLed holding task(s) {holds}; "
+              f"finished {finished} in {wall:.2f} s, failed tasks {failed}, relaunches "
+              f"{relaunches}, phases {phases}, exactness {ex}; replacement's first accepted "
+              + (f"step {replacement[0] - killed_at:.2f} s after the kill" if replacement
+                 else "step: none (the survivor finished the job)"))
+        for wid, s in summaries.items():
+            print(f"preemption worker {wid}: {s['steps_accepted']} accepted, "
+                  f"{s['steps_computed']} computed, launches {s['launches']}")
+        if not finished or failed:
+            raise AssertionError(f"the job did not finish cleanly (failed tasks: {failed})")
+        if relaunches < 1 or 2 not in phases:
+            raise AssertionError(f"no replacement with a fresh id: {relaunches}, {phases}")
+        if ex["version"] != ex["init_version"] + ex["applied_update_steps"]:
+            raise AssertionError(f"exactness block broken: {ex}")
+        if ex["applied_update_steps"] < minibatches:
+            raise AssertionError(f"{ex['applied_update_steps']} updates, {minibatches} expected")
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"losses not finite: {losses}")
+        check_params(servicer.get_params_copy()[0], "preemption job")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -479,8 +701,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_train(fa, tmp)
         phase_profile(tmp)
+        torch.cuda.empty_cache()  # leave the card's memory to the workers
+        process_launches = phase_process_job(tmp)
+        phase_preemption(tmp)
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["process_launches"] = process_launches[name]
     print(json.dumps({"kernels": list(rows.values()), "backward_pair": pair}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Wire messages for the master<->worker protocol.
 
 The reference's request/response dicts and its `Task`/`Model`
-dataclasses, serialized through this package's codec. The slice speaks
-GetTask, ReportTaskResult, GetModel, ReportVariable and ReportGradient.
+dataclasses, serialized through this package's codec. The port speaks
+GetTask, ReportTaskResult, GetModel, ReportVariable, ReportGradient and
+GetPSConfig.
 """
 
 from __future__ import annotations

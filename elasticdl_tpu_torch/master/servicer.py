@@ -69,6 +69,7 @@ class MasterServicer:
             "GetModel": self.get_model,
             "ReportVariable": self.report_variable,
             "ReportGradient": self.report_gradient,
+            "GetPSConfig": self.get_ps_config,
         }
 
     # -- model state --------------------------------------------------------
@@ -87,6 +88,10 @@ class MasterServicer:
                 "applied_update_steps": self._applied_update_steps,
             }
 
+    def model_initialized(self) -> bool:
+        with self._lock:
+            return self._params is not None
+
     def get_params_copy(self):
         with self._lock:
             return (
@@ -94,6 +99,13 @@ class MasterServicer:
                 _copy(self._aux) if self._aux is not None else None,
                 self._version,
             )
+
+    def save_latest_checkpoint(self, output_path: str):
+        """The final model, as `--output` (single PS)."""
+        from elasticdl_tpu_torch.master.checkpoint import save_model_file
+
+        with self._lock:
+            save_model_file(output_path, self._params, self._version, aux=self._aux)
 
     # -- RPC: tasks ---------------------------------------------------------
 
@@ -114,6 +126,11 @@ class MasterServicer:
             logger.warning("Worker reported error: %s", err)
         self._task_d.report(req["task_id"], not err, worker_id=req.get("worker_id"))
         return {}
+
+    def get_ps_config(self, req: dict) -> dict:
+        """Shard discovery for a booting worker: the master is the single
+        PS, so there are no PS or KV shard endpoints."""
+        return {"endpoints": [], "kv_endpoints": []}
 
     # -- RPC: model ---------------------------------------------------------
 

@@ -120,8 +120,10 @@ def plain_forward(cfg: TransformerConfig, params: Dict, tokens: torch.Tensor) ->
     _check_dense(cfg)
     dt = cfg.dtype
     b, l = tokens.shape
-    embed = params["embed"].to(dt)
-    h = embed[tokens]  # [B, L, d]
+    # F.embedding, not embed[tokens]: on the CPU, indexing's backward
+    # (index_put_ with accumulate) sums repeated tokens in an order that
+    # changes from run to run when torch runs more than one thread
+    h = F.embedding(tokens, params["embed"].to(dt))  # [B, L, d]
     positions = torch.arange(l, device=tokens.device)
     names = list(params["layers"])
     per_layer = zip(*(params["layers"][k].to(dt).unbind(0) for k in names))

@@ -5,12 +5,16 @@ it is compiled with `nvcc` for Hopper (`sm_90a`) into a shared library
 under `ops/_build/` and loaded with ctypes; the library's name carries a
 hash of the source and flags, so an edited source builds anew. The
 compiler's register and shared-memory report (`-Xptxas -v`) is kept
-beside the library as `<name>.log`.
+beside the library as `<name>.log`. Worker processes that start together
+build once: the check-and-build holds an exclusive `flock` on
+`_build/.lock`, and the compiler writes `<lib>.<pid>.tmp`, renamed into
+place when it is done.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,21 +66,25 @@ def build(name: str) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(out):
+            return out  # another process built it while this one waited
+        tmp = f"{out}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC_DIR, f"{name}.cu")
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+            capture_output=True,
+            text=True,
         )
-    with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
     return out
 
 

@@ -1,0 +1,170 @@
+"""Worker process entry point.
+
+    python -m elasticdl_tpu_torch.worker.main --worker_id 0 \\
+        --master_addr localhost:<port> --model_zoo ... --model_def ... \\
+        --minibatch_size 8 [--device cpu]
+
+The reference's worker main (`elasticdl_tpu/worker/main.py`): resolve
+the device (CUDA unless `--device cpu`: without a card the worker exits
+with the "no CUDA device" error before anything else), load the model
+spec, wait for the master, fetch its PS config (the boot handshake),
+run the task loop.
+
+Exit codes: 0 the job finished cleanly; 1 a crash;
+EXIT_CODE_JOB_FAILED (2) the master reported dropped (poison) tasks;
+EXIT_CODE_MASTER_UNREACHABLE (3) the master stayed unreachable past the
+retry budget, at boot or later (the WorkerManager relaunches it).
+
+At exit the worker logs one line, `worker summary: {json}`: its device,
+steps accepted and computed (the difference is stale recomputes), phase
+seconds, the client's seconds per method, the three attention kernels'
+launches, and each accepted step's time (`time.perf_counter()`) and
+loss.
+
+Not ported yet: the SIGTERM drain (it waits for window mode: until
+then a deleted worker dies and its task is recovered, the preemption
+path), master failover candidates and the profiler trace.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+from elasticdl_tpu_torch.common.args import worker_parser
+from elasticdl_tpu_torch.common.constants import (
+    EXIT_CODE_JOB_FAILED,
+    EXIT_CODE_MASTER_UNREACHABLE,
+)
+from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.rpc.policy import StatusCode
+
+logger = get_logger(__name__)
+
+# how long a booting worker waits for its master to listen
+BOOT_WAIT_SECONDS = 60.0
+SUMMARY_TAG = "worker summary: "
+
+
+def _is_unreachable(e: BaseException) -> bool:
+    """True when an error, or one in its cause/context chain, means the
+    master is gone past the retry budget rather than a worker bug."""
+    exc, hops = e, 0
+    while exc is not None and hops < 8:
+        code = getattr(exc, "code", lambda: None)()
+        if code in (
+            StatusCode.UNAVAILABLE,
+            StatusCode.DEADLINE_EXCEEDED,
+            StatusCode.CANCELLED,
+        ):
+            return True
+        exc = exc.__cause__ or exc.__context__
+        hops += 1
+    return False
+
+
+def _boot_handshake(client) -> dict:
+    """First master contact: wait for the listener, then ask for the PS
+    config (always empty shard lists on the port's single PS)."""
+    client.wait_ready(timeout=BOOT_WAIT_SECONDS)
+    return client.call("GetPSConfig", {})
+
+
+def _summary(worker_id, worker, client, device) -> dict:
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    return {
+        "worker_id": worker_id,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "steps_accepted": len(worker.step_log),
+        "steps_computed": worker.steps_computed,
+        "phase_seconds": dict(worker.phase_seconds),
+        "rpc_seconds": dict(client.seconds),
+        "rpc_codec_seconds": dict(client.codec_seconds),
+        "launches": {
+            w.__name__: w.launches for w in (fa.flash_forward, fa.flash_dq, fa.flash_dkv)
+        },
+        "accepted_at": [t for t, _loss in worker.step_log],
+        "losses": [loss for _t, loss in worker.step_log],
+    }
+
+
+def read_summaries(log_dir: str) -> dict:
+    """{worker id: summary} from the worker logs in `log_dir` (a worker
+    killed before its exit has none)."""
+    out = {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name)) as f:
+            for line in f:
+                if SUMMARY_TAG in line:
+                    summary = json.loads(line.split(SUMMARY_TAG, 1)[1])
+                    out[summary["worker_id"]] = summary
+    return out
+
+
+def main(argv=None) -> int:
+    args = worker_parser().parse_args(argv)
+
+    import logging
+
+    logging.getLogger().setLevel(args.log_level.upper())
+
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.rpc.client import RpcClient
+    from elasticdl_tpu_torch.worker.worker import Worker, resolve_device
+
+    device = resolve_device(args.device)
+    spec = get_model_spec(
+        model_zoo=args.model_zoo,
+        model_def=args.model_def,
+        model_params=args.model_params,
+        dataset_fn=args.dataset_fn,
+        loss=args.loss,
+        optimizer=args.optimizer,
+    )
+    client = RpcClient(args.master_addr)
+    try:
+        _boot_handshake(client)
+    except Exception as e:
+        client.close()
+        if _is_unreachable(e):
+            logger.error(
+                "master %s unreachable past the retry budget; exiting %d "
+                "for relaunch: %s",
+                args.master_addr,
+                EXIT_CODE_MASTER_UNREACHABLE,
+                e,
+            )
+            return EXIT_CODE_MASTER_UNREACHABLE
+        raise
+    worker = Worker(
+        args.worker_id, client, spec, minibatch_size=args.minibatch_size, device=device
+    )
+    unreachable = False
+    try:
+        clean = worker.run()
+    except Exception as e:
+        if not _is_unreachable(e):
+            raise
+        logger.error(
+            "master unreachable past the retry budget; exiting %d for relaunch: %s",
+            EXIT_CODE_MASTER_UNREACHABLE,
+            e,
+        )
+        unreachable = True
+        clean = False
+    finally:
+        worker.close()
+        summary = _summary(args.worker_id, worker, client, device)
+        logger.info("%s%s", SUMMARY_TAG, json.dumps(summary))
+        client.close()
+    if unreachable:
+        return EXIT_CODE_MASTER_UNREACHABLE
+    return 0 if clean else EXIT_CODE_JOB_FAILED
+
+
+if __name__ == "__main__":
+    sys.exit(main())

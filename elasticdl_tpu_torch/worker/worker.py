@@ -88,6 +88,8 @@ class Worker:
         self.task_losses: list = []  # last loss of each training task
         # (time.perf_counter() at acceptance, loss) of every accepted step
         self.step_log: list = []
+        # forward + backward passes run, stale recomputes included
+        self.steps_computed = 0
         # wall-clock seconds per phase: "compute" (forward + backward,
         # ending in the gradient's copy to the host) and "report" (the
         # ReportGradient round and the model absorb)
@@ -227,6 +229,7 @@ class Worker:
             with self._phase("compute"):
                 loss, grad = self._train_step(features, labels)
                 grad_h = grad.cpu()
+            self.steps_computed += 1
             with self._phase("report"):
                 resp, loss_h = self.report_gradient(grad_h, loss)
                 self._absorb_report_response(resp)
@@ -253,8 +256,8 @@ class Worker:
         """Task loop over TRAINING tasks (the port's dispatcher makes no
         other kind yet). Returns True on clean completion, False when the
         master reported the job finished with dropped tasks. A failure
-        inside a task is reported to the master (which requeues the
-        task) and then raised."""
+        inside a task is reported to the master, which requeues the task
+        (and drops it after its retry budget), and the loop goes on."""
         while True:
             task, finished = self.get_task()
             if task.type == TaskType.WAIT:
@@ -262,12 +265,13 @@ class Worker:
                     return not self._job_failed
                 time.sleep(0.05)
                 continue
+            err = ""
             try:
                 self._process_training_task(task)
-            except BaseException as e:
-                self.report_task_result(task.task_id, f"{type(e).__name__}: {e}")
-                raise
-            self.report_task_result(task.task_id)
+            except Exception as e:
+                logger.exception("Worker %d task %d failed", self._id, task.task_id)
+                err = f"{type(e).__name__}: {e}"
+            self.report_task_result(task.task_id, err)
 
     def close(self):
         self._readers.close()
