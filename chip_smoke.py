@@ -38,9 +38,34 @@ its result lines only when every phase passed:
    SIGKILLed once it holds a task, and the job must recover its tasks,
    relaunch a worker with a fresh id, finish without failed tasks and
    keep the exactness block;
-7. prints the kernels' JSON line (one row per kernel; the backward
+7. window mode in-process (`phase_window`): the same model with
+   `local_updates=4, sync_dtype="bfloat16"` (on-device clip + Adam, bf16
+   error-feedback delta syncs on background threads) for 16 steps;
+   checks the exactness block, steps computed = applied, finite losses,
+   moved parameters, launches and no attention fallback; prints the
+   steady tokens/s (first to last window sync) and the sync seconds
+   split into quantize, encode, RPC and absorb; then a profiled second
+   run gives the device idle share;
+8. error feedback on the card (`phase_ef_card`) over a delta of the
+   model's size: the int8 quantizer bit for bit with
+   `codec.quantize_int8`, the bf16 cast bit for bit, top-k indices,
+   values and residual equal to the CPU's; prints each one's ms;
+9. the zoo's default config (head_dim 16) trains one step on the card
+   through the attention dispatcher's fallback (`phase_zoo_default`);
+10. window mode in process mode (`phase_window_process_job`): master.main
+   with `--local_updates 4 --sync_dtype bfloat16`, 2 workers, 32 steps;
+   checks rc, versions (the `--output` version = the workers' applied
+   steps), steps computed = applied, launches; prints merged-back
+   absorbs per worker;
+11. the drain (`phase_window_drain`): SIGTERM to worker 0 mid-window of
+   the same job drains it (exit 0, its drain line, nothing requeued,
+   every step applied once); SIGKILL in a second job requeues its tasks
+   and the job finishes with no failed task;
+12. prints the kernels' JSON line (one row per kernel; the backward
    pair's yardstick once, as `backward_pair`, since no single kernel's
-   row matches it), the card line, and the result line.
+   row matches it; launches per path: `launches` the per-step run,
+   `process_launches`, `window_launches`, `window_process_launches`),
+   the card line, and the result line.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.
@@ -83,6 +108,9 @@ PEAK_BYTES = 3.35e12
 
 SLICE = dict(vocab=8192, d_model=512, n_heads=8, d_ff=2048, n_layers=8)
 BATCH, SEQ, STEPS = 8, 1024, 8
+# window mode: W steps a sync, bf16 error-feedback deltas
+WINDOW, WINDOW_STEPS = 4, 16
+WINDOW_ARGS = ["--local_updates", str(WINDOW), "--sync_dtype", "bfloat16"]
 # process mode: shards of 64 records, tasks of 32 (4 minibatches)
 SHARD_RECORDS, TASK_RECORDS = 64, 32
 ZOO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "elasticdl_tpu_torch", "models")
@@ -373,9 +401,10 @@ def phase_model_reference():
           f"max|err| {max(err for err, _share in readings):.3e}")
 
 
-def slice_job(path, n_records):
+def slice_job(path, n_records, task_records=None, **worker_kw):
     """The slice's in-process master/PS and one worker on the card, over
-    `n_records` token records in tasks of half of them."""
+    `n_records` token records in tasks of `task_records` (default half
+    of them); `worker_kw` selects window mode."""
     from elasticdl_tpu_torch.api.model_spec_helpers import spec_from_module
     from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
     from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
@@ -384,13 +413,28 @@ def slice_job(path, n_records):
     from elasticdl_tpu_torch.worker.worker import Worker
 
     write_learnable_token_records(path, n_records, SEQ, SLICE["vocab"], seed=0)
-    dispatcher = TaskDispatcher({path: n_records}, {}, {}, n_records // 2, 1, shuffle_seed=0)
+    dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records or n_records // 2, 1,
+                                shuffle_seed=0)
     model = zoo.custom_model(**SLICE, dtype=torch.bfloat16)
     spec = spec_from_module(zoo, model=model)
     servicer = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
-    worker = Worker(0, master, spec, minibatch_size=BATCH, device="cuda", seed=0)
+    worker = Worker(0, master, spec, minibatch_size=BATCH, device="cuda", seed=0, **worker_kw)
     return dispatcher, servicer, master, worker, model
+
+
+def reset_counts(fa):
+    """Every kernel wrapper's launch count and the dispatcher's fallback
+    count to 0, just before a path is driven."""
+    for wrapper in (fa.flash_forward, fa.flash_dq, fa.flash_dkv):
+        wrapper.launches = 0
+    fa.attention.fallbacks = 0
+
+
+def read_counts(fa):
+    """({kernel: launches}, attention fallbacks), just after a path ran."""
+    launches = {w.__name__: w.launches for w in (fa.flash_forward, fa.flash_dq, fa.flash_dkv)}
+    return launches, fa.attention.fallbacks
 
 
 def phase_train(fa, tmp):
@@ -400,13 +444,12 @@ def phase_train(fa, tmp):
     dispatcher, servicer, master, worker, model = slice_job(
         os.path.join(tmp, "train.rio"), BATCH * STEPS
     )
-    for wrapper in (fa.flash_forward, fa.flash_dq, fa.flash_dkv):
-        wrapper.launches = 0
+    reset_counts(fa)
     t0 = time.perf_counter()
     ok = worker.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in (fa.flash_forward, fa.flash_dq, fa.flash_dkv)}
+    launches, fallbacks = read_counts(fa)
     worker.close()
 
     ex = servicer.exactness()
@@ -422,6 +465,8 @@ def phase_train(fa, tmp):
     want = SLICE["n_layers"] * STEPS
     if any(n != want for n in launches.values()):
         raise AssertionError(f"kernel launches {launches}, {want} each expected")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} attention calls fell back at full width")
     final, _aux, _v = servicer.get_params_copy()
     if np.array_equal(codec.ravel_np(final), codec.ravel_np(model.init_params(0))):
         raise AssertionError("the parameters did not move")
@@ -435,6 +480,9 @@ def phase_train(fa, tmp):
     print(f"host breakdown (s, whole run): worker {rounded(worker.phase_seconds)}, "
           f"servicer handlers {rounded(master.handler_seconds)}, "
           f"wire codec {rounded(master.codec_seconds)}")
+    print(f"host PS apply (ReportGradient handler: f32 average, clip + Adam, model ravel): "
+          f"{master.handler_seconds['ReportGradient'] / STEPS:.4f} s a step; "
+          f"attention fallbacks {fallbacks}")
     return launches
 
 
@@ -597,59 +645,375 @@ def phase_process_job(tmp) -> dict:
         return {k: sum(s["launches"][k] for s in summaries.values()) for k in KERNELS}
 
 
-def phase_preemption(tmp):
-    """2 workers on the card over 4 shards (32 minibatches); worker 0 is
-    SIGKILLed once it holds a task. The master's parts are driven
-    directly, as master.main wires them."""
+def window_steady(window_log) -> float:
+    """Tokens/s from the first to the last window sync that landed."""
+    log = sorted(window_log)
+    steps = sum(n for _t, n, _loss in log[1:])
+    return steps * BATCH * SEQ / (log[-1][0] - log[0][0])
+
+
+def phase_window(fa, tmp):
+    """Window mode in-process at full width: `--local_updates 4
+    --sync_dtype bfloat16`, 16 steps (4 tasks of one window each).
+    Returns the kernels' launches."""
+    from elasticdl_tpu_torch.common import codec
+
+    steps = WINDOW_STEPS
+    dispatcher, servicer, master, worker, model = slice_job(
+        os.path.join(tmp, "window.rio"), BATCH * steps, task_records=BATCH * WINDOW,
+        local_updates=WINDOW, sync_dtype="bfloat16",
+    )
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+
+    ex = servicer.exactness()
+    windows = list(worker.window_log)
+    losses = [loss for _t, _n, loss in windows] + list(worker.task_losses)
+    print(f"window mode (in-process, W {WINDOW}, bf16 EF deltas): {len(windows)} syncs of "
+          f"{[n for _t, n, _l in windows]} steps, exactness {ex}, window losses "
+          f"{[round(loss, 4) for _t, _n, loss in windows]}, merged back {worker.merged_back}")
+    if not ok or not dispatcher.finished():
+        raise AssertionError("the window job did not finish cleanly")
+    if ex["version"] != ex["init_version"] + ex["applied_update_steps"] or (
+        ex["applied_update_steps"] != steps
+    ):
+        raise AssertionError(f"exactness block broken: {ex}, {steps} steps expected")
+    if worker.steps_computed != steps or worker.steps_accepted != steps:
+        raise AssertionError(f"{worker.steps_computed} steps computed, "
+                             f"{worker.steps_accepted} accepted, {steps} expected")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses not finite: {losses}")
+    want = SLICE["n_layers"] * steps
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"window kernel launches {launches}, {want} each expected")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} attention calls fell back at full width")
+    final, _aux, _v = servicer.get_params_copy()
+    if np.array_equal(codec.ravel_np(final), codec.ravel_np(model.init_params(0))):
+        raise AssertionError("the window job's parameters did not move")
+    n_windows = len(windows)
+    print(f"window throughput: {steps * BATCH * SEQ / wall:.1f} tokens/s over the whole run "
+          f"({wall:.2f} s incl. model init), {window_steady(windows):.1f} tokens/s from the "
+          f"first to the last window sync")
+    print(f"window sync seconds (whole run, {n_windows} syncs): {rounded(worker.sync_seconds)}; "
+          f"per sync: " + ", ".join(f"{k} {v / n_windows:.4f}"
+                                    for k, v in sorted(worker.sync_seconds.items())))
+    print(f"window host breakdown (s, whole run): worker phases "
+          f"{rounded(worker.phase_seconds)}, servicer handlers "
+          f"{rounded(master.handler_seconds)}, wire codec {rounded(master.codec_seconds)}; "
+          f"PS add a window {master.handler_seconds['ReportLocalUpdate'] / n_windows:.4f} s")
+    return launches
+
+
+def busy_us(intervals, t0, t1) -> float:
+    """Microseconds of [t0, t1] that the union of `intervals` covers."""
+    busy, reach = 0.0, t0
+    for start, end in sorted(intervals):
+        start, end = max(start, reach), min(end, t1)
+        if end > start:
+            busy += end - start
+            reach = end
+    return busy
+
+
+def phase_window_profile(tmp):
+    """Device idle share of a second window run (16 steps) under
+    torch.profiler; not part of the counted main path. Both the busy time
+    and the span come from the trace's device clock: the span runs from
+    the end of step WINDOW's last attention backward (the first window
+    done) to the end of the last step's, and the busy time is the union
+    of every kernel and copy on any stream inside it, so overlapping
+    streams count once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    *_job, worker, _model = slice_job(
+        os.path.join(tmp, "window-profile.rio"), BATCH * WINDOW_STEPS,
+        task_records=BATCH * WINDOW, local_updates=WINDOW, sync_dtype="bfloat16",
+    )
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        worker.run()
+        torch.cuda.synchronize()
+    worker.close()
+    device = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "Sync" not in e.name
+    ]
+    # fa_dkv runs once per layer per step, last of a step's attention kernels
+    dkv_ends = sorted(e.time_range.end for e in device if re.search(r"\bfa_dkv", e.name))
+    per_step_dkv = SLICE["n_layers"]
+    if len(dkv_ends) != per_step_dkv * WINDOW_STEPS:
+        print(f"window profile: {len(dkv_ends)} fa_dkv kernels in the trace, "
+              f"{per_step_dkv * WINDOW_STEPS} expected: idle share not measured")
+        return
+    t0, t1 = dkv_ends[per_step_dkv * WINDOW - 1], dkv_ends[-1]
+    steps = WINDOW_STEPS - WINDOW
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in device], t0, t1)
+    span_ms, busy_ms = (t1 - t0) / 1e3, busy / 1e3
+    print(f"window profile: device busy {busy_ms / steps:.2f} ms per step (union of kernels "
+          f"and copies on all streams) of {span_ms / steps:.1f} ms per step over steps "
+          f"{WINDOW + 1}-{WINDOW_STEPS} on the device clock under the profiler (device idle "
+          f"share {1 - busy / (t1 - t0):.3f}, {steps * BATCH * SEQ / span_ms * 1e3:.1f} tokens/s)")
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / WINDOW_STEPS:8.3f} ms/step "
+              f"{e.count:5d}x  {e.key[:90]}")
+
+
+def slice_param_count() -> int:
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+
+    return sum(p.numel() for p in zoo.custom_model(**SLICE).parameters())
+
+
+def phase_ef_card(n):
+    """Window mode's error-feedback compression on the card over an
+    n-element delta (the base transformer's size), against the host:
+    int8 bit for bit with codec.quantize_int8, the bf16 cast bit for bit
+    with the codec's rounding, top-k (1%) indices, values and residual
+    equal to the same code on the CPU. Prints each one's ms."""
+    import types
+
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    chunk = codec.DEFAULT_INT8_CHUNK
+    g = torch.Generator(device="cuda").manual_seed(5)
+    vec = torch.randn(n, device="cuda", generator=g) * 1e-3
+    vec[chunk : 2 * chunk] = 0.0  # an all-zero chunk takes scale 1.0
+    host = vec.cpu().numpy()
+    failures = []
+
+    q, scale, deq = Worker._int8_quantize_dev(vec)
+    t0 = time.perf_counter()
+    want = codec.quantize_int8(host)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for what, got, exp in (("q", q, want.q), ("scale", scale, want.scale),
+                           ("dequantized", deq, want.dequantize())):
+        if got.cpu().numpy().tobytes() != exp.tobytes():
+            failures.append(f"int8 {what} differs from codec.quantize_int8")
+    bits = vec.to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
+    if bits.tobytes() != codec.BF16Bits.from_f32(host).bits.tobytes():
+        failures.append("the bf16 cast differs from the codec's rounding")
+    topk = types.SimpleNamespace(_sync_dtype="float32", _topk_ratio=0.01,
+                                 _int8_quantize_dev=Worker._int8_quantize_dev)
+    _meta, (idx, vals), res = Worker._ef_compress(topk, vec.clone(), topk=True)
+    _cmeta, (cidx, cvals), cres = Worker._ef_compress(topk, torch.from_numpy(host.copy()), True)
+    for what, got, exp in (("indices", idx, cidx), ("values", vals, cvals),
+                           ("residual", res, cres)):
+        if got.cpu().numpy().tobytes() != exp.numpy().tobytes():
+            failures.append(f"top-k {what} differ between the card and the CPU")
+    times = {
+        "int8": time_ms(lambda: Worker._int8_quantize_dev(vec), iters=5),
+        "bf16": time_ms(lambda: vec.to(torch.bfloat16), iters=5),
+        "topk": time_ms(lambda: Worker._ef_compress(topk, vec.clone(), True), iters=2, batches=3),
+    }
+    print(f"EF on the card over {n} elements: int8 {times['int8']:.3f} ms (host "
+          f"codec.quantize_int8 {host_ms:.1f} ms), bf16 cast {times['bf16']:.3f} ms, top-k 1% "
+          f"({idx.numel()} kept) {times['topk']:.3f} ms; int8 and bf16 bit for bit with the "
+          f"codec, top-k indices, values and residual equal to the CPU's: {not failures}")
+    if failures:
+        raise AssertionError("\n".join(failures))
+
+
+def phase_zoo_default(fa, tmp):
+    """The zoo's default config (`custom_model()`, head_dim 16, which the
+    kernels do not take) trains one step on the card through the
+    dispatcher's fallback."""
+    from elasticdl_tpu_torch.api.model_spec_helpers import spec_from_module
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    model = zoo.custom_model()
+    path = os.path.join(tmp, "zoo-default.rio")
+    write_learnable_token_records(path, BATCH, 128, model.cfg.vocab, seed=0)
+    dispatcher = TaskDispatcher({path: BATCH}, {}, {}, BATCH, 1, shuffle_seed=0)
+    spec = spec_from_module(zoo, model=model)
+    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cuda")
+    reset_counts(fa)
+    ok = worker.run()
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    ex = servicer.exactness()
+    head_dim = model.cfg.d_model // model.cfg.n_heads
+    print(f"zoo default config (head_dim {head_dim}) on the card: exactness {ex}, losses "
+          f"{[round(x, 4) for _t, x in worker.step_log]}, attention fallbacks {fallbacks}, "
+          f"kernel launches {launches}")
+    if not ok or ex["applied_update_steps"] != 1 or ex["version"] != 1:
+        raise AssertionError(f"the default config did not train one step: {ex}")
+    if not all(math.isfinite(x) for _t, x in worker.step_log):
+        raise AssertionError("the default config's loss is not finite")
+    if fallbacks <= 0:
+        raise AssertionError("the default config did not go through the fallback")
+
+
+def phase_window_process_job(tmp) -> dict:
+    """`master.main ... --local_updates 4 --sync_dtype bfloat16
+    --worker_backend process` with 2 workers on the card, 4 shards of 64
+    records (32 steps). Returns the launches summed over the workers."""
+    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    data = os.path.join(tmp, "window-process-data")
+    log_dir = os.path.join(tmp, "window-process-logs")
+    with logs_on_failure(log_dir):
+        output = os.path.join(tmp, "window-process.ckpt")
+        write_shards(data, 4)
+        steps = 4 * SHARD_RECORDS // BATCH
+        os.environ[ENV_WORKER_LOG_DIR] = log_dir
+        try:
+            t0 = time.perf_counter()
+            rc, master = master_main.run(master_argv(data, 2, output) + WINDOW_ARGS)
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ[ENV_WORKER_LOG_DIR]
+        if rc != 0:
+            raise AssertionError(f"master.main (window mode) exited {rc}")
+        model = load_model_file(output)
+        summaries = read_summaries(log_dir)
+        if sorted(summaries) != [0, 1]:
+            raise AssertionError(f"worker summaries of {sorted(summaries)}, of [0, 1] expected")
+        accepted = sum(s["steps_accepted"] for s in summaries.values())
+        computed = sum(s["steps_computed"] for s in summaries.values())
+        exactness = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
+        windows = [w for s in summaries.values() for w in s["windows"]]
+        print(f"window process job: rc {rc}, version {model.version}, {wall:.2f} s, "
+              f"{steps * BATCH * SEQ / wall:.1f} tokens/s over the whole run (worker boot "
+              f"included), {window_steady(windows):.1f} tokens/s from the first to the last "
+              f"window sync; exactness {exactness}; steps computed {computed}, accepted "
+              f"{accepted}")
+        for wid, s in summaries.items():
+            n = max(1, len(s["windows"]))
+            print(f"window process worker {wid}: {s['steps_accepted']} steps in "
+                  f"{len(s['windows'])} syncs, {s['merged_back']} merged-back absorbs, sync "
+                  f"seconds per sync {rounded({k: v / n for k, v in s['sync_seconds'].items()})}, "
+                  f"phase seconds {rounded(s['phase_seconds'])}, client seconds "
+                  f"{rounded(s['rpc_seconds'])}, launches {s['launches']}, fallbacks "
+                  f"{s['attention_fallbacks']}")
+        server = master["server"]
+        print(f"window process master: server handler seconds "
+              f"{rounded(server['handler_seconds'])}, calls {server['calls']}")
+        if model.version != steps or accepted != steps or exactness["version"] != steps:
+            raise AssertionError(f"--output version {model.version}, workers' applied steps "
+                                 f"{accepted}, exactness {exactness}: {steps} expected")
+        if exactness["version"] != exactness["init_version"] + exactness["applied_update_steps"]:
+            raise AssertionError(f"exactness block broken: {exactness}")
+        if computed != accepted:
+            raise AssertionError(f"{computed} steps computed for {accepted} applied")
+        check_params(model.params, "window process job")
+        for wid, s in summaries.items():
+            want = SLICE["n_layers"] * s["steps_computed"]
+            if any(s["launches"][k] != want for k in KERNELS) or s["attention_fallbacks"]:
+                raise AssertionError(f"worker {wid} launches {s['launches']}, {want} each "
+                                     f"expected, fallbacks {s['attention_fallbacks']}")
+            if not all(math.isfinite(loss) for _t, _n, loss in s["windows"]):
+                raise AssertionError(f"worker {wid}: window losses not finite")
+        return {k: sum(s["launches"][k] for s in summaries.values()) for k in KERNELS}
+
+
+def job_parts(tmp, name, extra_argv=()):
+    """The master's parts for a 2-worker job on the card over 4 shards,
+    driven directly as master.main wires them; the dispatcher's
+    recover_tasks records what it requeues."""
     from elasticdl_tpu_torch.cluster.pod_backend import ProcessBackend
     from elasticdl_tpu_torch.common.args import master_parser, parse_envs, worker_forward_args
     from elasticdl_tpu_torch.master.main import build_master
     from elasticdl_tpu_torch.master.worker_manager import WorkerManager
     from elasticdl_tpu_torch.rpc.server import RpcServer
+
+    data, log_dir = os.path.join(tmp, f"{name}-data"), os.path.join(tmp, f"{name}-logs")
+    write_shards(data, 4)
+    args = master_parser().parse_args(master_argv(data, 2, "") + list(extra_argv))
+    _spec, dispatcher, servicer = build_master(args)
+    requeued = []
+    recover = dispatcher.recover_tasks
+
+    def recording_recover(worker_id):
+        with dispatcher._lock:
+            requeued.extend(t for t, (w, _) in dispatcher._doing.items() if w == worker_id)
+        recover(worker_id)
+
+    dispatcher.recover_tasks = recording_recover
+    server = RpcServer(servicer.handlers(), port=0)
+    server.start()
+    addr = f"localhost:{server.port}"
+    backend = ProcessBackend(log_dir=log_dir)
+    manager = WorkerManager(backend, dispatcher, num_workers=2,
+                            worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
+                            envs=parse_envs(args.envs), max_relaunches=4)
+    return dispatcher, servicer, server, backend, manager, requeued, log_dir
+
+
+def signal_worker0(dispatcher, backend, sig, ready=lambda: True):
+    """Once worker 0 holds a task (and `ready()`), send it `sig`; returns
+    (pid, tasks held, time sent)."""
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        with dispatcher._lock:
+            holds = [t for t, (wid, _) in dispatcher._doing.items() if wid == 0]
+        pid = backend.pid_of(0)
+        if holds and pid and ready():
+            os.kill(pid, sig)
+            return pid, holds, time.perf_counter()
+        time.sleep(0.01)
+    raise AssertionError("worker 0 never held a task when it could be signalled")
+
+
+def window_landed(servicer):
+    """A readiness test for signal_worker0: a window has landed on the
+    PS, so worker 0's later windows are in flight."""
+    return lambda: servicer.exactness()["applied_update_steps"] > 0
+
+
+def run_to_end(dispatcher, manager, backend, server) -> float:
+    """Wait for the job to finish and the workers to leave, then tear
+    down; returns when the dispatcher finished (perf_counter)."""
+    try:
+        deadline = time.monotonic() + 600
+        while not dispatcher.finished() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        finished_at = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while not manager.all_exited() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    finally:
+        manager.stop_relaunch_and_remove_workers()
+        backend.stop()
+        server.stop()
+    return finished_at
+
+
+def phase_preemption(tmp):
+    """2 workers on the card over 4 shards (32 minibatches); worker 0 is
+    SIGKILLed once it holds a task."""
     from elasticdl_tpu_torch.worker.main import read_summaries
 
-    data, log_dir = os.path.join(tmp, "preempt-data"), os.path.join(tmp, "preempt-logs")
+    dispatcher, servicer, server, backend, manager, _requeued, log_dir = job_parts(
+        tmp, "preempt")
     with logs_on_failure(log_dir):
-        write_shards(data, 4)
         minibatches = 4 * SHARD_RECORDS // BATCH
-        args = master_parser().parse_args(master_argv(data, 2, ""))
-        _spec, dispatcher, servicer = build_master(args)
-        server = RpcServer(servicer.handlers(), port=0)
-        server.start()
-        addr = f"localhost:{server.port}"
-        backend = ProcessBackend(log_dir=log_dir)
-        manager = WorkerManager(backend, dispatcher, num_workers=2,
-                                worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
-                                envs=parse_envs(args.envs), max_relaunches=4)
         t0 = time.perf_counter()
         manager.start_workers()
         try:
-            deadline = time.monotonic() + 300
-            holds, victim = [], None
-            while time.monotonic() < deadline:
-                with dispatcher._lock:
-                    holds = [t for t, (wid, _) in dispatcher._doing.items() if wid == 0]
-                victim = backend.pid_of(0)
-                if holds and victim:
-                    break
-                time.sleep(0.02)
-            if not (holds and victim):
-                raise AssertionError("worker 0 never held a task")
-            os.kill(victim, signal.SIGKILL)
-            killed_at = time.perf_counter()
-            deadline = time.monotonic() + 600
-            while not dispatcher.finished() and time.monotonic() < deadline:
-                time.sleep(0.2)
-            wall = time.perf_counter() - t0
-            deadline = time.monotonic() + 60
-            while not manager.all_exited() and time.monotonic() < deadline:
-                time.sleep(0.1)
-            finished, failed = dispatcher.finished(), dispatcher.has_failed_tasks()
-            relaunches, phases = manager.relaunches(), manager.phases()
+            victim, holds, killed_at = signal_worker0(dispatcher, backend, signal.SIGKILL)
         finally:
-            manager.stop_relaunch_and_remove_workers()
-            backend.stop()
-            server.stop()
+            finished_at = run_to_end(dispatcher, manager, backend, server)
+        wall = finished_at - t0
+        finished, failed = dispatcher.finished(), dispatcher.has_failed_tasks()
+        relaunches, phases = manager.relaunches(), manager.phases()
         ex = servicer.exactness()
         summaries = read_summaries(log_dir)
         losses = [x for s in summaries.values() for x in s["losses"]]
@@ -673,6 +1037,75 @@ def phase_preemption(tmp):
         if not losses or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"losses not finite: {losses}")
         check_params(servicer.get_params_copy()[0], "preemption job")
+
+
+def phase_window_drain(tmp):
+    """SIGTERM to a window-mode worker mid-window: it drains (exit 0, its
+    drain line), the dispatcher requeues nothing and the versions count
+    every record once. Then SIGKILL in a second job: its unsynced tasks
+    are requeued and the job finishes with no failed task."""
+    from elasticdl_tpu_torch.cluster.pod_backend import PodPhase
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    steps = 4 * SHARD_RECORDS // BATCH
+    dispatcher, servicer, server, backend, manager, requeued, log_dir = job_parts(
+        tmp, "drain", WINDOW_ARGS)
+    with logs_on_failure(log_dir):
+        manager.start_workers()
+        exit_at = None
+        try:
+            pid, holds, sent = signal_worker0(dispatcher, backend, signal.SIGTERM,
+                                               window_landed(servicer))
+            while backend.pid_of(0) is not None and time.perf_counter() - sent < 120:
+                time.sleep(0.01)
+            exit_at = time.perf_counter()
+        finally:
+            run_to_end(dispatcher, manager, backend, server)
+        ex = servicer.exactness()
+        phases, relaunches = manager.phases(), manager.relaunches()
+        with open(os.path.join(log_dir, "worker-0.log")) as f:
+            drain_line = "drain requested, exiting at task boundary" in f.read()
+        summaries = read_summaries(log_dir)
+        print(f"window drain: worker 0 (pid {pid}) sent SIGTERM holding task(s) {holds} with "
+              f"{ex['applied_update_steps']} steps applied by the end; exited "
+              f"{exit_at - sent:.2f} s later, phase {phases.get(0)}, drain line {drain_line}, "
+              f"drained {summaries.get(0, {}).get('drained')}, requeued {requeued}, relaunches "
+              f"{relaunches}, exactness {ex}, records completed "
+              f"{dispatcher.completed_records()}")
+        if phases.get(0) != PodPhase.SUCCEEDED or not drain_line:
+            raise AssertionError(f"worker 0 did not drain and exit 0: phase {phases.get(0)}, "
+                                 f"drain line {drain_line}")
+        if requeued or relaunches:
+            raise AssertionError(f"the drain requeued {requeued}, relaunched {relaunches}")
+        if not dispatcher.finished() or dispatcher.has_failed_tasks():
+            raise AssertionError("the drained job did not finish cleanly")
+        if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+            raise AssertionError(f"exactness {ex}: each of {steps} steps applied once expected")
+        check_params(servicer.get_params_copy()[0], "window drain job")
+
+    dispatcher, servicer, server, backend, manager, requeued, log_dir = job_parts(
+        tmp, "window-kill", WINDOW_ARGS)
+    with logs_on_failure(log_dir):
+        manager.start_workers()
+        try:
+            pid, holds, _sent = signal_worker0(dispatcher, backend, signal.SIGKILL,
+                                               window_landed(servicer))
+        finally:
+            run_to_end(dispatcher, manager, backend, server)
+        ex = servicer.exactness()
+        phases, relaunches = manager.phases(), manager.relaunches()
+        print(f"window SIGKILL: worker 0 (pid {pid}) killed holding task(s) {holds}; requeued "
+              f"{requeued}, relaunches {relaunches}, phases {phases}, failed tasks "
+              f"{dispatcher.has_failed_tasks()}, exactness {ex}")
+        if not requeued:
+            raise AssertionError("the killed worker's tasks were not requeued")
+        if not dispatcher.finished() or dispatcher.has_failed_tasks():
+            raise AssertionError("the job did not finish cleanly after the SIGKILL")
+        if ex["version"] != ex["init_version"] + ex["applied_update_steps"] or (
+            ex["applied_update_steps"] < steps
+        ):
+            raise AssertionError(f"exactness {ex}, at least {steps} steps expected")
+        check_params(servicer.get_params_copy()[0], "window SIGKILL job")
 
 
 def main() -> int:
@@ -701,12 +1134,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_train(fa, tmp)
         phase_profile(tmp)
+        window_launches = phase_window(fa, tmp)
+        phase_window_profile(tmp)
+        phase_ef_card(slice_param_count())
+        phase_zoo_default(fa, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
         process_launches = phase_process_job(tmp)
         phase_preemption(tmp)
+        window_process_launches = phase_window_process_job(tmp)
+        phase_window_drain(tmp)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["process_launches"] = process_launches[name]
+        row["window_launches"] = window_launches[name]
+        row["window_process_launches"] = window_process_launches[name]
     print(json.dumps({"kernels": list(rows.values()), "backward_pair": pair}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of `elasticdl_tpu`: the same elastic
 master/PS protocol (GetTask, ReportGradient with the model piggybacked
-back, the exactness block `version == init + applied update steps`),
+back, window mode's ReportLocalUpdate deltas, the exactness block
+`version == init + applied update steps`),
 with attention on CUDA kernels written by hand for Hopper
 (`ops/csrc/flash_attention.cu`). The JAX package is the reference; this
 package imports nothing of it and keeps its own copies of what it needs.

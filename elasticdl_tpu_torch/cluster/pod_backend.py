@@ -8,7 +8,10 @@ the reference (`elasticdl_tpu/cluster/pod_backend.py`).
 (`python -m elasticdl_tpu_torch.worker.main`): a monitor thread polls
 for exits and synthesizes SUCCEEDED, FAILED and DELETED events, so a
 SIGKILL on a worker process looks to the WorkerManager exactly like a
-pod preemption.
+pod preemption. Deleting a worker, and stopping the backend, send
+SIGTERM first: the worker drains (finishes its task, lands its window
+syncs and reports) and exits; only one still alive after
+DRAIN_GRACE_SECONDS is SIGKILLed.
 
 Not ported yet: the k8s backend, victim ordering for policy stops, and
 PS / KV shard replicas.
@@ -21,6 +24,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -35,6 +39,9 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(elasticdl_tpu_torch.
 WORKER_MODULE = "elasticdl_tpu_torch.worker.main"
 # how often the monitor thread polls the worker processes for exits
 POLL_SECONDS = 0.1
+# how long a worker sent SIGTERM may take to drain (finish its task, land
+# its window syncs and task reports) before it is SIGKILLed
+DRAIN_GRACE_SECONDS = 30.0
 
 
 class PodPhase:
@@ -116,7 +123,7 @@ class ProcessBackend:
         try:
             entry.proc.send_signal(signal.SIGTERM)
             try:
-                entry.proc.wait(timeout=5)
+                entry.proc.wait(timeout=DRAIN_GRACE_SECONDS)
             except subprocess.TimeoutExpired:
                 entry.proc.kill()
         except ProcessLookupError:  # already gone
@@ -170,9 +177,10 @@ class ProcessBackend:
                 entry.deleted = True
         for entry in live:
             entry.proc.terminate()
+        deadline = time.monotonic() + DRAIN_GRACE_SECONDS
         for entry in entries:
             try:
-                entry.proc.wait(timeout=5)
+                entry.proc.wait(timeout=max(0.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 entry.proc.kill()
                 entry.proc.wait()

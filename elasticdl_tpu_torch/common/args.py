@@ -11,9 +11,12 @@ parsers, which the master forwards to its workers. It is the explicit
 CPU request that tests make; a worker never falls back to the CPU on
 its own.
 
-Not carried, so argparse rejects them: window mode and the sync plane
-(`--local_updates`, `--sync_*`, `--transport_dtype`, `--overlap_sync`),
-the step pipeline, async and staleness, evaluation and prediction data,
+Window mode and its sync plane are carried (`--local_updates`,
+`--transport_dtype`, `--sync_dtype`, `--sync_compress`,
+`--overlap_sync`). Not carried, so argparse rejects them: the sync
+plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
+`--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, async and
+staleness, evaluation and prediction data,
 checkpoints and resume, the sharded PS, KV shards and aggregators,
 standby workers, the policy plane, the k8s pod settings, TensorBoard,
 profiling and master failover candidates.
@@ -69,6 +72,36 @@ def add_model_spec_args(parser: argparse.ArgumentParser):
     parser.add_argument("--loss", default="loss")
     parser.add_argument("--optimizer", default="optimizer")
     parser.add_argument("--minibatch_size", type=pos_int, required=True)
+    parser.add_argument(
+        "--local_updates", type=non_neg_int, default=0,
+        help="N>0: on-device optimizer with one delta sync per N steps "
+        "(SSP/local-SGD); 0: per-step sync SGD via the PS",
+    )
+    parser.add_argument(
+        "--transport_dtype", default="float32", choices=("float32", "bfloat16"),
+        help="wire dtype for gradients/deltas",
+    )
+    parser.add_argument(
+        "--sync_dtype", default="",
+        choices=("", "float32", "bfloat16", "bf16", "int8"),
+        help="sync-plane wire dtype: bf16/int8 send window deltas / "
+        "per-step grads quantized (int8 = per-chunk scaled) with an "
+        "error-feedback residual held on the worker (default float32 = "
+        "bit-exact)",
+    )
+    parser.add_argument(
+        "--sync_compress", default="",
+        help="sync-plane delta sparsification: topk:<ratio> ships only "
+        "the ratio*n largest-magnitude window-delta entries, "
+        "error-feedback corrected; composes with --sync_dtype int8/bf16 "
+        "for the values (default off)",
+    )
+    parser.add_argument(
+        "--overlap_sync", default="", choices=("", "on", "off"),
+        help="worker overlap plane: on (default) pipelines window-delta "
+        "syncs on background threads; off makes each window's sync "
+        "block (depth 0). EDL_OVERLAP_SYNC applies when unset",
+    )
     parser.add_argument("--log_level", default="INFO")
     parser.add_argument(
         "--device", default="cuda",
@@ -145,9 +178,15 @@ def worker_forward_args(args, worker_id: int, master_addr: str) -> List[str]:
         "--model_zoo", args.model_zoo,
         "--model_def", args.model_def,
         "--minibatch_size", str(args.minibatch_size),
+        "--local_updates", str(args.local_updates),
+        "--transport_dtype", args.transport_dtype,
         "--log_level", args.log_level,
         "--device", args.device,
     ]
+    for flag in ("sync_dtype", "sync_compress", "overlap_sync"):
+        value = getattr(args, flag)
+        if value:
+            argv += [f"--{flag}", value]
     for flag in ("model_params", "dataset_fn", "loss", "optimizer"):
         value = getattr(args, flag)
         if value:

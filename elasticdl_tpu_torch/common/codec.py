@@ -33,7 +33,10 @@ Two jobs, both host-side numpy:
 
 bfloat16 has no numpy dtype without `ml_dtypes`, so a bf16 array travels
 as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
-`BF16Bits`; `as_f32` widens it.
+`BF16Bits`; `as_f32` widens it. The compressed window deltas
+(`QuantizedDelta`, `SparseDelta`, nested for top-k over int8) travel as
+tagged header objects whose arrays are ordinary payload segments;
+`delta_to_f32` decodes every delta form.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ _SEGMENT_ALIGN = 64
 
 _ND_KEY = "__nd__"
 _TUPLE_KEY = "__tp__"
+_QD_KEY = "__qd__"
+_SD_KEY = "__sd__"
 _BF16_TAG = "bfloat16"
 
 
@@ -98,9 +103,123 @@ def as_f32(a: Any) -> np.ndarray:
     return a.astype(np.float32)
 
 
+# --------------------------------------------------------------------------
+# compressed wire deltas (the window sync's int8 and top-k forms)
+#
+# Both are biased compressors: the worker folds the compression error into
+# an f32 error-feedback residual and sends it with the next delta, so the
+# receiver applies the decoded f32 delta as if it were dense.
+
+#: Elements per int8 scale chunk (one f32 scale per 2048 int8 values).
+DEFAULT_INT8_CHUNK = 2048
+
+
+@dataclasses.dataclass
+class QuantizedDelta:
+    """int8 per-chunk quantization of a dense f32 vector: chunk c
+    (elements [c*chunk, (c+1)*chunk)) is q = clip(rint(v / scale[c]),
+    -127, 127) with scale[c] = max|v| / 127 over the chunk; an all-zero
+    chunk takes scale 1.0, so it decodes to exact zeros."""
+
+    q: np.ndarray  # [n] int8
+    scale: np.ndarray  # [nchunks] f32
+    chunk: int
+
+    def __post_init__(self):
+        self.q = np.asarray(self.q)
+        self.scale = np.asarray(self.scale)
+        self.chunk = int(self.chunk)
+
+    @property
+    def n(self) -> int:
+        return int(self.q.size)
+
+    def dequantize(self) -> np.ndarray:
+        """Dense f32: each q times the scale of its chunk."""
+        idx = np.arange(self.q.size) // self.chunk
+        return self.q.astype(np.float32) * np.asarray(self.scale, dtype=np.float32)[idx]
+
+
+@dataclasses.dataclass
+class SparseDelta:
+    """A top-k sparsified vector of length n: `values[j]` sits at
+    `indices[j]` (sorted ascending, unique), every other entry is zero.
+    `values` is an f32 array, `BF16Bits`, or a `QuantizedDelta` over the
+    packed values (top-k over int8)."""
+
+    indices: np.ndarray  # [k] integer
+    values: Any
+    n: int
+
+    def __post_init__(self):
+        self.indices = np.asarray(self.indices)
+        if not np.issubdtype(self.indices.dtype, np.integer):
+            raise TypeError(
+                f"SparseDelta indices must be integer, got {self.indices.dtype}"
+            )
+        if not isinstance(self.values, (QuantizedDelta, BF16Bits)):
+            self.values = np.asarray(self.values)
+        self.n = int(self.n)
+
+    @property
+    def k(self) -> int:
+        return int(self.indices.size)
+
+    def dense(self) -> np.ndarray:
+        out = np.zeros(self.n, dtype=np.float32)
+        out[self.indices] = delta_to_f32(self.values)
+        return out
+
+
+def quantize_int8(vec, chunk: int = DEFAULT_INT8_CHUNK) -> QuantizedDelta:
+    """Host int8 per-chunk quantization of a dense f32 vector: the spec
+    the worker's on-device quantizer is held to bit for bit."""
+    vec = np.asarray(vec, dtype=np.float32).ravel()
+    n = vec.size
+    chunk = int(chunk)
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    nchunks = -(-n // chunk)
+    pad = nchunks * chunk - n
+    blocks = (np.pad(vec, (0, pad)) if pad else vec).reshape(nchunks, chunk)
+    scale = (
+        np.abs(blocks).max(axis=1) / 127.0 if nchunks else np.zeros(0, np.float32)
+    )
+    scale = np.where(scale > 0, scale, 1.0).astype(np.float32)
+    q = np.clip(np.rint(blocks / scale[:, None]), -127, 127).astype(np.int8)
+    return QuantizedDelta(q=q.reshape(-1)[:n], scale=scale, chunk=chunk)
+
+
+def delta_length(obj: Any) -> int:
+    """Dense length of a wire delta in any form."""
+    if isinstance(obj, (QuantizedDelta, SparseDelta)):
+        return obj.n
+    if isinstance(obj, BF16Bits):
+        return int(obj.bits.size)
+    return int(np.asarray(obj).size)
+
+
+def delta_nbytes(obj: Any) -> int:
+    """Payload bytes of a wire delta in any form (framing not counted)."""
+    if isinstance(obj, QuantizedDelta):
+        return int(obj.q.nbytes + obj.scale.nbytes)
+    if isinstance(obj, SparseDelta):
+        return int(obj.indices.nbytes) + delta_nbytes(obj.values)
+    if isinstance(obj, BF16Bits):
+        return int(obj.bits.nbytes)
+    return int(np.asarray(obj).nbytes)
+
+
 def delta_to_f32(obj: Any, n: int | None = None) -> np.ndarray:
-    """Decode a flat wire vector (f32 or bf16 bits) to dense f32."""
-    out = as_f32(obj)
+    """Decode any wire delta form to a dense f32 vector: f32 stays a
+    view, bf16 widens, QuantizedDelta dequantizes, SparseDelta
+    densifies. The one decode point of the PS's apply sites."""
+    if isinstance(obj, QuantizedDelta):
+        out = obj.dequantize()
+    elif isinstance(obj, SparseDelta):
+        out = obj.dense()
+    else:
+        out = as_f32(obj)
     if n is not None and out.size != n:
         raise ValueError(f"delta length {out.size} != expected {n}")
     return out
@@ -255,6 +374,18 @@ def _descriptor(a: np.ndarray, dtype_tag: str, builder: _FrameBuilder) -> dict:
 def _build_header_tree(obj: Any, builder: _FrameBuilder) -> Any:
     if isinstance(obj, BF16Bits):
         return _descriptor(obj.bits, _BF16_TAG, builder)
+    if isinstance(obj, QuantizedDelta):
+        return {_QD_KEY: {
+            "q": _build_header_tree(obj.q, builder),
+            "scale": _build_header_tree(obj.scale, builder),
+            "chunk": obj.chunk,
+        }}
+    if isinstance(obj, SparseDelta):
+        return {_SD_KEY: {
+            "indices": _build_header_tree(obj.indices, builder),
+            "values": _build_header_tree(obj.values, builder),
+            "n": obj.n,
+        }}
     if isinstance(obj, np.ndarray):
         if obj.dtype.kind not in "biuf":
             raise TypeError(f"cannot encode array of dtype {obj.dtype}")
@@ -326,6 +457,10 @@ def loads(data) -> Any:
             return _read_descriptor(m, data, payload_start)
         if _TUPLE_KEY in m:
             return tuple(m[_TUPLE_KEY])
+        if _QD_KEY in m:
+            return QuantizedDelta(**m[_QD_KEY])
+        if _SD_KEY in m:
+            return SparseDelta(**m[_SD_KEY])
         return m
 
     return json.loads(

@@ -28,3 +28,11 @@ MAX_MINIBATCH_RETRY_NUM = 64
 
 # Directory the process backend writes worker-<id>.log files into
 ENV_WORKER_LOG_DIR = "EDL_WORKER_LOG_DIR"
+
+# Window mode's sync plane (worker/worker.py), the reference's names and
+# defaults: how many window syncs may be in flight per worker (0: each
+# window's sync blocks; default 2), and the overlap gate ("on" by
+# default; "off" forces depth 0). --overlap_sync takes precedence.
+ENV_SYNC_DEPTH = "EDL_SYNC_DEPTH"
+DEFAULT_SYNC_DEPTH = 2
+ENV_OVERLAP_SYNC = "EDL_OVERLAP_SYNC"

@@ -9,14 +9,20 @@ math in torch on the CPU for the same reason.
 `ClipAdam` is `optax.chain(clip_by_global_norm(max_norm),
 adam(learning_rate, b1, b2, eps))` written out: the global-norm clip as
 optax does it (`where(norm < max_norm, g, g / norm * max_norm)`), then
-Adam with eps_root 0 and bias correction from count + 1. Its state
-leaves come out in optax's order, `[count, *mu, *nu]`, so a snapshot
-lines up with the reference's `state_snapshot()` leaf for leaf.
+Adam with eps_root 0 and bias correction from count + 1 in float32.
+Its state leaves come out in optax's order, `[count, *mu, *nu]`, so a
+snapshot lines up with the reference's `state_snapshot()` leaf for leaf.
+
+`ClipAdam.update` works in place over preallocated state and scratch,
+with no host sync, so the same code is the PS's host apply and window
+mode's on-device optimizer over the worker's flat buffer (as the
+reference runs `tx.update` over its flat vector).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, List, Optional
 
 import numpy as np
@@ -34,52 +40,65 @@ class ClipAdam:
     eps: float = 1e-8
 
     def init(self, leaves: List[torch.Tensor]) -> dict:
+        """State on the leaves' device: optax's count, mu and nu, plus
+        one scratch buffer per leaf that `update` reuses every step."""
+        dev = leaves[0].device if leaves else torch.device("cpu")
         return {
-            "count": torch.zeros((), dtype=torch.int32),
+            "count": torch.zeros((), dtype=torch.int32, device=dev),
             "mu": [torch.zeros_like(p) for p in leaves],
             "nu": [torch.zeros_like(p) for p in leaves],
+            "scratch": [torch.empty_like(p) for p in leaves],
         }
 
-    def update(self, grads: List[torch.Tensor], state: dict):
-        """-> (updates, new_state); all tensors float32 on the CPU."""
-        sq = torch.zeros((), dtype=torch.float32)
-        for g in grads:
-            sq = sq + torch.sum(g * g)
+    def update(self, grads: List[torch.Tensor], state: dict) -> List[torch.Tensor]:
+        """One step in place, on whatever device the tensors live on,
+        with no host sync: `state` advances, and each of `grads` (owned
+        by the caller, float32) is overwritten with its update, which is
+        returned. The same operations, in the same order, as optax."""
+        # global-norm clip: g if norm < max_norm, else g / norm * max_norm.
+        # Dividing by 1 and multiplying by 1 are exact, so the unclipped
+        # branch is g bit for bit.
+        sq = torch.stack([torch.dot(g.reshape(-1), g.reshape(-1)) for g in grads]).sum()
         g_norm = torch.sqrt(sq)
-        if not bool(g_norm < self.max_norm):
-            grads = [(g / g_norm) * self.max_norm for g in grads]
-        mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, state["mu"])]
-        nu = [
-            (1 - self.b2) * (g * g) + self.b2 * v
-            for g, v in zip(grads, state["nu"])
-        ]
-        count = state["count"] + 1
-        c = count.to(torch.float32)
-        bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** c
-        bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** c
-        updates = [
-            (m / bc1) / (torch.sqrt(v / bc2) + self.eps) * (-self.learning_rate)
-            for m, v in zip(mu, nu)
-        ]
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        keep = g_norm < self.max_norm
+        div = torch.where(keep, 1.0, g_norm)
+        mul = torch.where(keep, 1.0, torch.full_like(g_norm, self.max_norm))
+        state["count"].add_(1)
+        c = state["count"].to(torch.float32)
+        bc1 = 1 - torch.pow(self.b1, c)
+        bc2 = 1 - torch.pow(self.b2, c)
+        for g, m, v, s in zip(grads, state["mu"], state["nu"], state["scratch"]):
+            g.div_(div).mul_(mul)
+            # mu = (1 - b1) * g + b1 * mu; nu = (1 - b2) * g^2 + b2 * nu
+            m.mul_(self.b1).add_(torch.mul(g, 1 - self.b1, out=s))
+            torch.mul(g, g, out=s)
+            v.mul_(self.b2).add_(s.mul_(1 - self.b2))
+            # update = (mu / bc1) / (sqrt(nu / bc2) + eps) * -lr
+            torch.div(v, bc2, out=s).sqrt_().add_(self.eps)
+            torch.div(m, bc1, out=g).div_(s).mul_(-self.learning_rate)
+        return grads
 
 
 class PSOptimizer:
-    """Owns the optimizer state for the dense parameter tree."""
+    """Owns the optimizer state for the dense parameter tree: float32
+    tensors on the host, allocated once, updated in place."""
 
     def __init__(self, optimizer: ClipAdam):
         self._tx = optimizer
         self._state: Optional[dict] = None
+        self._grads: List[torch.Tensor] = []  # per-leaf gradient scratch
 
     @staticmethod
-    def _leaves(tree) -> List[torch.Tensor]:
+    def _zeros(tree) -> List[torch.Tensor]:
         return [
-            torch.from_numpy(np.array(leaf, dtype=np.float32))
+            torch.zeros(np.shape(leaf), dtype=torch.float32)
             for leaf in codec.tree_leaves(tree)
         ]
 
     def initialize(self, params: Any):
-        self._state = self._tx.init(self._leaves(params))
+        leaves = self._zeros(params)
+        self._state = self._tx.init(leaves)
+        self._grads = leaves
 
     @property
     def initialized(self) -> bool:
@@ -92,26 +111,31 @@ class PSOptimizer:
             self.initialize(params)
 
     def step(self, params: Any, grads: Any) -> Any:
-        """Apply averaged gradients; returns the new params tree (numpy)."""
+        """Apply averaged gradients; returns the new params tree (fresh
+        numpy arrays). Neither `params` nor `grads` is modified: the
+        gradients are copied into scratch, and clip + Adam run in place
+        over it and the preallocated state."""
         if self._state is None:
             self.initialize(params)
         p_leaves, treedef = codec.tree_flatten(params)
         g_leaves, g_def = codec.tree_flatten(grads)
         if g_def != treedef:
             raise ValueError("gradient tree does not match the params tree")
-        updates, self._state = self._tx.update(self._leaves(grads), self._state)
+        for buf, g in zip(self._grads, g_leaves):
+            buf.copy_(_host_tensor(g))
+        updates = self._tx.update(self._grads, self._state)
         new = [
-            (torch.from_numpy(np.asarray(p, dtype=np.float32)) + u).numpy()
-            for p, u in zip(p_leaves, updates)
+            torch.add(_host_tensor(p), u).numpy() for p, u in zip(p_leaves, updates)
         ]
         return codec.tree_unflatten(treedef, new)
 
     def state_snapshot(self) -> Optional[list]:
-        """Flat numpy leaves `[count, *mu, *nu]` (None if never run)."""
+        """Flat numpy leaves `[count, *mu, *nu]` (None if never run):
+        copies, which later steps leave as they are."""
         if self._state is None:
             return None
         s = self._state
-        return [s["count"].numpy()] + [t.numpy() for t in s["mu"] + s["nu"]]
+        return [t.cpu().numpy().copy() for t in [s["count"], *s["mu"], *s["nu"]]]
 
     def restore_state(self, params: Any, leaves: list):
         """Adopt a state snapshot taken by `state_snapshot`."""
@@ -121,9 +145,18 @@ class PSOptimizer:
                 f"optimizer state mismatch: snapshot has {len(leaves)} "
                 f"leaves, the optimizer needs {1 + 2 * n}"
             )
-        t = [torch.from_numpy(np.array(x)) for x in leaves]
-        self._state = {
-            "count": t[0].to(torch.int32),
-            "mu": [x.to(torch.float32) for x in t[1 : 1 + n]],
-            "nu": [x.to(torch.float32) for x in t[1 + n :]],
-        }
+        self.initialize(params)
+        s = self._state
+        s["count"].fill_(int(np.asarray(leaves[0])))
+        for dst, src in zip(s["mu"] + s["nu"], leaves[1:]):
+            dst.copy_(_host_tensor(src))
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A float32 CPU tensor over `a` (no copy when `a` already is
+    float32). Read-only arrays (decoded frames) are only ever read
+    here, so torch's warning about them is moot."""
+    a = np.asarray(a, dtype=np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)

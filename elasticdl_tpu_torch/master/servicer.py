@@ -1,13 +1,25 @@
 """The master servicer: task front-end + parameter server.
 
-The reference's `MasterServicer` on the slice's path, sync mode: the
-master holds the model as a numpy tree + version counter, serves tasks
-and model pulls, and applies gradients. It accepts only flat gradients
-computed at the current version, accumulates them, and on the
-`grads_to_wait`-th report averages them in float32 numpy, runs the
-optimizer and bumps the version. A rejected
-report, and an accepted one that saw the version move, carry the fresh
-model back (`return_model`), so a steady-state step is one RPC.
+The reference's `MasterServicer` on the slice's paths: the master holds
+the model as a numpy tree + version counter, serves tasks and model
+pulls, and takes two kinds of update.
+
+- Per-step sync (ReportGradient): only flat gradients computed at the
+  current version are accepted; on the `grads_to_wait`-th report they
+  are averaged in float32 numpy, the optimizer runs and the version
+  bumps. A rejected report, and an accepted one that saw the version
+  move, carry the fresh model back (`return_model`), so a steady-state
+  step is one RPC.
+- Window mode (ReportLocalUpdate): the worker ran `steps` optimizer
+  updates on its device and sends one cumulative delta, in any wire
+  form (`codec.delta_to_f32`). The PS adds it in float32, the version
+  advances by `steps`, and the merged model goes back when another
+  worker synced in between. A repeated `report_key` is absorbed.
+
+Either response piggybacks the model in the worker's `model_dtype`
+(bfloat16 halves the bytes). The staleness down-weighting of deltas
+(`--staleness_window`) is not ported: every delta applies at full
+weight.
 
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
@@ -16,6 +28,7 @@ under the lock at every instant.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -26,6 +39,9 @@ from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
 
 logger = get_logger(__name__)
+
+# window syncs remembered for dedup (the reference's cap)
+LOCAL_UPDATE_DEDUP_CAP = 1024
 
 
 def _to_f32(tree):
@@ -38,7 +54,10 @@ def _to_f32(tree):
 
 
 def _copy(tree):
-    return codec.tree_map(np.copy, tree)
+    return codec.tree_map(
+        lambda a: codec.BF16Bits(a.bits.copy()) if isinstance(a, codec.BF16Bits) else np.copy(a),
+        tree,
+    )
 
 
 class MasterServicer:
@@ -61,6 +80,9 @@ class MasterServicer:
         self._grad_sum = None  # flat f32 accumulator
         self._grad_n = 0
         self._unraveler = None
+        # report_keys of applied window syncs, oldest first
+        self._seen_local_updates: "OrderedDict[str, bool]" = OrderedDict()
+        self.duplicate_local_updates = 0
 
     def handlers(self) -> Dict[str, Any]:
         return {
@@ -69,6 +91,7 @@ class MasterServicer:
             "GetModel": self.get_model,
             "ReportVariable": self.report_variable,
             "ReportGradient": self.report_gradient,
+            "ReportLocalUpdate": self.report_local_update,
             "GetPSConfig": self.get_ps_config,
         }
 
@@ -183,7 +206,7 @@ class MasterServicer:
                 # worker's retry needs no separate pull
                 resp = {"accepted": False, "version": self._version}
                 if req.get("return_model"):
-                    resp["params_flat"] = codec.ravel_np(self._params)
+                    resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                     resp["aux"] = self._aux
                 return resp
             if report_version > self._version:
@@ -204,9 +227,59 @@ class MasterServicer:
                 self._apply(avg)
             resp = {"accepted": True, "version": self._version}
             if req.get("return_model") and self._version != report_version:
-                resp["params_flat"] = codec.ravel_np(self._params)
+                resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = self._aux
             return resp
+
+    def report_local_update(self, req: dict) -> dict:
+        """Window mode: add one cumulative delta in float32, advance the
+        version by its `steps`, and hand back the merged model (and aux)
+        when the worker's base fell behind (`base_version + steps !=
+        version`: another worker synced in between) or it asks for it.
+        A `report_key` seen before (a resend) changes nothing and
+        answers `duplicate: True` with the merged model."""
+        steps = int(req["steps"])
+        base_version = int(req["base_version"])
+        report_key = req.get("report_key") or ""
+        with self._lock:
+            if self._params is None:
+                raise ValueError("local update reported before model init")
+            if report_key and report_key in self._seen_local_updates:
+                self.duplicate_local_updates += 1
+                return {
+                    "version": self._version,
+                    "params_flat": self._flat_model(req.get("model_dtype")),
+                    "aux": _copy(self._aux) if self._aux is not None else None,
+                    "duplicate": True,
+                }
+            if self._unraveler is None:
+                self._unraveler = codec.make_unraveler(self._params)
+            delta = self._unraveler(codec.delta_to_f32(req["delta_flat"]))
+            self._params = codec.tree_map(lambda p, d: p + d, self._params, delta)
+            if req.get("aux_state") is not None:
+                self._aux = req["aux_state"]
+            self._version += steps
+            self._applied_update_steps += steps
+            if report_key:
+                # registered only after the apply succeeded
+                self._seen_local_updates[report_key] = True
+                while len(self._seen_local_updates) > LOCAL_UPDATE_DEDUP_CAP:
+                    self._seen_local_updates.popitem(last=False)
+            resp = {"version": self._version}
+            if base_version + steps != self._version or req.get("want_model"):
+                resp["params_flat"] = self._flat_model(req.get("model_dtype"))
+                resp["aux"] = _copy(self._aux) if self._aux is not None else None
+            return resp
+
+    def _flat_model(self, model_dtype=None):  # caller holds self._lock
+        """The raveled params, narrowed to the worker's wire dtype when
+        it asks for bfloat16 (the worker widens it again)."""
+        vec = codec.ravel_np(self._params)
+        if model_dtype == "bfloat16":
+            return codec.BF16Bits.from_f32(vec)
+        if model_dtype and model_dtype != "float32":
+            raise ValueError(f"unsupported model_dtype {model_dtype!r}")
+        return vec
 
     def _apply(self, flat_grad: np.ndarray):  # caller holds self._lock
         if self._unraveler is None:

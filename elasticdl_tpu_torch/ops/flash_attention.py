@@ -20,7 +20,10 @@ in its `launches` attribute) or raises; for CPU tensors, and only for
 them, it runs its plain PyTorch version (`plain_forward`, `plain_dq`,
 `plain_dkv`), which computes the same function block by block with the
 kernel's rounding points. `flash_attention` is the autograd Function
-over the three; `attention` is the dispatcher model code calls.
+over the three; `attention` is the dispatcher model code calls: on the
+card it sends the shapes the kernels take to them (`kernels_take`) and
+every other shape to the materializing `reference_attention`, counting
+each such call in `attention.fallbacks`.
 
 Layout: [B, L, H, D] ("blhd"); compute is float32, operands float32 or
 bfloat16. The kernels take D = 64 and L a multiple of BLOCK. The C
@@ -297,13 +300,31 @@ def flash_attention(q, k, v, causal: bool = True):
     return FlashAttention.apply(q, k, v, causal)
 
 
+def kernels_take(shape, dtype) -> bool:
+    """Whether the CUDA kernels take q, k, v of this shape and dtype:
+    [B, L, H, HEAD_DIM] with L % BLOCK == 0, float32 or bfloat16. By
+    shape and dtype alone, so the choice needs no card."""
+    return (
+        len(shape) == 4
+        and shape[-1] == HEAD_DIM
+        and shape[1] % BLOCK == 0
+        and dtype in _DTYPE_CODE
+    )
+
+
 def attention(q, k, v, causal: bool = True):
-    """Dispatcher, the single entry point for model code: the Hopper
-    kernels for CUDA tensors (L must be a multiple of BLOCK, else it
-    raises), their plain versions for CPU tensors."""
-    if q.device.type == "cuda" and q.shape[1] % BLOCK:
-        raise ValueError(
-            f"sequence length {q.shape[1]} is not a multiple of {BLOCK}: "
-            "the CUDA attention kernels cannot take it"
-        )
+    """Dispatcher, the single entry point for model code. CPU tensors run
+    the kernels' plain versions for any shape. CUDA tensors run the
+    Hopper kernels when `kernels_take` their shape; any other shape runs
+    `reference_attention` on the card, as the reference's dispatcher
+    runs XLA's materializing path for shapes its kernels do not take,
+    and counts one fallback in `attention.fallbacks`. The wrappers
+    themselves still raise on a shape they do not take, and a build or
+    launch failure raises from them."""
+    if q.device.type == "cuda" and not kernels_take(tuple(q.shape), q.dtype):
+        attention.fallbacks += 1
+        return reference_attention(q, k, v, causal)
     return flash_attention(q, k, v, causal)
+
+
+attention.fallbacks = 0

@@ -9,7 +9,10 @@ takes either.
 
 `seconds` and `codec_seconds` count each method's wall clock and the
 part of it spent in the codec (pack + unpack), so the socket hop is
-`seconds - codec_seconds` less the server's time for the method.
+`seconds - codec_seconds` less the server's time for the method. Calls
+may come from several threads (window mode's sync threads): the
+transport gives each concurrent call its own connection, and the
+counters are locked.
 
 Not ported yet: the trace envelope, `reconnect` (master failover) and
 the circuit breaker.
@@ -17,6 +20,7 @@ the circuit breaker.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter
 from typing import Any, Optional
@@ -39,6 +43,8 @@ class RpcClient:
         self._policy = policy if policy is not None else RetryPolicy()
         self.seconds: Counter = Counter()
         self.codec_seconds: Counter = Counter()
+        # window mode's sync threads call beside the main thread
+        self._stats_lock = threading.Lock()
 
     def wait_ready(self, timeout: float = 30.0):
         """Poll until a listener accepts at the address (a worker may
@@ -79,8 +85,9 @@ class RpcClient:
         t2 = time.perf_counter()
         out = messages.unpack(resp)
         t3 = time.perf_counter()
-        self.seconds[method] += t3 - t0
-        self.codec_seconds[method] += (t1 - t0) + (t3 - t2)
+        with self._stats_lock:
+            self.seconds[method] += t3 - t0
+            self.codec_seconds[method] += (t1 - t0) + (t3 - t2)
         return out
 
     def close(self):

@@ -48,11 +48,12 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
     {StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED}
 )
 
-#: The ported methods that are safe to re-send: reads, and the task
-#: report that the dispatcher dedups (a stale or repeated report is
-#: dropped).
+#: The ported methods that are safe to re-send: reads, the task report
+#: that the dispatcher dedups (a stale or repeated report is dropped),
+#: and the window sync, which the servicer dedups by its `report_key`
+#: (a resend is absorbed and answered with the merged model).
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
-    {"GetModel", "GetPSConfig", "ReportTaskResult"}
+    {"GetModel", "GetPSConfig", "ReportTaskResult", "ReportLocalUpdate"}
 )
 
 

@@ -3,11 +3,13 @@
 `InProcessMaster` exposes the master's RPC surface to a real Worker
 without a network, so a whole training job runs in one process; every
 request and response is round-tripped through the wire codec, so
-serialization is exercised too.
+serialization is exercised too. It is thread-safe: window mode calls
+it from sync threads beside the worker's main thread.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter
 from typing import Any, Callable, Dict, Optional
@@ -28,9 +30,12 @@ class InProcessMaster:
         self.calls: Dict[str, int] = {}
         self.handler_seconds: Counter = Counter()
         self.codec_seconds: Counter = Counter()
+        # window mode calls from its sync threads beside the main thread
+        self._lock = threading.Lock()
 
     def call(self, method: str, request: Any = None) -> Any:
-        self.calls[method] = self.calls.get(method, 0) + 1
+        with self._lock:
+            self.calls[method] = self.calls.get(method, 0) + 1
         t0 = time.perf_counter()
         req = messages.unpack(messages.pack(request if request is not None else {}))
         if method in self._intercept:
@@ -40,14 +45,17 @@ class InProcessMaster:
         t2 = time.perf_counter()
         out = messages.unpack(messages.pack(resp))
         t3 = time.perf_counter()
-        self.handler_seconds[method] += t2 - t1
-        self.codec_seconds[method] += (t1 - t0) + (t3 - t2)
+        with self._lock:
+            self.handler_seconds[method] += t2 - t1
+            self.codec_seconds[method] += (t1 - t0) + (t3 - t2)
         return out
 
 
 def build_job(spec, dispatcher, grads_to_wait: int = 1, init_params=None):
     """Wire a MasterServicer with the spec's PS optimizer over
-    `dispatcher`, as the master's boot does. Returns the servicer."""
+    `dispatcher`, as the master's boot does. Returns the servicer. The
+    same servicer takes per-step and window-mode workers: window mode's
+    settings are the Worker's (`local_updates`, `sync_dtype`, ...)."""
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
     from elasticdl_tpu_torch.master.servicer import MasterServicer
 

@@ -15,21 +15,30 @@ EXIT_CODE_JOB_FAILED (2) the master reported dropped (poison) tasks;
 EXIT_CODE_MASTER_UNREACHABLE (3) the master stayed unreachable past the
 retry budget, at boot or later (the WorkerManager relaunches it).
 
-At exit the worker logs one line, `worker summary: {json}`: its device,
-steps accepted and computed (the difference is stale recomputes), phase
-seconds, the client's seconds per method, the three attention kernels'
-launches, and each accepted step's time (`time.perf_counter()`) and
-loss.
+SIGTERM (the backend's teardown and `delete_worker`, or a preemption)
+latches a drain, as the reference's worker does: the run loop exits at
+the next task boundary with every window synced and every task report
+delivered, logs "drain requested, exiting at task boundary" and exits
+0, so the dispatcher has nothing of it to requeue. A drain that
+outlives the backend's grace period is SIGKILLed, and its tasks are
+requeued.
 
-Not ported yet: the SIGTERM drain (it waits for window mode: until
-then a deleted worker dies and its task is recovered, the preemption
-path), master failover candidates and the profiler trace.
+At exit the worker logs one line, `worker summary: {json}`: its device,
+steps accepted and computed (in per-step mode the difference is stale
+recomputes; window mode computes each step once), phase seconds, window
+mode's sync seconds and merged-back absorbs, whether it drained, the
+client's seconds per method, the three attention kernels' launches and
+the dispatcher's attention fallbacks, and each accepted step's (or
+landed window's) time (`time.perf_counter()`) and loss.
+
+Not ported yet: master failover candidates and the profiler trace.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import sys
 
 from elasticdl_tpu_torch.common.args import worker_parser
@@ -79,16 +88,22 @@ def _summary(worker_id, worker, client, device) -> dict:
     return {
         "worker_id": worker_id,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "steps_accepted": len(worker.step_log),
+        "steps_accepted": worker.steps_accepted,
         "steps_computed": worker.steps_computed,
         "phase_seconds": dict(worker.phase_seconds),
+        "sync_seconds": dict(worker.sync_seconds),
+        "merged_back": worker.merged_back,
+        "drained": worker.drained,
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),
         "launches": {
             w.__name__: w.launches for w in (fa.flash_forward, fa.flash_dq, fa.flash_dkv)
         },
+        "attention_fallbacks": fa.attention.fallbacks,
         "accepted_at": [t for t, _loss in worker.step_log],
         "losses": [loss for _t, loss in worker.step_log],
+        # window mode: (time landed, steps, last step's loss) per window sync
+        "windows": [list(w) for w in worker.window_log],
     }
 
 
@@ -141,8 +156,20 @@ def main(argv=None) -> int:
             return EXIT_CODE_MASTER_UNREACHABLE
         raise
     worker = Worker(
-        args.worker_id, client, spec, minibatch_size=args.minibatch_size, device=device
+        args.worker_id,
+        client,
+        spec,
+        minibatch_size=args.minibatch_size,
+        device=device,
+        local_updates=args.local_updates,
+        transport_dtype=args.transport_dtype,
+        sync_dtype=args.sync_dtype or None,
+        sync_compress=args.sync_compress or None,
+        overlap_sync=args.overlap_sync or None,
     )
+    # teardown and preemption send SIGTERM: drain at the next task
+    # boundary instead of dying with windows and reports in flight
+    signal.signal(signal.SIGTERM, lambda s, f: worker.request_drain())
     unreachable = False
     try:
         clean = worker.run()
@@ -157,7 +184,12 @@ def main(argv=None) -> int:
         unreachable = True
         clean = False
     finally:
-        worker.close()
+        try:
+            worker.close()  # window mode: joins the sync chain, flushes reports
+        except Exception:
+            # a failed final sync has already reported its tasks as
+            # failed, so the dispatcher requeues them
+            logger.exception("worker %d: final sync failed", args.worker_id)
         summary = _summary(args.worker_id, worker, client, device)
         logger.info("%s%s", SUMMARY_TAG, json.dumps(summary))
         client.close()

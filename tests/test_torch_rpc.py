@@ -21,7 +21,7 @@ from elasticdl_tpu.common.constants import GRPC_MAX_MESSAGE_LENGTH
 from elasticdl_tpu.master.main import collect_shards as jcollect_shards
 from elasticdl_tpu.rpc import policy as jpolicy
 from elasticdl_tpu_torch.common import args as targs
-from elasticdl_tpu_torch.common.codec import BF16Bits
+from elasticdl_tpu_torch.common.codec import BF16Bits, SparseDelta, quantize_int8
 from elasticdl_tpu_torch.master.main import collect_shards
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
 from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -74,6 +74,17 @@ def _calls():
                             "gradient_flat": BF16Bits.from_f32(grad * 3),
                             "loss": 1.0, "return_model": True}),
         ("GetModel", {"version": 1, "method": "minimum", "only_if_newer": True}),
+        # window syncs: an int8 delta that lands unmerged, a top-k delta
+        # whose base fell behind (merged model back in bf16), its resend
+        ("ReportLocalUpdate", {"delta_flat": quantize_int8(grad * 1e-3), "steps": 2,
+                               "base_version": 2, "report_key": "w0.0", "aux_state": None}),
+        ("ReportLocalUpdate", {"delta_flat": SparseDelta(np.arange(0, 36, 5, dtype=np.int32),
+                                                         grad[::5] * 1e-3, 36),
+                               "steps": 1, "base_version": 0, "report_key": "w1.0",
+                               "aux_state": None, "model_dtype": "bfloat16"}),
+        ("ReportLocalUpdate", {"delta_flat": grad * 1e-3, "steps": 1, "base_version": 0,
+                               "report_key": "w1.0", "aux_state": None,
+                               "model_dtype": "bfloat16"}),
         ("ReportTaskResult", {"task_id": 1, "err_message": "", "worker_id": 0}),
         ("GetTask", {"worker_id": 0}),
         ("ReportTaskResult", {"task_id": 2, "err_message": "boom", "worker_id": 0}),
@@ -130,7 +141,7 @@ def test_every_ported_method_over_the_socket_matches_in_process(server):
     finally:
         client.close()
     assert remote.exactness() == local.exactness() == {
-        "version": 2, "init_version": 0, "applied_update_steps": 2
+        "version": 5, "init_version": 0, "applied_update_steps": 5
     }
     stats = srv.stats()
     assert stats["calls"] == inproc.calls
@@ -273,7 +284,7 @@ def test_parser_values_equal_the_references_for_every_ported_flag(which, extra):
 
 def test_flags_not_ported_are_rejected():
     with pytest.raises(SystemExit):
-        targs.master_parser().parse_args(SPEC_ARGV + ["--local_updates", "2"])
+        targs.master_parser().parse_args(SPEC_ARGV + ["--sync_local_steps", "2"])
 
 
 @pytest.mark.parametrize("data_dir", ["", "shards"])
