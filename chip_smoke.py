@@ -8,18 +8,23 @@ its result lines only when every phase passed:
 1. the card's name and power limit (`nvidia-smi`);
 2. builds the attention kernels from `elasticdl_tpu_torch/ops/csrc/`,
    prints ptxas's register, shared-memory and spill lines, and fails if
-   a tensor-core kernel spills;
-3. holds each kernel against its plain PyTorch version on the card, at
-   the training slice's shapes in bfloat16, at a small shape in float32,
-   and at [1, 192, 3, 64] (L a multiple of 64 but not of 128, B*H odd)
-   in both dtypes, causal and not, under a limit per output; each
-   backward check runs once on the plain forward's lse and once on the
-   kernel's own lse and o. Times kernel, plain version and the library
-   yardsticks, which the port never calls: `F.scaled_dot_product_attention`
-   for the forward, and one call of aten's flash-attention backward
-   (dq, dk and dv together, checked against the plain versions) for the
-   backward pair. Then checks the model's forward and backward against
-   the materializing reference;
+   an instantiation of a tensor-core kernel spills or is missing at a
+   head dim (64, 128);
+3. holds each kernel against its plain PyTorch version on the card at
+   both head dims (`KERNEL_CHECKS`): at each slice's shape in bfloat16
+   (the base transformer's [8, 1024, 8, 64], the large config's
+   [16, 1024, 8, 128]), at a small shape in float32, and at
+   [1, 192, 3, D] (L a multiple of 64 but not of 128, B*H odd) in both
+   dtypes, causal and not, under a limit per output (bf16 gradients may
+   also differ by two rounding flips of a row's largest term,
+   `exact_backward`); each backward check runs once on the plain
+   forward's lse and once on the kernel's own lse and o. Times kernel,
+   plain version and the library yardsticks at each slice's shape, which
+   the port never calls: `F.scaled_dot_product_attention` for the
+   forward, and one call of aten's flash-attention backward (dq, dk and
+   dv together, checked against the plain versions) for the backward
+   pair. Then checks the model's forward and backward against the
+   materializing reference;
 4. trains the base transformer (vocab 8192, d_model 512, 8 heads,
    d_ff 2048, 8 layers, bfloat16 compute, batch 8 x seq 1024) for 8
    per-step updates through the port's in-process master/PS loop, and
@@ -52,6 +57,15 @@ its result lines only when every phase passed:
    values and residual equal to the CPU's; prints each one's ms;
 9. the zoo's default config (head_dim 16) trains one step on the card
    through the attention dispatcher's fallback (`phase_zoo_default`);
+   then the reference's large config (`phase_large`: d_model 1024, 8
+   heads of 128, 16 layers, remat "dots", bf16, b16 x s1024, 218.1M
+   parameters, built from its `--model_params` string): 4 per-step
+   updates and 16 window steps in-process; checks the exactness block,
+   steps computed = applied, finite losses, moved parameters, 0
+   fallbacks and the launches (forward twice a layer a step: the remat
+   recompute; dq and dk+dv once); prints steady tokens/s, the
+   ReportGradient handler seconds, the window sync split, and the peak
+   device memory of one step under remat off / full / dots;
 10. window mode in process mode (`phase_window_process_job`): master.main
    with `--local_updates 4 --sync_dtype bfloat16`, 2 workers, 32 steps;
    checks rc, versions (the `--output` version = the workers' applied
@@ -60,11 +74,15 @@ its result lines only when every phase passed:
 11. the drain (`phase_window_drain`): SIGTERM to worker 0 mid-window of
    the same job drains it (exit 0, its drain line, nothing requeued,
    every step applied once); SIGKILL in a second job requeues its tasks
-   and the job finishes with no failed task;
-12. prints the kernels' JSON line (one row per kernel; the backward
-   pair's yardstick once, as `backward_pair`, since no single kernel's
-   row matches it; launches per path: `launches` the per-step run,
-   `process_launches`, `window_launches`, `window_process_launches`),
+   and the job finishes with no failed task and every step applied once
+   (the replayed windows deduped by their report keys);
+12. prints the kernels' JSON line (one row per kernel and head dim; the
+   backward pair's yardstick once per head dim, as `backward_pair`,
+   since no single kernel's row matches it; launches per path:
+   `launches` the head dim's main path (the base per-step run at 64, the
+   large per-step run at 128), `process_launches`, `window_launches`,
+   `window_process_launches`, `large_launches`,
+   `large_window_launches`, 0 where the path runs the other head dim),
    the card line, and the result line.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
@@ -95,6 +113,9 @@ BF16_TOL = {
     "lse": dict(atol=1e-5, rtol=0.0),
     "grad": dict(atol=1e-3, rtol=1e-2),
 }
+# the spacing of bf16 values relative to their magnitude, at most (7
+# stored mantissa bits)
+BF16_SPACING = 2.0 ** -7
 # f32: same math, other summation order
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 TOLS = {torch.bfloat16: BF16_TOL, torch.float32: dict.fromkeys(BF16_TOL, F32_TOL)}
@@ -108,6 +129,12 @@ PEAK_BYTES = 3.35e12
 
 SLICE = dict(vocab=8192, d_model=512, n_heads=8, d_ff=2048, n_layers=8)
 BATCH, SEQ, STEPS = 8, 1024, 8
+# the reference's large config (bench_transformer.py:172-186): 8 heads of
+# 128, remat "dots", bf16 compute, b16 x s1024; its --model_params string
+LARGE = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=16)
+LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
+                "dtype=bfloat16,remat=True,remat_policy=dots")
+LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 16
 # window mode: W steps a sync, bf16 error-feedback deltas
 WINDOW, WINDOW_STEPS = 4, 16
 WINDOW_ARGS = ["--local_updates", str(WINDOW), "--sync_dtype", "bfloat16"]
@@ -156,32 +183,65 @@ def rounded(c) -> dict:
     return {k: round(v, 3) for k, v in c.items()}
 
 
-def check_close(name, got, want, tols, failures) -> list:
+def check_close(name, got, want, tols, failures, allowances=None) -> list:
     """Per tensor (got[i] against want[i] under tols[i]): max |got - want|
-    and the largest share of its limit atol + rtol*|want| that an element
-    uses. A share above 1 or a non-finite output is added to `failures`."""
+    and the largest share of its limit atol + rtol*|want| (+ allowances[i],
+    elementwise, where given) that an element uses. A share above 1 or a
+    non-finite output is added to `failures`."""
     readings = []
-    for g, w, tol in zip(got, want, tols):
+    for i, (g, w, tol) in enumerate(zip(got, want, tols)):
         g, w = g.float(), w.float()
         err = (g - w).abs()
-        share = (err / (tol["atol"] + tol["rtol"] * w.abs())).max().item()
+        limit = tol["atol"] + tol["rtol"] * w.abs()
+        if allowances is not None:
+            limit = limit + allowances[i].float()
+        share = (err / limit).max().item()
         readings.append((err.max().item(), share))
         if not torch.isfinite(g).all():
             failures.append(f"{name}: kernel output is not finite")
         elif share > 1:
             failures.append(f"{name}: max |kernel - plain| {err.max().item():.3e}, "
-                            f"{share:.2f}x the limit {tol}")
+                            f"{share:.2f}x the limit {tol}"
+                            + (" + two rounding flips" if allowances is not None else ""))
     return readings
+
+
+def exact_backward(q, k, v, do, lse, delta, causal):
+    """The backward's function in float64 with the kernels' rounding points
+    (p and ds rounded to bf16), materialized: (dq, dk, dv), and per output
+    the most that two bf16 rounding flips of its largest p or ds term can
+    move it (a flip moves p or ds by one bf16 spacing, at most 2^-7 of its
+    magnitude), [B, L, H, D] each. Two implementations whose float32
+    intermediates differ in the last bits round different p and ds
+    elements the other way; the allowance is one such flip in each."""
+    d = q.shape[-1]
+    qf, kf, vf, dof = (x.double().transpose(1, 2) for x in (q, k, v, do))  # [B, H, L, D]
+    s = qf @ kf.transpose(-1, -2) / math.sqrt(d)
+    if causal:
+        L = q.shape[1]
+        s = s.masked_fill(~torch.ones(L, L, dtype=torch.bool, device=q.device).tril(), -1e30)
+    p = torch.exp(s - lse.double()[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.double()[..., None]) / math.sqrt(d)
+    del s
+    rp, rds = (x.to(q.dtype).double() for x in (p, ds))
+    grads = (rds @ kf, rds.transpose(-1, -2) @ qf, rp.transpose(-1, -2) @ dof)
+    flip = 2 * BF16_SPACING
+    allow = (
+        flip * ds.abs().amax(-1)[..., None] * kf.abs().amax(-2)[..., None, :],
+        flip * ds.abs().amax(-2)[..., None] * qf.abs().amax(-2)[..., None, :],
+        flip * p.abs().amax(-2)[..., None] * dof.abs().amax(-2)[..., None, :],
+    )
+    return ([g.transpose(1, 2) for g in grads], [a.transpose(1, 2).float() for a in allow])
 
 
 def reading_text(readings) -> str:
     return ", ".join(f"{err:.3e} ({share:.2f} of its limit)" for err, share in readings)
 
 
-def attention_inputs(b, L, h, dtype, seed):
+def attention_inputs(b, L, h, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [
-        torch.randn(b, L, h, 64, device="cuda", generator=g).to(dtype)
+        torch.randn(b, L, h, d, device="cuda", generator=g).to(dtype)
         for _ in range(4)
     ]
 
@@ -203,19 +263,37 @@ def bounds(b, L, h, d, causal=True):
 
 def backward_errs(fa, q, k, v, do, lse, delta, causal, tols, tag, failures):
     """flash_dq / flash_dkv against plain_dq / plain_dkv fed the same
-    lse and delta; returns their readings (dq; dk, dv)."""
+    lse and delta; returns their readings (dq; dk, dv). bfloat16
+    gradients may also differ by two rounding flips (`exact_backward`);
+    the line printed says how many elements needed that allowance, and how
+    far the kernel and the plain version each are from the float64
+    function under the limit alone."""
     dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+    plain = (fa.plain_dq(q, k, v, do, lse, delta, causal),
+             *fa.plain_dkv(q, k, v, do, lse, delta, causal))
     torch.cuda.synchronize()
     grad = tols["grad"]
+    allow = None
+    if q.dtype == torch.bfloat16:
+        exact, allow = exact_backward(q, k, v, do, lse, delta, causal)
+        beyond = [int(((g.float() - w.float()).abs()
+                       > grad["atol"] + grad["rtol"] * w.float().abs()).sum())
+                  for g, w in zip((dq, dk, dv), plain)]
+        kernel_exact = check_close("", (dq, dk, dv), exact, (grad,) * 3, [])
+        plain_exact = check_close("", plain, exact, (grad,) * 3, [])
+        print(f"  {tag}: (dq, dk, dv) elements beyond the limit alone {beyond} of "
+              f"{dq.numel()} each; under the limit alone, kernel vs float64 "
+              f"{reading_text(kernel_exact)}; plain vs float64 {reading_text(plain_exact)}")
+        del exact
     return {
         "flash_dq": check_close(
-            f"flash_dq {tag}", (dq,), (fa.plain_dq(q, k, v, do, lse, delta, causal),),
-            (grad,), failures,
+            f"flash_dq {tag}", (dq,), plain[:1], (grad,), failures,
+            allow[:1] if allow else None,
         ),
         "flash_dkv": check_close(
-            f"flash_dkv {tag}", (dk, dv), fa.plain_dkv(q, k, v, do, lse, delta, causal),
-            (grad, grad), failures,
+            f"flash_dkv {tag}", (dk, dv), plain[1:], (grad, grad), failures,
+            allow[1:] if allow else None,
         ),
     }
 
@@ -224,7 +302,8 @@ def library_backward(fa, q, k, v, do) -> dict:
     """The backward pair's yardstick: one call of aten's flash-attention
     backward, which computes dq, dk and dv together (the port never calls
     it), on [B, H, L, D] views of the same bf16 inputs, causal. Its
-    gradients are held against plain_dq / plain_dkv fed its own lse and o;
+    gradients are held against plain_dq / plain_dkv fed its own lse and o,
+    under the kernels' limit and rounding-flip allowance;
     it is timed beside attention_delta + flash_dq + flash_dkv on the same
     lse and o. No single kernel's row carries it: returns both times as
     the kernels line's `backward_pair`."""
@@ -246,7 +325,7 @@ def library_backward(fa, q, k, v, do) -> dict:
     readings = check_close(
         "aten flash backward", [g.transpose(1, 2) for g in call()],
         (fa.plain_dq(q, k, v, do, lse, delta, True), *fa.plain_dkv(q, k, v, do, lse, delta, True)),
-        (BF16_TOL["grad"],) * 3, failures,
+        (BF16_TOL["grad"],) * 3, failures, exact_backward(q, k, v, do, lse, delta, True)[1],
     )
     if failures:
         raise AssertionError("the backward yardstick disagrees with the plain versions:\n"
@@ -266,22 +345,86 @@ def library_backward(fa, q, k, v, do) -> dict:
             "library_ms": library_ms, "kernels_ms": kernels_ms}
 
 
-def phase_kernels(fa):
-    """Kernel vs plain version on the card; returns the per-kernel rows
-    (without launches) at the slice's shapes and the backward pair's
-    yardstick. Prints every check's
-    readings (max |err| and share of the limit, per output) and raises
-    after the last if any was beyond its limit."""
+# (dtype, (B, L, H), head dim, causal cases) of every kernel check; the
+# last of each head dim is its slice's shape: the base transformer's
+# (8 heads of 64, b8 x s1024) and the large config's (8 of 128, b16 x s1024)
+KERNEL_CHECKS = (
+    (torch.float32, (2, 256, 2), 64, (True,)),
+    (torch.float32, (1, 192, 3), 64, (True, False)),
+    (torch.bfloat16, (1, 192, 3), 64, (True, False)),
+    (torch.bfloat16, (BATCH, SEQ, SLICE["n_heads"]), 64, (True,)),
+    (torch.float32, (2, 256, 2), 128, (True,)),
+    (torch.float32, (1, 192, 3), 128, (True, False)),
+    (torch.bfloat16, (1, 192, 3), 128, (True, False)),
+    (torch.bfloat16, (LARGE_BATCH, SEQ, LARGE["n_heads"]), 128, (True,)),
+)
+
+
+def kernel_rows(fa, d, q, k, v, do, plse, delta, readings) -> dict:
+    """Times each kernel at its slice's bf16 shape (inputs q, k, v, do,
+    causal) beside its plain version, its bound and the library
+    yardstick; returns one row per kernel at head dim d."""
     import torch.nn.functional as F
 
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    timings = {
+        "flash_forward": (
+            time_ms(lambda: fa.flash_forward(q, k, v, True)),
+            time_ms(lambda: fa.plain_forward(q, k, v, True), iters=5),
+            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        ),
+        "flash_dq": (
+            time_ms(lambda: fa.flash_dq(q, k, v, do, plse, delta, True)),
+            time_ms(lambda: fa.plain_dq(q, k, v, do, plse, delta, True), iters=5),
+            None,
+        ),
+        "flash_dkv": (
+            time_ms(lambda: fa.flash_dkv(q, k, v, do, plse, delta, True)),
+            time_ms(lambda: fa.plain_dkv(q, k, v, do, plse, delta, True), iters=5),
+            None,
+        ),
+    }
+    print(f"library yardstick F.scaled_dot_product_attention(is_causal=True) "
+          f"{tuple(qt.shape)} bf16: forward {timings['flash_forward'][2]:.4f} ms; "
+          f"kernel {timings['flash_forward'][0]:.4f} ms")
+    rows = {}
+    b, L, h, _ = q.shape
+    for name, (ops, nbytes) in bounds(b, L, h, d).items():
+        ms, plain_ms, library_ms = timings[name]
+        ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = rows[name] = {
+            "name": f"{name}_d{d}",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[name],
+            "head_dim": d,
+            "shape": list(q.shape),
+            "max_abs_err": max(err for err, _share in readings[name]),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms,
+            "bound_share": max(ops_ms, bytes_ms) / ms,
+            "blocks_per_sm": fa.blocks_per_sm(name, d, torch.bfloat16),
+        }
+        print(f"{row['name']} {tuple(q.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_share']:.3f}, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, {row['blocks_per_sm']} blocks an SM)")
+    return rows
+
+
+def phase_kernels(fa):
+    """Kernel vs plain version on the card at every shape of
+    KERNEL_CHECKS; returns the per-kernel rows (without launches) at each
+    head dim's slice shape, {head dim: row by kernel}, and the backward
+    pair's yardstick by head dim. Prints every check's readings (max |err|
+    and share of the limit, per output) and raises after the last if any
+    was beyond its limit."""
     failures = []
-    for dtype, shape, causals in (
-        (torch.float32, (2, 256, 2), (True,)),
-        (torch.float32, (1, 192, 3), (True, False)),
-        (torch.bfloat16, (1, 192, 3), (True, False)),
-        (torch.bfloat16, (BATCH, SEQ, SLICE["n_heads"]), (True,)),
-    ):
-        q, k, v, do = attention_inputs(*shape, dtype, seed=1)
+    slice_inputs = {}
+    for dtype, shape, d, causals in KERNEL_CHECKS:
+        q, k, v, do = attention_inputs(*shape, d, dtype, seed=1)
         tols = TOLS[dtype]
         for causal in causals:
             tag = f"{dtype} {tuple(q.shape)} causal={causal}"
@@ -305,61 +448,24 @@ def phase_kernels(fa):
                   f"{reading_text(readings['flash_dq'])}; dk+dv (dk, dv) "
                   f"{reading_text(readings['flash_dkv'])}; on the kernel's lse and o: dq "
                   f"{reading_text(own['flash_dq'])}; dk+dv {reading_text(own['flash_dkv'])}")
+        # each head dim's last check is its slice's shape (bf16, causal)
+        slice_inputs[d] = (q, k, v, do, plse, delta, readings)
     if failures:
         raise AssertionError("kernels disagree with their plain versions:\n"
                              + "\n".join(failures))
-
-    # the slice's shapes (bf16) stay from the loop's last pass
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pair = library_backward(fa, q, k, v, do)
-    timings = {
-        "flash_forward": (
-            time_ms(lambda: fa.flash_forward(q, k, v, True)),
-            time_ms(lambda: fa.plain_forward(q, k, v, True), iters=5),
-            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
-        ),
-        "flash_dq": (
-            time_ms(lambda: fa.flash_dq(q, k, v, do, plse, delta, True)),
-            time_ms(lambda: fa.plain_dq(q, k, v, do, plse, delta, True), iters=5),
-            None,
-        ),
-        "flash_dkv": (
-            time_ms(lambda: fa.flash_dkv(q, k, v, do, plse, delta, True)),
-            time_ms(lambda: fa.plain_dkv(q, k, v, do, plse, delta, True), iters=5),
-            None,
-        ),
-    }
-    print(f"library yardstick F.scaled_dot_product_attention(is_causal=True) "
-          f"{tuple(qt.shape)} bf16: forward {timings['flash_forward'][2]:.4f} ms; "
-          f"kernel {timings['flash_forward'][0]:.4f} ms")
-
-    rows = {}
-    for name, (ops, nbytes) in bounds(BATCH, SEQ, SLICE["n_heads"], 64).items():
-        ms, plain_ms, library_ms = timings[name]
-        ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        rows[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[name],
-            "max_abs_err": max(err for err, _share in readings[name]),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms,
-            "bound_share": max(ops_ms, bytes_ms) / ms,
-        }
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{rows[name]['bound_ms']:.4f} ms by {rows[name]['bound_by']}, "
-              f"share {rows[name]['bound_share']:.3f}, {ops / ms / 1e9:.1f} TFLOP/s)")
-    return rows, pair
+    rows, pairs = {}, {}
+    for d, (q, k, v, do, plse, delta, readings) in slice_inputs.items():
+        pairs[d] = library_backward(fa, q, k, v, do)
+        rows[d] = kernel_rows(fa, d, q, k, v, do, plse, delta, readings)
+    return rows, pairs
 
 
-def check_ptxas(log: str):
+def check_ptxas(log: str) -> dict:
     """Prints ptxas's lines per kernel (entry, registers, shared memory,
-    spills); raises if a kernel of NO_SPILL spills."""
-    kernel = None
+    spills); raises if an instantiation of a NO_SPILL kernel spills, or if
+    one of them is missing at a head dim. Returns {(kernel, head dim):
+    registers} of every instantiation."""
+    kernel, regs = None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             kernel = line.split()[-1].strip("'") if "properties" in line else line.split("'")[1]
@@ -369,6 +475,16 @@ def check_ptxas(log: str):
             stores, loads = (int(x.split()[0]) for x in line.split(",")[1:3])
             if stores or loads:
                 raise AssertionError(f"{kernel} spills: {line.strip()}")
+        found = re.search(r"Used (\d+) registers", line)
+        name = kernel and re.search(r"(fa_\w+?_kernel)ILi(\d+)E", kernel)
+        if found and name:
+            regs[(name.group(1), int(name.group(2)))] = int(found.group(1))
+    from elasticdl_tpu_torch.ops.flash_attention import HEAD_DIMS
+
+    missing = [(n, d) for n in NO_SPILL for d in HEAD_DIMS if (n, d) not in regs]
+    if missing:
+        raise AssertionError(f"ptxas reported no registers for {missing}")
+    return regs
 
 
 def phase_model_reference():
@@ -858,6 +974,161 @@ def phase_zoo_default(fa, tmp):
         raise AssertionError("the default config did not go through the fallback")
 
 
+def large_job(path, n_records, task_records, **worker_kw):
+    """The reference's large config through the zoo's entry point
+    (`get_model_spec` with LARGE_PARAMS, as `--model_params` gives it):
+    an in-process master/PS and one worker on the card over `n_records`
+    token records in tasks of `task_records`."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    write_learnable_token_records(path, n_records, SEQ, LARGE["vocab"], seed=0)
+    dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
+    spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", LARGE_PARAMS)
+    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    master = InProcessMaster(servicer)
+    worker = Worker(0, master, spec, minibatch_size=LARGE_BATCH, device="cuda", seed=0,
+                    **worker_kw)
+    return dispatcher, servicer, master, worker, spec.model
+
+
+def check_large_run(what, fa, ok, dispatcher, servicer, worker, model, launches, fallbacks,
+                    steps):
+    """The large phase's checks of one run: a clean finish, the exactness
+    block with every step applied once, steps computed = applied, finite
+    losses, moved parameters, no fallback, and the counted launches: a
+    step computed under remat launches the forward kernel twice a layer
+    (the layer's recompute), dq and dk+dv once."""
+    from elasticdl_tpu_torch.common import codec
+
+    ex = servicer.exactness()
+    losses = ([loss for _t, loss in worker.step_log]
+              + [loss for _t, _n, loss in worker.window_log] + list(worker.task_losses))
+    if not ok or not dispatcher.finished():
+        raise AssertionError(f"{what}: the job did not finish cleanly")
+    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+        raise AssertionError(f"{what}: exactness {ex}, {steps} steps applied once expected")
+    if worker.steps_computed != steps or worker.steps_accepted != steps:
+        raise AssertionError(f"{what}: {worker.steps_computed} steps computed, "
+                             f"{worker.steps_accepted} applied, {steps} expected")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    if fallbacks:
+        raise AssertionError(f"{what}: {fallbacks} attention calls fell back at head dim 128")
+    n = LARGE["n_layers"] * steps
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n}
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches}, {want} expected")
+    final, _aux, _v = servicer.get_params_copy()
+    flat = codec.ravel_np(final)
+    if not np.isfinite(flat).all() or np.array_equal(flat, codec.ravel_np(model.init_params(0))):
+        raise AssertionError(f"{what}: the parameters are not finite or did not move")
+
+
+def peak_step_memory():
+    """Peak device memory (GiB above the parameters, the gradient and the
+    batch) of one forward + backward of the large config under each remat
+    setting, from the same host init; not part of the counted paths."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, LARGE["vocab"], (LARGE_BATCH, SEQ + 1))
+    ).cuda()
+    cfg = tlm.TransformerConfig(**LARGE, dtype=torch.bfloat16)
+    params = codec.tree_map(lambda a: torch.from_numpy(a).cuda().requires_grad_(),
+                            tlm.init_params(np.random.default_rng(0), cfg))
+    leaves = codec.tree_leaves(params)
+    peaks = {}
+    for name, remat, policy in (("off", False, ""), ("full", True, ""), ("dots", True, "dots")):
+        run_cfg = tlm.TransformerConfig(**LARGE, dtype=torch.bfloat16, remat=remat,
+                                        remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits = tlm.plain_forward(run_cfg, params, tokens[:, :-1])
+        loss = tlm.token_cross_entropy(logits, tokens[:, 1:])
+        del logits
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base - grad_bytes) / 2**30
+        del grads, loss
+    print(f"large config peak device memory of one step (forward + backward, GiB beyond "
+          f"the f32 parameters, their gradient and the batch): remat off {peaks['off']:.2f}, "
+          f"full {peaks['full']:.2f}, dots {peaks['dots']:.2f}")
+    return peaks
+
+
+def phase_large(fa, tmp):
+    """The reference's large config (d_model 1024, 8 heads of 128, d_ff
+    4096, 16 layers, bf16, remat "dots", b16 x s1024; 218.1M parameters)
+    on the card: LARGE_STEPS per-step updates, then LARGE_WINDOW_STEPS
+    window steps (`local_updates=4, sync_dtype="bfloat16"`). Returns the
+    kernels' launches of each run."""
+    steps = LARGE_STEPS
+    dispatcher, servicer, master, worker, model = large_job(
+        os.path.join(tmp, "large.rio"), LARGE_BATCH * steps, LARGE_BATCH * steps // 2)
+    n_params = sum(p.numel() for p in model.parameters())
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    print(f"large config ({n_params:,} params, {model.cfg.head_dim} head dim, remat "
+          f"{model.cfg.remat_policy!r}): {steps} per-step updates, exactness "
+          f"{servicer.exactness()}, losses {[round(x, 4) for _t, x in worker.step_log]}, "
+          f"launches {launches}, fallbacks {fallbacks}")
+    check_large_run("large per-step", fa, ok, dispatcher, servicer, worker, model, launches,
+                    fallbacks, steps)
+    times = [t for t, _loss in worker.step_log]
+    tokens = LARGE_BATCH * SEQ
+    print(f"large per-step throughput: {steps * tokens / wall:.1f} tokens/s over the whole run "
+          f"({wall:.2f} s incl. model init), {(len(times) - 1) * tokens / (times[-1] - times[0]):.1f}"
+          f" tokens/s over steps 2-{steps}; host PS apply (ReportGradient handler) "
+          f"{master.handler_seconds['ReportGradient'] / steps:.4f} s a step; worker phases "
+          f"{rounded(worker.phase_seconds)}, wire codec {rounded(master.codec_seconds)}")
+    del dispatcher, servicer, master, worker, model
+
+    steps = LARGE_WINDOW_STEPS
+    dispatcher, servicer, master, worker, model = large_job(
+        os.path.join(tmp, "large-window.rio"), LARGE_BATCH * steps, LARGE_BATCH * WINDOW,
+        local_updates=WINDOW, sync_dtype="bfloat16")
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_launches, fallbacks = read_counts(fa)
+    worker.close()
+    windows = list(worker.window_log)
+    print(f"large window mode (W {WINDOW}, bf16 EF deltas): {len(windows)} syncs of "
+          f"{[n for _t, n, _l in windows]} steps, exactness {servicer.exactness()}, window "
+          f"losses {[round(loss, 4) for _t, _n, loss in windows]}, launches "
+          f"{window_launches}, fallbacks {fallbacks}")
+    check_large_run("large window", fa, ok, dispatcher, servicer, worker, model,
+                    window_launches, fallbacks, steps)
+    n_windows = len(windows)
+    steady = sum(n for _t, n, _l in windows[1:]) * LARGE_BATCH * SEQ / (
+        windows[-1][0] - windows[0][0])
+    print(f"large window throughput: {steps * LARGE_BATCH * SEQ / wall:.1f} tokens/s over the "
+          f"whole run ({wall:.2f} s incl. model init), {steady:.1f} tokens/s from the first to "
+          f"the last window sync; sync seconds per sync: "
+          + ", ".join(f"{k} {v / n_windows:.4f}" for k, v in sorted(worker.sync_seconds.items()))
+          + f"; PS add a window {master.handler_seconds['ReportLocalUpdate'] / n_windows:.4f} s"
+          f"; worker phases {rounded(worker.phase_seconds)}")
+    del dispatcher, servicer, master, worker, model
+    torch.cuda.empty_cache()
+    peak_step_memory()
+    torch.cuda.empty_cache()
+    return launches, window_launches
+
+
 def phase_window_process_job(tmp) -> dict:
     """`master.main ... --local_updates 4 --sync_dtype bfloat16
     --worker_backend process` with 2 workers on the card, 4 shards of 64
@@ -1094,17 +1365,18 @@ def phase_window_drain(tmp):
             run_to_end(dispatcher, manager, backend, server)
         ex = servicer.exactness()
         phases, relaunches = manager.phases(), manager.relaunches()
+        deduped = servicer.duplicate_local_updates
         print(f"window SIGKILL: worker 0 (pid {pid}) killed holding task(s) {holds}; requeued "
               f"{requeued}, relaunches {relaunches}, phases {phases}, failed tasks "
-              f"{dispatcher.has_failed_tasks()}, exactness {ex}")
+              f"{dispatcher.has_failed_tasks()}, exactness {ex}, replayed windows deduped "
+              f"{deduped}")
         if not requeued:
             raise AssertionError("the killed worker's tasks were not requeued")
         if not dispatcher.finished() or dispatcher.has_failed_tasks():
             raise AssertionError("the job did not finish cleanly after the SIGKILL")
-        if ex["version"] != ex["init_version"] + ex["applied_update_steps"] or (
-            ex["applied_update_steps"] < steps
-        ):
-            raise AssertionError(f"exactness {ex}, at least {steps} steps expected")
+        if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+            raise AssertionError(f"exactness {ex}: each of {steps} steps applied once expected "
+                                 f"(replayed windows deduped by their report keys)")
         check_params(servicer.get_params_copy()[0], "window SIGKILL job")
 
 
@@ -1127,28 +1399,37 @@ def main() -> int:
     build.build("flash_attention")
     print(f"built flash_attention.cu in {time.perf_counter() - t0:.2f} s")
     with open(os.path.join(build.BUILD_DIR, "flash_attention.log")) as f:
-        check_ptxas(f.read())
+        registers = check_ptxas(f.read())
 
-    rows, pair = phase_kernels(fa)
+    rows, pairs = phase_kernels(fa)
     phase_model_reference()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_train(fa, tmp)
+        counts = {}
+        counts["launches"] = phase_train(fa, tmp)
         phase_profile(tmp)
-        window_launches = phase_window(fa, tmp)
+        counts["window_launches"] = phase_window(fa, tmp)
         phase_window_profile(tmp)
         phase_ef_card(slice_param_count())
         phase_zoo_default(fa, tmp)
+        counts["large_launches"], counts["large_window_launches"] = phase_large(fa, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
-        process_launches = phase_process_job(tmp)
+        counts["process_launches"] = phase_process_job(tmp)
         phase_preemption(tmp)
-        window_process_launches = phase_window_process_job(tmp)
+        counts["window_process_launches"] = phase_window_process_job(tmp)
         phase_window_drain(tmp)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-        row["process_launches"] = process_launches[name]
-        row["window_launches"] = window_launches[name]
-        row["window_process_launches"] = window_process_launches[name]
-    print(json.dumps({"kernels": list(rows.values()), "backward_pair": pair}))
+    # the base paths run head dim 64 only, the large config's 128 only
+    large = ("large_launches", "large_window_launches")
+    for d, by_kernel in rows.items():
+        for name, row in by_kernel.items():
+            for path, launches in counts.items():
+                row[path] = launches[name] if (path in large) == (d == 128) else 0
+            # the main path of each head dim: the base per-step run, the large per-step run
+            row["launches"] = counts["large_launches" if d == 128 else "launches"][name]
+    print(json.dumps({
+        "kernels": [row for by_kernel in rows.values() for row in by_kernel.values()],
+        "backward_pair": {f"d{d}": pair for d, pair in pairs.items()},
+        "ptxas_registers": {f"{n}<{d}>": r for (n, d), r in sorted(registers.items())},
+    }))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

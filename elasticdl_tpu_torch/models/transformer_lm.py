@@ -18,6 +18,18 @@ reference on purpose, quirks included:
   at bfloat16, positions above 256 round (1023 becomes 1024);
 - the MLP activation is GELU with the tanh approximation (`jax.nn.gelu`'s
   default).
+
+Rematerialization (`remat=True`) mirrors the reference's `_remat`: each
+layer runs under `torch.utils.checkpoint.checkpoint` (non-reentrant), so
+its activations are recomputed in the backward pass. `remat_policy=""`
+recomputes the whole layer; `"dots"` is a selective-checkpoint policy
+that saves the outputs of `aten.mm` (the six `x @ w` projections) and
+recomputes everything else, as `jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable` saves the dots without batch dims and
+recomputes the attention einsums and the Pallas call. The attention
+kernels launch through ctypes, which no policy sees, so a recomputed
+layer launches its forward kernel again: a step computed with remat
+launches the forward kernel twice a layer, dq and dk+dv once.
 """
 
 from __future__ import annotations
@@ -29,9 +41,13 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from elasticdl_tpu_torch.ops.flash_attention import attention
 from elasticdl_tpu_torch.parallel.tp_layers import rms_norm
+
+
+REMAT_POLICIES = ("", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +58,16 @@ class TransformerConfig:
     d_ff: int = 512
     n_layers: int = 4
     n_experts: int = 0  # 0 = dense FFN; MoE is not ported yet
+    n_micro: int = 2  # pipeline microbatches: one device runs no pipeline, so unread
     dtype: torch.dtype = torch.float32  # compute dtype
+    remat: bool = False  # recompute each layer's activations in the backward pass
+    remat_policy: str = ""  # "" (full) | "dots" (save the x @ w outputs)
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy {self.remat_policy!r} is not one of {REMAT_POLICIES}"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -113,22 +138,20 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def plain_forward(cfg: TransformerConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, L] int -> logits [B, L, vocab] in cfg.dtype. Attention
-    goes through `ops.flash_attention.attention`: the Hopper kernels for
-    CUDA tensors, their plain versions on the CPU."""
-    _check_dense(cfg)
-    dt = cfg.dtype
-    b, l = tokens.shape
-    # F.embedding, not embed[tokens]: on the CPU, indexing's backward
-    # (index_put_ with accumulate) sums repeated tokens in an order that
-    # changes from run to run when torch runs more than one thread
-    h = F.embedding(tokens, params["embed"].to(dt))  # [B, L, d]
-    positions = torch.arange(l, device=tokens.device)
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][k].to(dt).unbind(0) for k in names))
-    for layer in per_layer:
-        lp = dict(zip(names, layer))
+def _dots_contexts():
+    """The "dots" policy's context pair: the outputs of `aten.mm` are
+    saved, every other op is recomputed."""
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def _layer_fn(cfg: TransformerConfig, names, positions):
+    """One transformer block as a function of the residual stream h and
+    the layer's parameters (in `names` order), so that checkpointing it
+    takes the parameters as inputs and their gradients flow."""
+
+    def layer(h, *weights):
+        lp = dict(zip(names, weights))
+        b, l = h.shape[:2]
         x = rms_norm(h, lp["ln1"])
         q = (x @ lp["wq"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
         k = (x @ lp["wk"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
@@ -137,7 +160,31 @@ def plain_forward(cfg: TransformerConfig, params: Dict, tokens: torch.Tensor) ->
         attn = attention(q, k, v, causal=True).reshape(b, l, -1)
         h = h + attn @ lp["wo"]
         x = rms_norm(h, lp["ln2"])
-        h = h + F.gelu(x @ lp["w1"], approximate="tanh") @ lp["w2"]
+        return h + F.gelu(x @ lp["w1"], approximate="tanh") @ lp["w2"]
+
+    return layer
+
+
+def plain_forward(cfg: TransformerConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, L] int -> logits [B, L, vocab] in cfg.dtype. Attention
+    goes through `ops.flash_attention.attention`: the Hopper kernels for
+    CUDA tensors, their plain versions on the CPU. With `cfg.remat` each
+    layer is checkpointed under `cfg.remat_policy`."""
+    _check_dense(cfg)
+    dt = cfg.dtype
+    # F.embedding, not embed[tokens]: on the CPU, indexing's backward
+    # (index_put_ with accumulate) sums repeated tokens in an order that
+    # changes from run to run when torch runs more than one thread
+    h = F.embedding(tokens, params["embed"].to(dt))  # [B, L, d]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    names = list(params["layers"])
+    layer = _layer_fn(cfg, names, positions)
+    remat_kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+    for weights in zip(*(params["layers"][k].to(dt).unbind(0) for k in names)):
+        if cfg.remat:
+            h = checkpoint(layer, h, *weights, use_reentrant=False, **remat_kw)
+        else:
+            h = layer(h, *weights)
     h = rms_norm(h, params["ln_f"].to(dt))
     return h @ params["head"].to(dt)
 

@@ -26,10 +26,11 @@ every other shape to the materializing `reference_attention`, counting
 each such call in `attention.fallbacks`.
 
 Layout: [B, L, H, D] ("blhd"); compute is float32, operands float32 or
-bfloat16. The kernels take D = 64 and L a multiple of BLOCK. The C
-entry points pick a kernel by dtype: for bfloat16 all three run their
-products on the tensor cores, for float32 all three stay on the CUDA
-cores (the tensor cores would round f32 to TF32).
+bfloat16. The kernels take D in HEAD_DIMS (64 and 128) and L a multiple
+of BLOCK. The C entry points pick a kernel by dtype: for bfloat16 all
+three run their products on the tensor cores, for float32 all three stay
+on the CUDA cores (the tensor cores would round f32 to TF32); each kernel
+is a template on D, instantiated for both head dims.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from typing import Tuple
 import torch
 
 BLOCK = 64  # rows per kernel tile (q and k)
-HEAD_DIM = 64  # the kernels' head dim
+HEAD_DIMS = (64, 128)  # the kernels' head dims
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -153,24 +154,25 @@ def _lib() -> ctypes.CDLL:
     lib.edl_fa_fwd.argtypes = [ptr] * 5 + shape
     lib.edl_fa_dq.argtypes = [ptr] * 7 + shape
     lib.edl_fa_dkv.argtypes = [ptr] * 8 + shape
-    for fn in (lib.edl_fa_fwd, lib.edl_fa_dq, lib.edl_fa_dkv):
+    lib.edl_fa_blocks_per_sm.argtypes = [i32, i32, i32]  # kernel, D, dtype
+    for fn in (lib.edl_fa_fwd, lib.edl_fa_dq, lib.edl_fa_dkv, lib.edl_fa_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check_operands(*ts: torch.Tensor):
     """The kernels take CUDA tensors of one float dtype, contiguous
-    [B, L, H, 64] with L % BLOCK == 0, all of one shape, 16-byte-aligned
-    (the bfloat16 kernels copy 16-byte chunks)."""
+    [B, L, H, D] with D in HEAD_DIMS and L % BLOCK == 0, all of one
+    shape, 16-byte-aligned (the bfloat16 kernels copy 16-byte chunks)."""
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash-attention kernels need CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash-attention kernels take float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[1] % BLOCK:
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS or q.shape[1] % BLOCK:
         raise ValueError(
-            f"flash-attention kernels take [B, L, H, {HEAD_DIM}] with L % {BLOCK} == 0, "
-            f"got {tuple(q.shape)}"
+            f"flash-attention kernels take [B, L, H, D] with D in {HEAD_DIMS} and "
+            f"L % {BLOCK} == 0, got {tuple(q.shape)}"
         )
     for t in ts:
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
@@ -267,6 +269,17 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
 flash_dkv.launches = 0
 
 
+def blocks_per_sm(kernel: str, head_dim: int, dtype) -> int:
+    """Blocks of `kernel` ("flash_forward", "flash_dq" or "flash_dkv") at
+    `head_dim` and `dtype` that one SM of the current card holds at once,
+    by CUDA's occupancy calculator (registers, shared memory, threads)."""
+    which = ("flash_forward", "flash_dq", "flash_dkv").index(kernel)
+    n = _lib().edl_fa_blocks_per_sm(which, head_dim, _DTYPE_CODE[dtype])
+    if n < 0:
+        raise RuntimeError(f"occupancy query for {kernel} failed: cudaError_t {-n}")
+    return n
+
+
 def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(do * o) in float32, [B, H, L] (a plain torch op,
     as the reference leaves it to XLA)."""
@@ -302,11 +315,11 @@ def flash_attention(q, k, v, causal: bool = True):
 
 def kernels_take(shape, dtype) -> bool:
     """Whether the CUDA kernels take q, k, v of this shape and dtype:
-    [B, L, H, HEAD_DIM] with L % BLOCK == 0, float32 or bfloat16. By
-    shape and dtype alone, so the choice needs no card."""
+    [B, L, H, D] with D in HEAD_DIMS and L % BLOCK == 0, float32 or
+    bfloat16. By shape and dtype alone, so the choice needs no card."""
     return (
         len(shape) == 4
-        and shape[-1] == HEAD_DIM
+        and shape[-1] in HEAD_DIMS
         and shape[1] % BLOCK == 0
         and dtype in _DTYPE_CODE
     )

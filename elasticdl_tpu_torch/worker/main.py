@@ -93,6 +93,7 @@ def _summary(worker_id, worker, client, device) -> dict:
         "phase_seconds": dict(worker.phase_seconds),
         "sync_seconds": dict(worker.sync_seconds),
         "merged_back": worker.merged_back,
+        "deduped_windows": worker.deduped_windows,
         "drained": worker.drained,
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),

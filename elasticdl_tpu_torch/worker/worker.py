@@ -30,7 +30,12 @@ The reference worker's two dense training paths on PyTorch:
   waits for the sync that covers its last step, so a worker killed
   before that sync leaves its task to be requeued; `request_drain`
   (SIGTERM) exits at a task boundary with every window synced and
-  every report delivered.
+  every report delivered. Windows never straddle tasks (a task ends
+  with a sync, and a failed task's unsynced steps are dropped), so each
+  window's report key is `f"{spec_key}.w{i}"`: the task's dispatch key
+  and the window's index within it. A task replayed after its worker
+  died derives the same keys, and the PS absorbs the windows that had
+  already landed.
 
 Lazy PS init: the first worker initializes the model on the host,
 offers it with ReportVariable (first writer wins) and pulls whatever
@@ -45,8 +50,8 @@ The worker computes on `device` ("cuda" by default) and raises if that
 device is absent; the CPU runs only when the caller asks for it.
 
 Not ported yet: the local-steps ladder, the adaptive wire plane, the
-background model page-in, speculation-stable report keys, the
-embedding window and the sharded PS.
+background model page-in, speculative backup tasks, the embedding
+window and the sharded PS.
 """
 
 from __future__ import annotations
@@ -190,6 +195,7 @@ class Worker:
         # thread, folding a merged model in)
         self.sync_seconds: Counter = Counter()
         self.merged_back = 0  # merged models absorbed
+        self.deduped_windows = 0  # window syncs the PS had already applied
         self.drained = False  # the run loop exited on request_drain
 
         # -- the sync plane
@@ -246,6 +252,10 @@ class Worker:
         self._report_lock = threading.Lock()  # main + sync threads
         self._stats_lock = threading.Lock()  # sync_seconds, window_log
         self._drain_requested = threading.Event()
+        # the current task's dispatch key and its next window's index:
+        # window report keys are f"{spec_key}.w{index}"
+        self._cur_spec_key = ""
+        self._cur_window_idx = 0
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -626,7 +636,13 @@ class Worker:
         else:
             arrays = (delta,)
         steps = self._pending_steps
-        report_key = uuid.uuid4().hex
+        # the same key for the same window of the same task dispatch, so
+        # a replay is absorbed; a fresh one when the task has no key
+        if self._cur_spec_key:
+            report_key = f"{self._cur_spec_key}.w{self._cur_window_idx}"
+            self._cur_window_idx += 1
+        else:
+            report_key = uuid.uuid4().hex
         losses, self._pending_losses = self._pending_losses, []
         # the tasks' losses and the window's newest step loss, one copy
         loss_dev = torch.stack([l for _, l in losses] + [self._latest_step_loss])
@@ -686,13 +702,15 @@ class Worker:
             with self._report_lock:
                 if epoch != self._sync_epoch:
                     return  # a reset raced the RPC: the response is void
+                duplicate = bool(resp.get("duplicate"))
                 self._synced_seq = max(self._synced_seq, seq)
                 self._version = resp["version"]
                 self._fresh = True
                 if resp.get("params_flat") is not None:
-                    # another worker advanced the PS: the main thread folds
-                    # the merged model in (_absorb_sync_result), and the
-                    # lineage advances there
+                    # another worker advanced the PS, or this window had
+                    # landed before (a replay, answered with the model that
+                    # holds it): the main thread folds the merged model in
+                    # (_absorb_sync_result), and the lineage advances there
                     self._sync_result = (
                         seq, resp["params_flat"], resp.get("aux"), resp["version"]
                     )
@@ -706,7 +724,10 @@ class Worker:
                 for k in [k for k in self._base_snapshots if k <= seq and k != pending]:
                     del self._base_snapshots[k]
             with self._stats_lock:
-                self.window_log.append((time.perf_counter(), steps, float(loss_h[-1])))
+                if duplicate:
+                    self.deduped_windows += 1
+                else:
+                    self.window_log.append((time.perf_counter(), steps, float(loss_h[-1])))
             self._record_synced_losses(losses, loss_h[:-1], resp["version"])
             self._flush_deferred_reports()
 
@@ -868,6 +889,15 @@ class Worker:
             self._record_synced_losses(losses, loss_h, self._version)
         self._flush_deferred_reports()
 
+    def _drop_pending_steps(self):
+        """A failed task's steps not yet in a sync are dropped, so they
+        never ride the next task's window: its records are trained again
+        after the requeue. The optimizer state restarts, as after a pull."""
+        if self._pending_steps:
+            self._flat.copy_(self._base_flat)
+            self._pending_steps = 0
+            self._opt_state = None
+
     def request_drain(self):
         """Ask the run loop to exit at the next task boundary (a signal
         handler calls this; it never blocks)."""
@@ -884,12 +914,20 @@ class Worker:
             self._spec.dataset_fn(chunk, Mode.TRAINING)
             for chunk in iter_minibatches(records, self._minibatch_size)
         )
+        # window report keys derive from this dispatch of the task
+        self._cur_spec_key = task.spec_key
+        self._cur_window_idx = 0
         loss = None
-        for features, labels in batches:
+        try:
+            for features, labels in batches:
+                if self._local_updates:
+                    loss = self._local_minibatch(features, labels, task)
+                else:
+                    loss = self._process_minibatch(features, labels, task)
+        except Exception:
             if self._local_updates:
-                loss = self._local_minibatch(features, labels, task)
-            else:
-                loss = self._process_minibatch(features, labels, task)
+                self._drop_pending_steps()
+            raise
         if self._local_updates:
             # the report waits for the sync covering the task's last step:
             # a worker killed before it lands leaves the task requeueable

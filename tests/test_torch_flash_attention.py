@@ -9,7 +9,8 @@ held against these plain versions on the card by chip_smoke.py.
 
 Tolerances: float32 paths 2e-5 (forward) and 5e-4 (gradients, the
 reference test's own bound); bfloat16 operands 2e-2 absolute+relative,
-about two bf16 ulps at the outputs' magnitude.
+about two bf16 ulps at the outputs' magnitude. The same at every head
+dim (16, 64, 128).
 """
 
 import math
@@ -97,21 +98,50 @@ def test_plain_backward_matches_pallas_kernels(causal, L, dtype):
     _check_plain_backward(causal, L, dtype, d=16, seed=1)
 
 
-# head_dim 64, the only width the CUDA kernels take: the plain versions
-# that chip_smoke.py holds the kernels against agree with the reference's
-# Pallas kernels at the kernels' own width
+# head_dim 64 and 128, the widths the CUDA kernels take: the plain
+# versions that chip_smoke.py holds the kernels against agree with the
+# reference's Pallas kernels at the kernels' own widths
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_forward_matches_pallas_kernel_at_kernel_width(causal, dtype):
-    _check_plain_forward(causal, 256, dtype, d=tfa.HEAD_DIM, seed=6)
+    _check_plain_forward(causal, 256, dtype, d=64, seed=6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_pallas_kernels_at_kernel_width(causal, dtype):
-    _check_plain_backward(causal, 256, dtype, d=tfa.HEAD_DIM, seed=7)
+    _check_plain_backward(causal, 256, dtype, d=64, seed=7)
+
+
+# head_dim 128: the large config's width (d_model 1024, 8 heads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_matches_pallas_kernel_at_head_dim_128(causal, L, dtype):
+    _check_plain_forward(causal, L, dtype, d=128, seed=9)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_pallas_kernels_at_head_dim_128(causal, L, dtype):
+    _check_plain_backward(causal, L, dtype, d=128, seed=10)
+
+
+def test_kernel_head_dims_are_the_reference_configs_widths():
+    """The CUDA kernels take the head dims of the reference's base (512 /
+    8 heads) and large (1024 / 8 heads) transformer configs; other head
+    dims run on the card through the dispatcher's fallback."""
+    assert tfa.HEAD_DIMS == (64, 128)
+    assert 512 // 8 in tfa.HEAD_DIMS and 1024 // 8 in tfa.HEAD_DIMS
+    for d in tfa.HEAD_DIMS:
+        assert tfa.kernels_take((2, 128, 4, d), torch.bfloat16)
+    for d in (16, 32, 96, 256):
+        assert not tfa.kernels_take((2, 128, 4, d), torch.bfloat16)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -3,8 +3,8 @@ on the CPU: the compressed wire deltas and their frames, the worker's
 error-feedback compression, the servicer's `report_local_update`, the
 in-place `ClipAdam`, the attention dispatcher's shape predicate, and the
 slice as a whole (in-process jobs against the reference's and against
-the port's per-step job; process-mode jobs with a SIGTERM drain and a
-SIGKILL).
+the port's per-step job; window report keys and their dedup on replay;
+process-mode jobs with a SIGTERM drain and a SIGKILL).
 
 Tolerances: the codec, the EF compression and the servicer are held bit
 for bit (the same float32 numpy or elementwise math on both sides).
@@ -424,7 +424,9 @@ def test_ps_optimizer_snapshot_is_a_copy_and_step_leaves_params():
         ((2, 1024, 8, 64), torch.float32, True),
         ((2, 128, 4, 16), torch.bfloat16, False),  # the zoo's default head dim
         ((2, 100, 4, 64), torch.bfloat16, False),  # L % 64 != 0
-        ((2, 128, 4, 128), torch.float32, False),
+        ((2, 128, 4, 128), torch.float32, True),  # the large config's head dim
+        ((2, 1024, 8, 128), torch.bfloat16, True),
+        ((2, 128, 4, 32), torch.bfloat16, False),
         ((2, 128, 4, 64), torch.float16, False),
     ],
 )
@@ -589,6 +591,146 @@ def test_two_in_process_workers_with_bf16_ef(records, tmp_path):
     assert np.isfinite([x for _t, x in losses]).all() and last < first
 
 
+# -- report keys: f"{spec_key}.w{i}" ------------------------------------------------
+
+
+def _keys_of(calls):
+    """An intercept that records each ReportLocalUpdate's (report key,
+    steps) in `calls`."""
+    def record(req):
+        calls.append((req["report_key"], req["steps"]))
+        return req
+    return {"ReportLocalUpdate": record}
+
+
+def test_window_report_keys_are_the_reference_workers(records):
+    """Tasks of 48 records (3 minibatches) at W = 2: every task ends with
+    its ragged tail window, so windows never straddle tasks and each
+    task's keys run `{spec_key}.w0`, `.w1`. The port's keys are the
+    reference worker's for the same task sequence, window for window."""
+    init = jtlm.init_params(np.random.default_rng(11), jzoo.custom_model(vocab=VOCAB).cfg)
+    jcalls, calls = [], []
+    jdispatcher = JDispatcher({records: 128}, {}, {}, 48, 1, shuffle_seed=3)
+    jspec = jspec_from_module(jzoo, model=jzoo.custom_model(vocab=VOCAB))
+    jservicer = JServicer(1, JPSOptimizer(jzoo.optimizer()), task_dispatcher=jdispatcher,
+                          init_params=init)
+    jworker = JWorker(0, JInProcessMaster(jservicer, intercept=_keys_of(jcalls)), jspec,
+                      minibatch_size=BATCH, local_updates=2, sync_dtype="float32")
+    assert jworker.run()
+    jworker.close()
+
+    dispatcher = TaskDispatcher({records: 128}, {}, {}, 48, 1, shuffle_seed=3)
+    spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
+    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    worker = Worker(0, InProcessMaster(servicer, intercept=_keys_of(calls)), spec,
+                    minibatch_size=BATCH, device="cpu", local_updates=2, sync_dtype="float32")
+    assert worker.run()
+    worker.close()
+    assert calls == jcalls
+    # 3 tasks (48, 48, 32 records): windows of 2 + 1, 2 + 1, 2 steps
+    tasks = {}
+    for key, steps in calls:
+        spec_key, window = key.rsplit(".w", 1)
+        tasks.setdefault(spec_key, []).append((int(window), steps))
+    assert sorted(tasks.values()) == [[(0, 2)], [(0, 2), (1, 1)], [(0, 2), (1, 1)]]
+    assert all(k.startswith("t") and ".a" in k for k in tasks)
+    assert servicer.exactness()["applied_update_steps"] == 128 // BATCH
+
+
+class _DyingMaster:
+    """A window worker's link to the master that dies after its first
+    ReportLocalUpdate landed: later ones raise, and task reports are
+    lost (the worker was killed before it could send them)."""
+
+    def __init__(self, master):
+        self.master, self.landed = master, []
+
+    def call(self, method, request=None):
+        if method == "ReportTaskResult":
+            return {}
+        if method == "ReportLocalUpdate":
+            if self.landed:
+                raise ConnectionError("worker killed")
+            self.landed.append(request["report_key"])
+        return self.master.call(method, request)
+
+
+def test_replayed_windows_are_deduped_by_their_spec_key(records):
+    """Worker 0 trains a task (4 minibatches, 2 windows at W = 2) and dies
+    after its first window landed; the dispatcher recovers the task and
+    worker 1 replays it under the task's pinned spec_key: its first
+    window carries the landed window's key and is absorbed, its second is
+    applied, and each record's step is applied exactly once."""
+    dispatcher = TaskDispatcher({records: 128}, {}, {}, 64, 1, shuffle_seed=3)
+    spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
+    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    calls = []
+    master = InProcessMaster(servicer, intercept=_keys_of(calls))
+    dying = _DyingMaster(master)
+    w0 = Worker(0, dying, spec, minibatch_size=BATCH, device="cpu", local_updates=2,
+                sync_dtype="float32")
+    task, _ = w0.get_task()
+    with pytest.raises(RuntimeError, match="sync failed"):
+        w0._process_training_task(task)  # the dead link surfaces here or at the join
+        w0._join_sync()
+    assert dying.landed == [f"{task.spec_key}.w0"]
+    assert servicer.exactness()["applied_update_steps"] == 2
+    dispatcher.recover_tasks(0)
+
+    w1 = Worker(1, master, spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB)),
+                minibatch_size=BATCH, device="cpu", local_updates=2, sync_dtype="float32")
+    assert w1.run()
+    w1.close()
+    assert dispatcher.finished() and not dispatcher.has_failed_tasks()
+    replayed = [k for k, _steps in calls if k.startswith(f"{task.spec_key}.w")]
+    assert replayed == [f"{task.spec_key}.w0", f"{task.spec_key}.w0", f"{task.spec_key}.w1"]
+    assert servicer.duplicate_local_updates == 1 and w1.deduped_windows == 1
+    minibatches = 128 // BATCH
+    assert servicer.exactness() == {
+        "version": minibatches, "init_version": 0, "applied_update_steps": minibatches
+    }
+    assert w1.steps_computed == minibatches and w1.steps_accepted == minibatches - 2
+    # the replay absorbed the model that holds the landed window
+    assert w1.merged_back >= 1
+    params, _aux, _v = servicer.get_params_copy()
+    assert np.isfinite(tcodec.ravel_np(params)).all()
+
+
+def test_failed_window_task_leaves_no_step_to_the_next_task(records):
+    """A task that fails with a step not yet synced drops it: the next
+    task's window holds only its own steps, the failed task is retrained
+    under its pinned keys, and every record's step is applied once."""
+    spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
+    parse = spec.dataset_fn
+    seen = []
+
+    def dataset_fn(chunk, mode):  # the second minibatch of the job fails once
+        seen.append(len(chunk))
+        if len(seen) == 2:
+            raise ValueError("unreadable minibatch")
+        return parse(chunk, mode)
+
+    spec.dataset_fn = dataset_fn
+    dispatcher = TaskDispatcher({records: 128}, {}, {}, 48, 1, shuffle_seed=3)
+    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    calls = []
+    worker = Worker(0, InProcessMaster(servicer, intercept=_keys_of(calls)), spec,
+                    minibatch_size=BATCH, device="cpu", local_updates=2, sync_dtype="float32")
+    assert worker.run()
+    worker.close()
+    assert dispatcher.finished() and not dispatcher.has_failed_tasks()
+    tasks = {}
+    for key, steps in calls:
+        spec_key, window = key.rsplit(".w", 1)
+        tasks.setdefault(spec_key, []).append((int(window), steps))
+    assert sorted(tasks.values()) == [[(0, 2)], [(0, 2), (1, 1)], [(0, 2), (1, 1)]]
+    minibatches = 128 // BATCH
+    assert servicer.exactness() == {
+        "version": minibatches, "init_version": 0, "applied_update_steps": minibatches
+    }
+    assert worker.steps_computed == minibatches + 1  # the dropped step
+
+
 # -- process mode on the CPU --------------------------------------------------------
 
 
@@ -724,6 +866,8 @@ def test_sigkilled_window_worker_has_its_tasks_requeued(tmp_path):
     assert manager.relaunches() >= 1
     ex = servicer.exactness()
     assert ex["version"] == ex["init_version"] + ex["applied_update_steps"]
-    assert ex["applied_update_steps"] >= 4 * 64 // BATCH
+    # every record's step applied once: the windows of the killed worker
+    # that had landed are replayed under the same report keys and absorbed
+    assert ex["applied_update_steps"] == 4 * 64 // BATCH
     assert dispatcher.completed_records() == 4 * 64
     assert 0 not in worker_main.read_summaries(log_dir)
