@@ -974,89 +974,50 @@ size_t smem_dkv_bf16() {  // k and v tiles, the q/do stages and their lse/delta 
   return (2 + 2 * Tc<D>::STAGES) * T64 * D * sizeof(bf16) + Tc<D>::STAGES * 2 * T64 * sizeof(float);
 }
 
-// cudaFuncSetAttribute for the dynamic shared memory, then the launch;
-// returns the cudaError_t
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-           Args... args) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
+// Each kernel's launch by head dim and dtype (which: 0 forward, 1 dq, 2
+// dk+dv): its function, grid, threads and dynamic shared memory. The
+// launches and the occupancy query both read it. The float32 kernels run
+// one block per 64 rows of a head, grid (L/64, B*H); the bfloat16 ones
+// take the head first, grid (B*H, q or k tiles).
+struct Launch {
+  const void* fn;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
-               int H, int causal, float scale, int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch(fa_fwd_kernel<D>, dim3(L / T64, B * H), NT, smem_f32<D>(3, 1, 0), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-                  L, H, causal, scale);
-  const int bm = T64 * Tc<D>::FWD_MT;
-  return launch(fa_fwd_bf16_kernel<D>, dim3(B * H, (L + bm - 1) / bm), NT_TC, smem_fwd_bf16<D>(),
-                s, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), L,
-                H, causal, scale);
-}
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int L, int H, int causal, float scale,
-              int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch(fa_dq_kernel<D>, dim3(L / T64, B * H), NT, smem_f32<D>(4, 1, 0), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(dout),
-                  static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  static_cast<float*>(dq), L, H, causal, scale);
-  return launch(fa_dq_bf16_kernel<D>, dim3(B * H, L / T64), NT_TC, smem_dq_bf16<D>(), s,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dq), L, H, causal, scale);
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int L, int H, int causal,
-               float scale, int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch(fa_dkv_kernel<D>, dim3(L / T64, B * H), NT, smem_f32<D>(4, 2, 2), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(dout),
-                  static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  static_cast<float*>(dk), static_cast<float*>(dv), L, H, causal, scale);
-  return launch(fa_dkv_bf16_kernel<D>, dim3(B * H, L / T64), NT_TC, smem_dkv_bf16<D>(), s,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H, causal, scale);
-}
-
-// Blocks of one kernel that an SM holds at once (registers, shared
-// memory and threads together), by the occupancy calculator
-template <typename Kernel>
-int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return -(int)e;
-  int n = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
-template <int D>
-int blocks_per_sm_of(int which, int dtype) {
+Launch launch_of(int which, int dtype, int B, int L, int H) {
+  const dim3 rows(L / T64, B * H), heads(B * H, L / T64);
   if (dtype == 0) {
-    if (which == 0) return blocks_per_sm(fa_fwd_kernel<D>, NT, smem_f32<D>(3, 1, 0));
-    if (which == 1) return blocks_per_sm(fa_dq_kernel<D>, NT, smem_f32<D>(4, 1, 0));
-    return blocks_per_sm(fa_dkv_kernel<D>, NT, smem_f32<D>(4, 2, 2));
+    if (which == 0) return {(const void*)fa_fwd_kernel<D>, rows, NT, smem_f32<D>(3, 1, 0)};
+    if (which == 1) return {(const void*)fa_dq_kernel<D>, rows, NT, smem_f32<D>(4, 1, 0)};
+    return {(const void*)fa_dkv_kernel<D>, rows, NT, smem_f32<D>(4, 2, 2)};
   }
-  if (which == 0) return blocks_per_sm(fa_fwd_bf16_kernel<D>, NT_TC, smem_fwd_bf16<D>());
-  if (which == 1) return blocks_per_sm(fa_dq_bf16_kernel<D>, NT_TC, smem_dq_bf16<D>());
-  return blocks_per_sm(fa_dkv_bf16_kernel<D>, NT_TC, smem_dkv_bf16<D>());
+  if (which == 0) {
+    const int bm = T64 * Tc<D>::FWD_MT;
+    return {(const void*)fa_fwd_bf16_kernel<D>, dim3(B * H, (L + bm - 1) / bm), NT_TC,
+            smem_fwd_bf16<D>()};
+  }
+  if (which == 1) return {(const void*)fa_dq_bf16_kernel<D>, heads, NT_TC, smem_dq_bf16<D>()};
+  return {(const void*)fa_dkv_bf16_kernel<D>, heads, NT_TC, smem_dkv_bf16<D>()};
+}
+
+Launch launch_of(int which, int Dh, int dtype, int B, int L, int H) {
+  return Dh == 64 ? launch_of<64>(which, dtype, B, L, H) : launch_of<128>(which, dtype, B, L, H);
+}
+
+// cudaFuncSetAttribute for the dynamic shared memory, then the launch of
+// kernel `which` with the kernel's arguments `args`; returns the
+// cudaError_t
+int launch(int which, int B, int L, int H, int Dh, int dtype, void** args, void* stream) {
+  if (bad_shape(B, L, H, Dh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const Launch k = launch_of(which, Dh, dtype, B, L, H);
+  cudaError_t e = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k.smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaLaunchKernel(k.fn, k.grid, dim3(k.threads), args, k.smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1065,42 +1026,41 @@ int blocks_per_sm_of(int which, int dtype) {
 // design (the CUDA-core kernel for float32, the tensor-core kernel for
 // bfloat16) and Dh (64 or 128) its instantiation. Each returns the
 // cudaError_t of the launch (0 on success); the kernel runs on `stream`.
+// The pointers are passed on as the kernel's float or bf16 pointers.
 extern "C" {
 
 int edl_fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
                int H, int Dh, int causal, float scale, int dtype, void* stream) {
-  if (bad_shape(B, L, H, Dh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_fwd<64>(q, k, v, o, lse, B, L, H, causal, scale, dtype, s);
-  return launch_fwd<128>(q, k, v, o, lse, B, L, H, causal, scale, dtype, s);
+  void* args[] = {&q, &k, &v, &o, &lse, &L, &H, &causal, &scale};
+  return launch(0, B, L, H, Dh, dtype, args, stream);
 }
 
 int edl_fa_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int L, int H, int Dh, int causal, float scale,
               int dtype, void* stream) {
-  if (bad_shape(B, L, H, Dh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, dtype, s);
-  return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, L, H, causal, scale, dtype, s);
+  void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &L, &H, &causal, &scale};
+  return launch(1, B, L, H, Dh, dtype, args, stream);
 }
 
 int edl_fa_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int L, int H, int Dh, int causal,
                float scale, int dtype, void* stream) {
-  if (bad_shape(B, L, H, Dh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Dh == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, L, H, causal, scale, dtype, s);
-  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, L, H, causal, scale, dtype, s);
+  void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &L, &H, &causal, &scale};
+  return launch(2, B, L, H, Dh, dtype, args, stream);
 }
 
 // Blocks an SM holds of kernel `which` (0 forward, 1 dq, 2 dk+dv) at
-// head dim Dh and dtype; a negative value is a cudaError_t
+// head dim Dh and dtype, by the occupancy calculator (registers, shared
+// memory and threads together); a negative value is a cudaError_t
 int edl_fa_blocks_per_sm(int which, int Dh, int dtype) {
-  if (Dh == 64) return blocks_per_sm_of<64>(which, dtype);
-  if (Dh == 128) return blocks_per_sm_of<128>(which, dtype);
-  return -(int)cudaErrorInvalidValue;
+  if (bad_shape(1, T64, 1, Dh) || (dtype != 0 && dtype != 1)) return -(int)cudaErrorInvalidValue;
+  const Launch k = launch_of(which, Dh, dtype, 1, T64, 1);
+  cudaError_t e = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k.smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k.fn, k.threads,
+                                                                          k.smem);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

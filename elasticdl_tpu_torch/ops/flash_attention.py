@@ -16,7 +16,8 @@ online-softmax accumulator and also writes lse = m + log l; the backward
 re-forms p = exp(s - lse) blockwise from O(L D) residuals.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch
-in its `launches` attribute) or raises; for CPU tensors, and only for
+under the head dim in its `launches` dict; `launch_counts` reads all
+three) or raises; for CPU tensors, and only for
 them, it runs its plain PyTorch version (`plain_forward`, `plain_dq`,
 `plain_dkv`), which computes the same function block by block with the
 kernel's rounding points. `flash_attention` is the autograd Function
@@ -220,11 +221,11 @@ def flash_forward(q, k, v, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             *_shape_args(q, causal),
         )
-    flash_forward.launches += 1
+    flash_forward.launches[q.shape[-1]] += 1
     return o, lse
 
 
-flash_forward.launches = 0
+flash_forward.launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
@@ -241,11 +242,11 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_shape_args(q, causal),
         )
-    flash_dq.launches += 1
+    flash_dq.launches[q.shape[-1]] += 1
     return dq
 
 
-flash_dq.launches = 0
+flash_dq.launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
@@ -262,11 +263,26 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_shape_args(q, causal),
         )
-    flash_dkv.launches += 1
+    flash_dkv.launches[q.shape[-1]] += 1
     return dk, dv
 
 
-flash_dkv.launches = 0
+flash_dkv.launches = dict.fromkeys(HEAD_DIMS, 0)
+
+
+def launch_counts() -> dict:
+    """{f"{wrapper}_d{head dim}": launches} of the three wrappers."""
+    return {
+        f"{w.__name__}_d{d}": n
+        for w in (flash_forward, flash_dq, flash_dkv)
+        for d, n in w.launches.items()
+    }
+
+
+def reset_launch_counts():
+    """Every wrapper's launch counts to 0."""
+    for w in (flash_forward, flash_dq, flash_dkv):
+        w.launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def blocks_per_sm(kernel: str, head_dim: int, dtype) -> int:

@@ -27,9 +27,10 @@ At exit the worker logs one line, `worker summary: {json}`: its device,
 steps accepted and computed (in per-step mode the difference is stale
 recomputes; window mode computes each step once), phase seconds, window
 mode's sync seconds and merged-back absorbs, whether it drained, the
-client's seconds per method, the three attention kernels' launches and
-the dispatcher's attention fallbacks, and each accepted step's (or
-landed window's) time (`time.perf_counter()`) and loss.
+client's seconds per method, the three attention kernels' launches by
+head dim (`launch_counts`) and the dispatcher's attention fallbacks,
+and each accepted step's (or landed window's) time
+(`time.perf_counter()`) and loss.
 
 Not ported yet: master failover candidates and the profiler trace.
 """
@@ -97,9 +98,7 @@ def _summary(worker_id, worker, client, device) -> dict:
         "drained": worker.drained,
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),
-        "launches": {
-            w.__name__: w.launches for w in (fa.flash_forward, fa.flash_dq, fa.flash_dkv)
-        },
+        "launches": fa.launch_counts(),
         "attention_fallbacks": fa.attention.fallbacks,
         "accepted_at": [t for t, _loss in worker.step_log],
         "losses": [loss for _t, loss in worker.step_log],

@@ -229,13 +229,13 @@ def test_attention_matches_reference_math_ragged_length_on_cpu():
 
 def test_wrappers_use_plain_versions_only_for_cpu_tensors():
     _, (q, k, v, do) = _inputs(128, "float32", seed=5)
-    before = (tfa.flash_forward.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches)
+    before = tfa.launch_counts()
     o, lse = tfa.flash_forward(q, k, v, True)
     delta = tfa.attention_delta(do, o)
     tfa.flash_dq(q, k, v, do, lse, delta, True)
     tfa.flash_dkv(q, k, v, do, lse, delta, True)
     # CPU calls launch nothing
-    assert (tfa.flash_forward.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches) == before
+    assert tfa.launch_counts() == before
     # any other device must reach the kernel path, which refuses it
     meta = [x.to("meta") for x in (q, k, v, do)]
     with pytest.raises(ValueError, match="CUDA"):
@@ -244,3 +244,16 @@ def test_wrappers_use_plain_versions_only_for_cpu_tensors():
         tfa.flash_dq(*meta, lse.to("meta"), delta.to("meta"), True)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_dkv(*meta, lse.to("meta"), delta.to("meta"), True)
+
+
+def test_launch_counts_are_kept_per_kernel_and_head_dim():
+    """Each wrapper counts its launches under the head dim it launched
+    at; `launch_counts` names them f"{wrapper}_d{head dim}"."""
+    tfa.reset_launch_counts()
+    names = ("flash_forward", "flash_dq", "flash_dkv")
+    assert tfa.launch_counts() == {f"{n}_d{d}": 0 for n in names for d in tfa.HEAD_DIMS}
+    tfa.flash_dq.launches[128] += 2
+    assert tfa.launch_counts()["flash_dq_d128"] == 2
+    assert tfa.launch_counts()["flash_dq_d64"] == 0
+    tfa.reset_launch_counts()
+    assert not any(tfa.launch_counts().values())

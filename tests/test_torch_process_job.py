@@ -126,7 +126,9 @@ def test_one_worker_job_equals_the_in_process_job_bit_for_bit(tmp_path, monkeypa
     assert s["steps_accepted"] == s["steps_computed"] == steps
     assert s["losses"] == [loss for _t, loss in worker.step_log]
     # on the CPU the wrappers run their plain versions: no launches
-    assert s["launches"] == {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert s["launches"] == {
+        f"{k}_d{d}": 0 for k in ("flash_forward", "flash_dq", "flash_dkv") for d in (64, 128)
+    }
     assert set(s["rpc_seconds"]) == set(summary["server"]["calls"])
 
 
