@@ -9,24 +9,30 @@ its result lines only when every phase passed:
 2. builds the attention kernels from `elasticdl_tpu_torch/ops/csrc/`,
    prints ptxas's register, shared-memory and spill lines, and fails if
    an instantiation of a tensor-core kernel spills or is missing at a
-   head dim (64, 128);
+   head dim (16, 32, 64, 128);
 3. holds each kernel against its plain PyTorch version on the card at
-   both head dims (`KERNEL_CHECKS`): at each slice's shape in bfloat16
-   (the base transformer's [8, 1024, 8, 64], the large config's
-   [16, 1024, 8, 128]) for three input seeds, at a small shape in
-   float32, and at [1, 192, 3, D] (L a multiple of 64 but not of 128,
-   B*H odd) in both dtypes, causal and not, under a limit per output
-   (bf16 gradients may also differ by two rounding flips of a row's
-   largest term, `exact_backward`, and must be as close to the float64
-   function in root mean square as the plain version, `BF16_RMS_RATIO`);
-   each backward check runs once on the plain forward's lse and once on
-   the kernel's own lse and o. Times kernel,
-   plain version and the library yardsticks at each slice's shape, which
-   the port never calls: `F.scaled_dot_product_attention` for the
-   forward, and one call of aten's flash-attention backward (dq, dk and
-   dv together, checked against the plain versions) for the backward
-   pair. Then checks the model's forward and backward against the
-   materializing reference;
+   every head dim (`KERNEL_CHECKS`): in bfloat16 at the base
+   transformer's [8, 1024, 8, 64], the large config's [16, 1024, 8, 128]
+   and the zoo default's [8, 1024, 4, 16] for three input seeds, at the
+   reference kernel test's [2, 256, 2, 32], and at the shapes the D = 16
+   and 32 kernels are timed at; in float32 at a small shape and at the
+   zoo default's (its main path's kernels, also timed there); and at
+   [1, 192, 3, D] (L a multiple of 64 but not of 128, B*H odd) in both
+   dtypes, causal and not, under a limit per output (bf16 gradients may
+   also differ by two rounding flips of a row's largest term,
+   `exact_backward`, and must be as close to the float64 function in
+   root mean square as the plain version, `BF16_RMS_RATIO`); each
+   backward check runs once on the plain forward's lse and once on the
+   kernel's own lse and o. Times kernel, plain version and the library
+   yardsticks at each head dim's timed shape (at 16 and 32 the base's
+   tokens and width in heads of 16 and 32), which the port never calls:
+   `F.scaled_dot_product_attention` for the forward, and one call of
+   aten's flash-attention backward (dq, dk and dv together, checked
+   against the plain versions) for the backward pair; each kernel's
+   bound is the largest of three terms (`bounds`: the products on the
+   tensor cores, the bytes, the exponentials on the special-function
+   units at the card's SM clock). Then checks the model's forward and
+   backward against the materializing reference;
 4. trains the base transformer (vocab 8192, d_model 512, 8 heads,
    d_ff 2048, 8 layers, bfloat16 compute, batch 8 x seq 1024) for 8
    per-step updates through the port's in-process master/PS loop, and
@@ -38,8 +44,9 @@ its result lines only when every phase passed:
    TCP transport, trains the same model for 16 updates (2 shards of 64
    records); checks the exit code, the `--output` version, that the
    parameters are finite and moved, and each worker's summary line
-   (device, accepted steps, and each kernel launched n_layers times per
-   step computed);
+   (device, accepted steps, each kernel launched n_layers times per step
+   computed, no fallback); then the same job of the zoo's default model
+   with no `--model_params` (float32, the kernels at D = 16);
 6. preemption (`phase_preemption`): the same model, 2 workers and 4
    shards, with the master's parts driven directly; worker 0 is
    SIGKILLed once it holds a task, and the job must recover its tasks,
@@ -57,9 +64,16 @@ its result lines only when every phase passed:
    model's size: the int8 quantizer bit for bit with
    `codec.quantize_int8`, the bf16 cast bit for bit, top-k indices,
    values and residual equal to the CPU's; prints each one's ms;
-9. the zoo's default config (head_dim 16) trains one step on the card
-   through the attention dispatcher's fallback (`phase_zoo_default`);
-   then the reference's large config (`phase_large`: d_model 1024, 8
+9. the zoo's default model (`custom_model()`: d_model 64, 4 heads of 16,
+   2 layers) over b8 x s1024 records (`phase_zoo_default`): 8 per-step
+   updates in float32 as a user gets it (the CUDA-core kernels at D =
+   16), 8 with `dtype=bfloat16` (the tensor-core kernels), 16 window
+   steps in bf16, each with the exactness block, steps computed =
+   applied, finite losses, moved parameters, 0 fallbacks and the
+   launches (each kernel n_layers times a step at D = 16, 0 elsewhere);
+   its width with `n_heads=8` (head dim 8) trains one step through the
+   dispatcher's fallback (`phase_zoo_head_dim8`); then the reference's
+   large config (`phase_large`: d_model 1024, 8
    heads of 128, 16 layers, remat "dots", bf16, b16 x s1024, 218.1M
    parameters, built from its `--model_params` string): 4 per-step
    updates and 16 window steps in-process; checks the exactness block,
@@ -78,14 +92,18 @@ its result lines only when every phase passed:
    every step applied once); SIGKILL in a second job requeues its tasks
    and the job finishes with no failed task and every step applied once
    (the replayed windows deduped by their report keys);
-12. prints the kernels' JSON line (one row per kernel and head dim; the
-   backward pair's yardstick once per head dim, as `backward_pair`,
-   since no single kernel's row matches it; each wrapper counts its
-   launches by head dim, and each row carries its own kernel's count at
-   its own head dim in each path: `launches` the head dim's main path
-   (the base per-step run at 64, the large per-step run at 128),
+12. prints the kernels' JSON line (one row per kernel and head dim, 12
+   rows; the backward pair's yardstick once per head dim, as
+   `backward_pair`, since no single kernel's row matches it; each
+   wrapper counts its launches by head dim, and each row carries its own
+   kernel's count at its own head dim in each path: `launches` the head
+   dim's main path (`MAIN_PATH`: the zoo default's float32 per-step run
+   at 16, the base per-step run at 64, the large per-step run at 128;
+   at 32, which no path runs, every path's count summed),
    `process_launches`, `window_launches`, `window_process_launches`,
-   `large_launches`, `large_window_launches`),
+   `large_launches`, `large_window_launches`, `zoo_launches`,
+   `zoo_bf16_launches`, `zoo_window_launches`, `zoo_process_launches`;
+   and each row's bound term, `bound_term`, with all three terms),
    the card line, and the result line.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
@@ -135,8 +153,12 @@ MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 # cores and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exp2 results a clock per SM on the special-function units (Hopper: 16);
+# times the SMs and the SM clock, the card's rate of exponentials
+SFU_PER_SM_CLOCK = 16
 
 SLICE = dict(vocab=8192, d_model=512, n_heads=8, d_ff=2048, n_layers=8)
+SLICE_PARAMS = ",".join(f"{k}={v}" for k, v in SLICE.items()) + ",dtype=bfloat16"
 BATCH, SEQ, STEPS = 8, 1024, 8
 # the reference's large config (bench_transformer.py:172-186): 8 heads of
 # 128, remat "dots", bf16 compute, b16 x s1024; its --model_params string
@@ -144,6 +166,14 @@ LARGE = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=16)
 LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
                 "dtype=bfloat16,remat=True,remat_policy=dots")
 LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 16
+# the zoo's default model, `custom_model()` with no --model_params (4 heads
+# of 16), over records of SEQ tokens; ZOO_HEAD_DIM8 is its width with 8
+# heads (head dim 8, which no kernel takes: the fallback on the card)
+ZOO_DEFAULT = dict(vocab=128, d_model=64, n_heads=4, d_ff=128, n_layers=2)
+ZOO_STEPS, ZOO_WINDOW_STEPS = 8, 16
+# the base transformer's tokens and H*D = 512 cut into heads of 16 and 32:
+# the shapes the D = 16 and 32 kernels are timed at
+TIMED_16, TIMED_32 = (BATCH, SEQ, 32), (BATCH, SEQ, 16)
 # window mode: W steps a sync, bf16 error-feedback deltas
 WINDOW, WINDOW_STEPS = 4, 16
 WINDOW_ARGS = ["--local_updates", str(WINDOW), "--sync_dtype", "bfloat16"]
@@ -151,6 +181,10 @@ WINDOW_ARGS = ["--local_updates", str(WINDOW), "--sync_dtype", "bfloat16"]
 SHARD_RECORDS, TASK_RECORDS = 64, 32
 ZOO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "elasticdl_tpu_torch", "models")
 KERNELS = ("flash_forward", "flash_dq", "flash_dkv")
+# each head dim's main path, by its column in the kernels line: the zoo
+# default's per-step run as a user gets it (float32), the base per-step
+# run, the large per-step run
+MAIN_PATH = {16: "zoo_launches", 64: "launches", 128: "large_launches"}
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 # kernels that must not spill (ptxas's report): the tensor-core ones
 NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel")
@@ -256,18 +290,41 @@ def attention_inputs(b, L, h, d, dtype, seed):
 
 
 def bounds(b, L, h, d, causal=True):
-    """Per kernel: (least operations, least bytes). Operations are the
-    matrix products' multiply-adds x2 over the visible (q, k) pairs
-    (exp and the other elementwise work not counted); bytes read each
-    input once and write each output once (bf16 tiles, f32 rows)."""
+    """Per kernel: (least operations, least bytes, least exponentials).
+    Operations are the matrix products' multiply-adds x2 over the visible
+    (q, k) pairs; bytes read each input once and write each output once
+    (bf16 tiles, f32 rows); exponentials are one exp2 per visible pair,
+    and in the forward one more per row and 64-column k tile it visits
+    (the running sum's correction). The other elementwise work is not
+    counted."""
     pairs = b * h * (L * (L + 1) // 2 if causal else L * L)
+    row_tiles = b * h * (sum(r // 64 + 1 for r in range(L)) if causal else L * (L // 64))
     tile = b * L * h * d * 2
     rows = b * h * L * 4
     return {
-        "flash_forward": (2 * 2 * d * pairs, 3 * tile + tile + rows),
-        "flash_dq": (3 * 2 * d * pairs, 4 * tile + 2 * rows + tile),
-        "flash_dkv": (4 * 2 * d * pairs, 4 * tile + 2 * rows + 2 * tile),
+        "flash_forward": (2 * 2 * d * pairs, 3 * tile + tile + rows, pairs + row_tiles),
+        "flash_dq": (3 * 2 * d * pairs, 4 * tile + 2 * rows + tile, pairs),
+        "flash_dkv": (4 * 2 * d * pairs, 4 * tile + 2 * rows + 2 * tile, pairs),
     }
+
+
+def bound_terms(ops, nbytes, exps, exp_per_s) -> dict:
+    """The least time in ms of each term: the products on the bf16 tensor
+    cores, the bytes over the memory rate, the exponentials over the
+    card's special-function rate `exp_per_s`."""
+    return {"products": ops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+            "exp": exps / exp_per_s * 1e3}
+
+
+def exp_rate() -> float:
+    """exp2s a second: SMs x SFU_PER_SM_CLOCK x the card's top SM clock
+    (`nvidia-smi --query-gpu=clocks.max.sm`, MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * SFU_PER_SM_CLOCK * mhz * 1e6
 
 
 def backward_errs(fa, q, k, v, do, lse, delta, causal, tols, tag, failures):
@@ -366,11 +423,27 @@ def library_backward(fa, q, k, v, do) -> dict:
 
 
 # (dtype, (B, L, H), head dim, causal cases, input seeds) of every kernel
-# check; the last of each head dim is its slice's shape: the base
+# check; the last of each head dim is the shape its kernels are timed at,
+# on the first seed's inputs: at 64 and 128 the slice's shape, the base
 # transformer's (8 heads of 64, b8 x s1024) and the large config's (8 of
 # 128, b16 x s1024), at three seeds (the bf16 gradients' rounding flips
-# vary with the inputs); the first seed's inputs are the ones timed
+# vary with the inputs); at 16 and 32 the base's tokens and width cut
+# into heads of 16 and 32 (TIMED_16, TIMED_32), after the zoo path's
+# shape (4 heads of 16, b8 x s1024, in float32 as the zoo's default runs
+# it and in bf16) and the reference kernel test's
+# (tests/test_flash_attention.py: [2, 256, 2, 32])
 KERNEL_CHECKS = (
+    (torch.float32, (2, 256, 2), 16, (True,), (1,)),
+    (torch.float32, (1, 192, 3), 16, (True, False), (1,)),
+    (torch.bfloat16, (1, 192, 3), 16, (True, False), (1,)),
+    (torch.float32, (BATCH, SEQ, ZOO_DEFAULT["n_heads"]), 16, (True,), (1,)),
+    (torch.bfloat16, (BATCH, SEQ, ZOO_DEFAULT["n_heads"]), 16, (True,), (1, 2, 3)),
+    (torch.bfloat16, TIMED_16, 16, (True,), (1,)),
+    (torch.float32, (2, 256, 2), 32, (True,), (1,)),
+    (torch.float32, (1, 192, 3), 32, (True, False), (1,)),
+    (torch.bfloat16, (1, 192, 3), 32, (True, False), (1,)),
+    (torch.bfloat16, (2, 256, 2), 32, (True, False), (1,)),
+    (torch.bfloat16, TIMED_32, 32, (True,), (1,)),
     (torch.float32, (2, 256, 2), 64, (True,), (1,)),
     (torch.float32, (1, 192, 3), 64, (True, False), (1,)),
     (torch.bfloat16, (1, 192, 3), 64, (True, False), (1,)),
@@ -382,9 +455,10 @@ KERNEL_CHECKS = (
 )
 
 
-def kernel_rows(fa, d, q, k, v, do, plse, delta, readings) -> dict:
-    """Times each kernel at its slice's bf16 shape (inputs q, k, v, do,
-    causal) beside its plain version, its bound and the library
+def kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s) -> dict:
+    """Times each kernel at its head dim's timed bf16 shape (inputs q, k,
+    v, do, causal) beside its plain version, its bound (the largest of
+    `bound_terms`, the card's exp2 rate `exp_per_s`) and the library
     yardstick; returns one row per kernel at head dim d."""
     import torch.nn.functional as F
 
@@ -411,9 +485,10 @@ def kernel_rows(fa, d, q, k, v, do, plse, delta, readings) -> dict:
           f"kernel {timings['flash_forward'][0]:.4f} ms")
     rows = {}
     b, L, h, _ = q.shape
-    for name, (ops, nbytes) in bounds(b, L, h, d).items():
+    for name, (ops, nbytes, exps) in bounds(b, L, h, d).items():
         ms, plain_ms, library_ms = timings[name]
-        ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        terms = bound_terms(ops, nbytes, exps, exp_per_s)
+        term = max(terms, key=terms.get)
         row = rows[name] = {
             "name": f"{name}_d{d}",
             "route": "cuda",
@@ -424,15 +499,20 @@ def kernel_rows(fa, d, q, k, v, do, plse, delta, readings) -> dict:
             "max_abs_err": max(err for err, _share in readings[name]),
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": terms[term],
+            # exponentials are operations too, on the special-function units
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term,
+            "bound_terms_ms": terms,
             "library_ms": library_ms,
-            "bound_share": max(ops_ms, bytes_ms) / ms,
+            "bound_share": terms[term] / ms,
             "blocks_per_sm": fa.blocks_per_sm(name, d, torch.bfloat16),
         }
         print(f"{row['name']} {tuple(q.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_share']:.3f}, "
-              f"{ops / ms / 1e9:.1f} TFLOP/s, {row['blocks_per_sm']} blocks an SM)")
+              f"{row['bound_ms']:.4f} ms by {term} (" + ", ".join(
+                  f"{t} {v:.4f}" for t, v in terms.items())
+              + f"), share {row['bound_share']:.3f}, {ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{exps / ms / 1e9:.3f} T exp2/s, {row['blocks_per_sm']} blocks an SM)")
     return rows
 
 
@@ -465,29 +545,46 @@ def kernel_checks(fa, q, k, v, do, causal, tag, failures):
 def phase_kernels(fa):
     """Kernel vs plain version on the card at every shape of
     KERNEL_CHECKS; returns the per-kernel rows (without launches) at each
-    head dim's slice shape, {head dim: row by kernel}, and the backward
+    head dim's timed shape, {head dim: row by kernel}, and the backward
     pair's yardstick by head dim. Prints every check's readings (max |err|
     and share of the limit, per output) and raises after the last if any
     was beyond its limit."""
     failures = []
-    slice_inputs = {}
+    timed_inputs = {}
     for dtype, shape, d, causals, seeds in KERNEL_CHECKS:
         for seed in seeds:
             q, k, v, do = attention_inputs(*shape, d, dtype, seed=seed)
             for causal in causals:
                 tag = f"{dtype} {tuple(q.shape)} causal={causal} seed {seed}"
                 po, plse, readings = kernel_checks(fa, q, k, v, do, causal, tag, failures)
-            # each head dim's last check is its slice's shape (bf16,
+            # each head dim's last check is its timed shape (bf16,
             # causal), timed on its first seed's inputs
             if seed == seeds[0]:
-                slice_inputs[d] = (q, k, v, do, plse, fa.attention_delta(do, po), readings)
+                timed_inputs[d] = (q, k, v, do, plse, fa.attention_delta(do, po), readings)
     if failures:
         raise AssertionError("kernels disagree with their plain versions:\n"
                              + "\n".join(failures))
     rows, pairs = {}, {}
-    for d, (q, k, v, do, plse, delta, readings) in slice_inputs.items():
+    exp_per_s = exp_rate()
+    print(f"exp2 rate: {exp_per_s:.4e} a second ({SFU_PER_SM_CLOCK} a clock on each of "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs at the top SM clock)")
+    for d, (q, k, v, do, plse, delta, readings) in timed_inputs.items():
         pairs[d] = library_backward(fa, q, k, v, do)
-        rows[d] = kernel_rows(fa, d, q, k, v, do, plse, delta, readings)
+        rows[d] = kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s)
+    # the zoo default's main path runs the float32 kernels at head dim 16:
+    # their times at its shape, beside the bf16 kernels' row
+    q, k, v, do = attention_inputs(BATCH, SEQ, ZOO_DEFAULT["n_heads"], 16, torch.float32, 1)
+    o, lse = fa.flash_forward(q, k, v, True)
+    delta = fa.attention_delta(do, o)
+    f32_ms = {
+        "flash_forward": time_ms(lambda: fa.flash_forward(q, k, v, True)),
+        "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True)),
+        "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True)),
+    }
+    print(f"float32 kernels at the zoo default's {tuple(q.shape)}, causal: "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in f32_ms.items()))
+    for name, ms in f32_ms.items():
+        rows[16][name].update(f32_ms=ms, f32_shape=list(q.shape))
     return rows, pairs
 
 
@@ -676,21 +773,30 @@ def phase_profile(tmp):
               f"{e.count // len(times):4d}x  {e.key[:90]}")
 
 
-def write_shards(data_dir, n_files):
+def write_shards(data_dir, n_files, vocab=SLICE["vocab"]):
     from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
 
     os.makedirs(data_dir)
     for i in range(n_files):
         write_learnable_token_records(os.path.join(data_dir, f"shard-{i}.rio"),
-                                      SHARD_RECORDS, SEQ, SLICE["vocab"], seed=i)
+                                      SHARD_RECORDS, SEQ, vocab, seed=i)
 
 
-def master_argv(data_dir, num_workers, output):
-    """The port's master command line for the slice's model on the card."""
-    params = ",".join(f"{k}={v}" for k, v in SLICE.items()) + ",dtype=bfloat16"
+def zoo_model(model_params):
+    """The zoo's model as `--model_params model_params` builds it."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+
+    return get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params).model
+
+
+def master_argv(data_dir, num_workers, output, model_params=SLICE_PARAMS):
+    """The port's master command line for the zoo's transformer on the
+    card (the slice's model by default; no `--model_params` flag when
+    `model_params` is empty, as a user runs the zoo's default)."""
     return [
         "--model_zoo", ZOO, "--model_def", "transformer_lm_zoo.custom_model",
-        "--model_params", params, "--minibatch_size", str(BATCH),
+        *(["--model_params", model_params] if model_params else []),
+        "--minibatch_size", str(BATCH),
         "--training_data_dir", data_dir, "--records_per_task", str(TASK_RECORDS),
         "--num_epochs", "1", "--grads_to_wait", "1", "--num_workers", str(num_workers),
         "--worker_backend", "process", "--device", "cuda", "--output", output,
@@ -716,15 +822,14 @@ def steady_tokens_per_s(summaries) -> float:
     return (len(times) - 1) * BATCH * SEQ / (times[-1] - times[0])
 
 
-def check_params(params, what):
+def check_params(params, what, model_params=SLICE_PARAMS):
     """Finite, and moved from both workers' lazy inits (seeds 0 and 1)."""
     from elasticdl_tpu_torch.common import codec
-    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
 
     flat = codec.ravel_np(params)
     if not np.isfinite(flat).all():
         raise AssertionError(f"{what}: the parameters are not finite")
-    model = zoo.custom_model(**SLICE)
+    model = zoo_model(model_params)
     for seed in (0, 1):
         if np.array_equal(flat, codec.ravel_np(model.init_params(seed))):
             raise AssertionError(f"{what}: the parameters did not move from init {seed}")
@@ -737,25 +842,28 @@ def summed_launches(summaries) -> dict:
     return {key: sum(s["launches"][key] for s in summaries.values()) for key in keys}
 
 
-def phase_process_job(tmp) -> dict:
+def phase_process_job(tmp, name="process", model_params=SLICE_PARAMS) -> dict:
     """`python -m elasticdl_tpu_torch.master.main ... --worker_backend
-    process`, run in this process through `run(argv)`: 2 worker
-    processes on the card, 2 shards of 64 records, 16 updates. Returns
-    the kernels' launches summed over the workers."""
+    process` with `--model_params model_params` (none when empty), run in
+    this process through `run(argv)`: 2 worker processes on the card, 2
+    shards of 64 records, 16 updates; each worker's kernels launched at
+    the model's head dim only, with no fallback. Returns the kernels'
+    launches summed over the workers."""
     from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
     from elasticdl_tpu_torch.master import main as master_main
     from elasticdl_tpu_torch.master.checkpoint import load_model_file
     from elasticdl_tpu_torch.worker.main import read_summaries
 
-    data, log_dir = os.path.join(tmp, "process-data"), os.path.join(tmp, "process-logs")
+    cfg = zoo_model(model_params).cfg
+    data, log_dir = os.path.join(tmp, f"{name}-data"), os.path.join(tmp, f"{name}-logs")
     with logs_on_failure(log_dir):
-        output = os.path.join(tmp, "process.ckpt")
-        write_shards(data, 2)
+        output = os.path.join(tmp, f"{name}.ckpt")
+        write_shards(data, 2, cfg.vocab)
         steps = 2 * SHARD_RECORDS // BATCH
         os.environ[ENV_WORKER_LOG_DIR] = log_dir
         try:
             t0 = time.perf_counter()
-            rc, master = master_main.run(master_argv(data, 2, output))
+            rc, master = master_main.run(master_argv(data, 2, output, model_params))
             wall = time.perf_counter() - t0
         finally:
             del os.environ[ENV_WORKER_LOG_DIR]
@@ -764,7 +872,7 @@ def phase_process_job(tmp) -> dict:
         model = load_model_file(output)
         if model.version != steps:
             raise AssertionError(f"--output version {model.version}, {steps} expected")
-        check_params(model.params, "process job")
+        check_params(model.params, f"{name} job", model_params)
         summaries = read_summaries(log_dir)
         card = torch.cuda.get_device_name(0)
         if sorted(summaries) != [0, 1]:
@@ -773,27 +881,29 @@ def phase_process_job(tmp) -> dict:
         if accepted != steps:
             raise AssertionError(f"the workers' accepted steps sum to {accepted}, not {steps}")
         for wid, s in summaries.items():
-            want = want_launches(64, dict.fromkeys(KERNELS,
-                                                   SLICE["n_layers"] * s["steps_computed"]))
+            want = want_launches(cfg.head_dim, dict.fromkeys(
+                KERNELS, cfg.n_layers * s["steps_computed"]))
             if s["device"] != card:
                 raise AssertionError(f"worker {wid} ran on {s['device']!r}, not {card!r}")
-            if s["launches"] != want:
+            if s["launches"] != want or s["attention_fallbacks"]:
                 raise AssertionError(f"worker {wid} launches {s['launches']}, {want} expected "
-                                     f"({s['steps_computed']} steps computed)")
+                                     f"({s['steps_computed']} steps computed), fallbacks "
+                                     f"{s['attention_fallbacks']}")
         exactness = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
-        print(f"process job: rc {rc}, version {model.version}, {wall:.2f} s, "
+        print(f"{name} job (--model_params {model_params!r}): rc {rc}, version {model.version}, "
+              f"{wall:.2f} s, "
               f"{steps * BATCH * SEQ / wall:.1f} tokens/s over the whole run (worker boot "
               f"included), {steady_tokens_per_s(summaries):.1f} tokens/s between the first "
               f"and last accepted steps; exactness {exactness}")
         for wid, s in summaries.items():
             recomputes = s["steps_computed"] - s["steps_accepted"]
-            print(f"process job worker {wid} on {s['device']}: {s['steps_accepted']} steps "
+            print(f"{name} job worker {wid} on {s['device']}: {s['steps_accepted']} steps "
                   f"accepted, {s['steps_computed']} computed ({recomputes} stale recomputes), "
                   f"phase seconds {rounded(s['phase_seconds'])}, client seconds "
                   f"{rounded(s['rpc_seconds'])} (codec {rounded(s['rpc_codec_seconds'])}), "
                   f"launches {s['launches']}")
         server = master["server"]
-        print(f"process job master: server handler seconds {rounded(server['handler_seconds'])}, "
+        print(f"{name} job master: server handler seconds {rounded(server['handler_seconds'])}, "
               f"codec seconds {rounded(server['codec_seconds'])}, calls {server['calls']}")
         # the socket hop: each method's client wall clock less the client's
         # codec and the server's handler and codec time, over both workers
@@ -803,7 +913,7 @@ def phase_process_job(tmp) -> dict:
             - server["handler_seconds"][m] - server["codec_seconds"][m]
             for m in server["calls"]
         }
-        print(f"process job socket hop (s, both workers): {rounded(hop)}")
+        print(f"{name} job socket hop (s, both workers): {rounded(hop)}")
         return summed_launches(summaries)
 
 
@@ -985,69 +1095,34 @@ def phase_ef_card(n):
         raise AssertionError("\n".join(failures))
 
 
-def phase_zoo_default(fa, tmp):
-    """The zoo's default config (`custom_model()`, head_dim 16, which the
-    kernels do not take) trains one step on the card through the
-    dispatcher's fallback."""
-    from elasticdl_tpu_torch.api.model_spec_helpers import spec_from_module
-    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
-    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
-    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
-    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
-    from elasticdl_tpu_torch.worker.worker import Worker
-
-    model = zoo.custom_model()
-    path = os.path.join(tmp, "zoo-default.rio")
-    write_learnable_token_records(path, BATCH, 128, model.cfg.vocab, seed=0)
-    dispatcher = TaskDispatcher({path: BATCH}, {}, {}, BATCH, 1, shuffle_seed=0)
-    spec = spec_from_module(zoo, model=model)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
-    worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cuda")
-    reset_counts(fa)
-    ok = worker.run()
-    launches, fallbacks = read_counts(fa)
-    worker.close()
-    ex = servicer.exactness()
-    head_dim = model.cfg.d_model // model.cfg.n_heads
-    print(f"zoo default config (head_dim {head_dim}) on the card: exactness {ex}, losses "
-          f"{[round(x, 4) for _t, x in worker.step_log]}, attention fallbacks {fallbacks}, "
-          f"kernel launches {launches}")
-    if not ok or ex["applied_update_steps"] != 1 or ex["version"] != 1:
-        raise AssertionError(f"the default config did not train one step: {ex}")
-    if not all(math.isfinite(x) for _t, x in worker.step_log):
-        raise AssertionError("the default config's loss is not finite")
-    if fallbacks <= 0:
-        raise AssertionError("the default config did not go through the fallback")
-
-
-def large_job(path, n_records, task_records, **worker_kw):
-    """The reference's large config through the zoo's entry point
-    (`get_model_spec` with LARGE_PARAMS, as `--model_params` gives it):
-    an in-process master/PS and one worker on the card over `n_records`
-    token records in tasks of `task_records`."""
+def spec_job(path, model_params, batch, n_records, task_records, **worker_kw):
+    """The zoo's transformer built through its entry point (`get_model_spec`
+    with `model_params`, as `--model_params` gives it): an in-process
+    master/PS and one worker on the card over `n_records` token records of
+    SEQ tokens in tasks of `task_records`; `worker_kw` selects window mode."""
     from elasticdl_tpu_torch.api.model_spec import get_model_spec
     from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
     from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
     from elasticdl_tpu_torch.testing import InProcessMaster, build_job
     from elasticdl_tpu_torch.worker.worker import Worker
 
-    write_learnable_token_records(path, n_records, SEQ, LARGE["vocab"], seed=0)
+    spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params)
+    write_learnable_token_records(path, n_records, SEQ, spec.model.cfg.vocab, seed=0)
     dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
-    spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", LARGE_PARAMS)
     servicer = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
-    worker = Worker(0, master, spec, minibatch_size=LARGE_BATCH, device="cuda", seed=0,
-                    **worker_kw)
+    worker = Worker(0, master, spec, minibatch_size=batch, device="cuda", seed=0, **worker_kw)
     return dispatcher, servicer, master, worker, spec.model
 
 
-def check_large_run(what, fa, ok, dispatcher, servicer, worker, model, launches, fallbacks,
-                    steps):
-    """The large phase's checks of one run: a clean finish, the exactness
+def check_run(what, ok, dispatcher, servicer, worker, model, launches, fallbacks, steps,
+              forward_per_layer=1):
+    """The checks of one in-process run: a clean finish, the exactness
     block with every step applied once, steps computed = applied, finite
-    losses, moved parameters, no fallback, and the counted launches: a
-    step computed under remat launches the forward kernel twice a layer
-    (the layer's recompute), dq and dk+dv once."""
+    losses, moved parameters, no fallback, and the counted launches at the
+    model's head dim only: dq and dk+dv once a layer a step computed, the
+    forward `forward_per_layer` times (2 under remat, whose recompute
+    reruns the layer's forward, ctypes launch included)."""
     from elasticdl_tpu_torch.common import codec
 
     ex = servicer.exactness()
@@ -1062,16 +1137,93 @@ def check_large_run(what, fa, ok, dispatcher, servicer, worker, model, launches,
                              f"{worker.steps_accepted} applied, {steps} expected")
     if not losses or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{what}: losses not finite: {losses}")
+    d = model.cfg.head_dim
     if fallbacks:
-        raise AssertionError(f"{what}: {fallbacks} attention calls fell back at head dim 128")
-    n = LARGE["n_layers"] * steps
-    want = want_launches(128, {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n})
+        raise AssertionError(f"{what}: {fallbacks} attention calls fell back at head dim {d}")
+    n = model.cfg.n_layers * steps
+    want = want_launches(d, {"flash_forward": forward_per_layer * n, "flash_dq": n,
+                             "flash_dkv": n})
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches}, {want} expected")
     final, _aux, _v = servicer.get_params_copy()
     flat = codec.ravel_np(final)
     if not np.isfinite(flat).all() or np.array_equal(flat, codec.ravel_np(model.init_params(0))):
         raise AssertionError(f"{what}: the parameters are not finite or did not move")
+
+
+def phase_zoo_default(fa, tmp):
+    """The zoo's default model (`custom_model()` with no --model_params:
+    vocab 128, d_model 64, 4 heads of 16, d_ff 128, 2 layers) on the card
+    through the kernels at head dim 16, over b8 x s1024 token records:
+    ZOO_STEPS per-step updates as a user gets it (float32 compute: the
+    CUDA-core kernels), the same with `dtype=bfloat16` (the tensor-core
+    kernels), then ZOO_WINDOW_STEPS window steps in bfloat16 (`--local_updates
+    4 --sync_dtype bfloat16`). Each run is held to `check_run`. Returns
+    the launches of each run by its column in the kernels line."""
+    window = dict(local_updates=WINDOW, sync_dtype="bfloat16")
+    counts = {}
+    for column, params, steps, task_records, worker_kw in (
+        ("zoo_launches", "", ZOO_STEPS, BATCH * ZOO_STEPS // 2, {}),
+        ("zoo_bf16_launches", "dtype=bfloat16", ZOO_STEPS, BATCH * ZOO_STEPS // 2, {}),
+        ("zoo_window_launches", "dtype=bfloat16", ZOO_WINDOW_STEPS, BATCH * WINDOW, window),
+    ):
+        dispatcher, servicer, master, worker, model = spec_job(
+            os.path.join(tmp, f"{column}.rio"), params, BATCH, BATCH * steps, task_records,
+            **worker_kw)
+        if {k: getattr(model.cfg, k) for k in ZOO_DEFAULT} != ZOO_DEFAULT:
+            raise AssertionError(f"the zoo's default width changed: {model.cfg}")
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        ok = worker.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = read_counts(fa)
+        worker.close()
+        if worker_kw:  # from the first to the last window sync
+            losses = [round(x, 4) for _t, _n, x in worker.window_log]
+            steady = window_steady(worker.window_log)
+        else:  # over steps 2 to the last
+            losses = [round(x, 4) for _t, x in worker.step_log]
+            times = [t for t, _loss in worker.step_log]
+            steady = (len(times) - 1) * BATCH * SEQ / (times[-1] - times[0])
+        print(f"zoo default ({column}, --model_params {params!r}: "
+              f"{sum(p.numel() for p in model.parameters()):,} params, {model.cfg.dtype}, head dim "
+              f"{model.cfg.head_dim}, {worker_kw or 'per-step'}): {steps} steps in {wall:.2f} s "
+              f"({steps * BATCH * SEQ / wall:.1f} tokens/s, model init included; steady "
+              f"{steady:.1f}), exactness {servicer.exactness()}, losses {losses}, launches "
+              f"{launches}, fallbacks {fallbacks}; worker phases {rounded(worker.phase_seconds)}, "
+              f"servicer handlers {rounded(master.handler_seconds)}")
+        check_run(f"zoo default {column}", ok, dispatcher, servicer, worker, model, launches,
+                  fallbacks, steps)
+        counts[column] = launches
+    return counts
+
+
+def phase_zoo_head_dim8(fa, tmp):
+    """The zoo's default width with `--model_params n_heads=8` (head dim 8,
+    the width of `bench_transformer.py`'s CPU-size base config, which no
+    kernel takes) trains one step on the card through the dispatcher's
+    fallback: the fallback stays driven on the card."""
+    dispatcher, servicer, _master, worker, model = spec_job(
+        os.path.join(tmp, "zoo-head-dim8.rio"), "n_heads=8", BATCH, BATCH, BATCH)
+    reset_counts(fa)
+    ok = worker.run()
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    ex = servicer.exactness()
+    head_dim = model.cfg.head_dim
+    print(f"zoo width with n_heads=8 (head_dim {head_dim}) on the card: exactness {ex}, losses "
+          f"{[round(x, 4) for _t, x in worker.step_log]}, attention fallbacks {fallbacks}, "
+          f"kernel launches {launches}")
+    if not ok or not dispatcher.finished() or ex["applied_update_steps"] != 1 or (
+        ex["version"] != 1
+    ):
+        raise AssertionError(f"the head-dim-8 config did not train one step: {ex}")
+    if not all(math.isfinite(x) for _t, x in worker.step_log):
+        raise AssertionError("the head-dim-8 config's loss is not finite")
+    if fallbacks <= 0 or any(launches.values()):
+        raise AssertionError(f"the head-dim-8 config did not go through the fallback alone: "
+                             f"{fallbacks} fallbacks, launches {launches}")
 
 
 def peak_step_memory():
@@ -1116,8 +1268,9 @@ def phase_large(fa, tmp):
     window steps (`local_updates=4, sync_dtype="bfloat16"`). Returns the
     kernels' launches of each run."""
     steps = LARGE_STEPS
-    dispatcher, servicer, master, worker, model = large_job(
-        os.path.join(tmp, "large.rio"), LARGE_BATCH * steps, LARGE_BATCH * steps // 2)
+    dispatcher, servicer, master, worker, model = spec_job(
+        os.path.join(tmp, "large.rio"), LARGE_PARAMS, LARGE_BATCH, LARGE_BATCH * steps,
+        LARGE_BATCH * steps // 2)
     n_params = sum(p.numel() for p in model.parameters())
     reset_counts(fa)
     t0 = time.perf_counter()
@@ -1130,8 +1283,8 @@ def phase_large(fa, tmp):
           f"{model.cfg.remat_policy!r}): {steps} per-step updates, exactness "
           f"{servicer.exactness()}, losses {[round(x, 4) for _t, x in worker.step_log]}, "
           f"launches {launches}, fallbacks {fallbacks}")
-    check_large_run("large per-step", fa, ok, dispatcher, servicer, worker, model, launches,
-                    fallbacks, steps)
+    check_run("large per-step", ok, dispatcher, servicer, worker, model, launches, fallbacks,
+              steps, forward_per_layer=2)
     times = [t for t, _loss in worker.step_log]
     tokens = LARGE_BATCH * SEQ
     print(f"large per-step throughput: {steps * tokens / wall:.1f} tokens/s over the whole run "
@@ -1142,9 +1295,9 @@ def phase_large(fa, tmp):
     del dispatcher, servicer, master, worker, model
 
     steps = LARGE_WINDOW_STEPS
-    dispatcher, servicer, master, worker, model = large_job(
-        os.path.join(tmp, "large-window.rio"), LARGE_BATCH * steps, LARGE_BATCH * WINDOW,
-        local_updates=WINDOW, sync_dtype="bfloat16")
+    dispatcher, servicer, master, worker, model = spec_job(
+        os.path.join(tmp, "large-window.rio"), LARGE_PARAMS, LARGE_BATCH, LARGE_BATCH * steps,
+        LARGE_BATCH * WINDOW, local_updates=WINDOW, sync_dtype="bfloat16")
     reset_counts(fa)
     t0 = time.perf_counter()
     ok = worker.run()
@@ -1157,8 +1310,8 @@ def phase_large(fa, tmp):
           f"{[n for _t, n, _l in windows]} steps, exactness {servicer.exactness()}, window "
           f"losses {[round(loss, 4) for _t, _n, loss in windows]}, launches "
           f"{window_launches}, fallbacks {fallbacks}")
-    check_large_run("large window", fa, ok, dispatcher, servicer, worker, model,
-                    window_launches, fallbacks, steps)
+    check_run("large window", ok, dispatcher, servicer, worker, model, window_launches,
+              fallbacks, steps, forward_per_layer=2)
     n_windows = len(windows)
     steady = sum(n for _t, n, _l in windows[1:]) * LARGE_BATCH * SEQ / (
         windows[-1][0] - windows[0][0])
@@ -1457,10 +1610,12 @@ def main() -> int:
         counts["window_launches"] = phase_window(fa, tmp)
         phase_window_profile(tmp)
         phase_ef_card(slice_param_count())
-        phase_zoo_default(fa, tmp)
+        counts.update(phase_zoo_default(fa, tmp))
+        phase_zoo_head_dim8(fa, tmp)
         counts["large_launches"], counts["large_window_launches"] = phase_large(fa, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
         counts["process_launches"] = phase_process_job(tmp)
+        counts["zoo_process_launches"] = phase_process_job(tmp, "zoo-process", "")
         phase_preemption(tmp)
         counts["window_process_launches"] = phase_window_process_job(tmp)
         phase_window_drain(tmp)
@@ -1469,9 +1624,10 @@ def main() -> int:
         for row in by_kernel.values():
             for path, launches in counts.items():
                 row[path] = launches[row["name"]]
-            # `launches`: the main path of the row's head dim, the base
-            # per-step run at 64 and the large per-step run at 128
-            row["launches"] = row["large_launches" if row["head_dim"] == 128 else "launches"]
+            # `launches`: the main path of the row's head dim; at 32, which
+            # no path of the repo runs, every path's count summed (0)
+            main_path = MAIN_PATH.get(row["head_dim"])
+            row["launches"] = row[main_path] if main_path else sum(row[p] for p in counts)
     print(json.dumps({
         "kernels": [row for by_kernel in rows.values() for row in by_kernel.values()],
         "backward_pair": {f"d{d}": pair for d, pair in pairs.items()},

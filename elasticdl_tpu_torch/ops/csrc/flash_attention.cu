@@ -10,19 +10,22 @@
 // to v's (do's) dtype before the PV (dV) product and ds to k's (q's)
 // dtype before the dQ (dK) product, as the reference casts them.
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [B, L, H, D] contiguous, D = 64
-// or 128 (every kernel is a template on D), L a multiple of 64; lse and
-// delta are float32 [B, H, L].
+// Layout: q, k, v, o, do, dq, dk, dv are [B, L, H, D] contiguous, D = 16,
+// 32, 64 or 128 (every kernel is a template on D), L a multiple of 64; lse
+// and delta are float32 [B, H, L].
 //
 // Bound: at the training slices' shapes (bf16, causal: b8 x s1024 with
 // 8 heads of 64, b16 x s1024 with 8 heads of 128) the forward does about
 // 250 (D = 64) or 255 (D = 128) operations per byte it must move and the
 // backward kernels 300-400, against the card's balance of about 295 for
 // bf16 tensor cores: the forward is bound by bytes, the backward kernels
-// by operations (chip_smoke.py computes and prints each bound).
+// by operations. Each kernel also takes one exp2 per visible (q, k) pair
+// on the special-function units (16 a clock per SM): at D = 16 and 32 the
+// products and bytes shrink with D and the exponentials bind every
+// kernel (chip_smoke.py computes and prints each bound's three terms).
 //
 // Every kernel: one block owns a 64-row tile of one (batch, head) (the
-// D = 64 forward: 128 rows) and streams the other operand's 64-row tiles
+// forward at D <= 64: 128 rows) and streams the other operand's 64-row tiles
 // past it, so nothing quadratic touches device memory and no block
 // writes another's output (no atomics). Causal tiles above the diagonal
 // are skipped; only the diagonal tile compares positions.
@@ -32,20 +35,22 @@
 // - bfloat16 (`fa_fwd_bf16_kernel`, `fa_dq_bf16_kernel`,
 //   `fa_dkv_bf16_kernel`): the products run on the tensor cores
 //   (`mma.sync.m16n8k16` bf16 x bf16 -> f32). Streamed tiles stay bf16 in
-//   shared memory (64 x D: 8 KB at D = 64, 16 KB at D = 128; 16-byte
+//   shared memory (64 x D: 2 KB at D = 16 up to 16 KB at D = 128; 16-byte
 //   chunks XOR-swizzled by row so `ldmatrix` reads are free of bank
-//   conflicts) and arrive by 16-byte `cp.async` into a ring of stages,
-//   the next tiles' copies in flight while the current one is
+//   conflicts, `swz`) and arrive by 16-byte `cp.async` into a ring of
+//   stages, the next tiles' copies in flight while the current one is
 //   multiplied. Each of 4 warps owns 16 q rows (dq; the forward: 32 at
-//   D = 64, 16 at D = 128) or 16 k rows (dk+dv); the score accumulator of
-//   m16n8 is the A-operand layout of m16n8k16, so p and ds are rounded to
-//   bf16 and fed to the next product from registers, with no trip through
-//   shared memory. `Tc<D>` sets what differs by head dim: at D = 128 a
-//   D-wide accumulator takes 64 registers a thread, so the forward keeps
-//   one row tile a warp, dq and dk+dv hold the scores of 32 k (q) columns
-//   at a time instead of 64, dk+dv reads k and v from shared memory at
-//   each use instead of keeping them in registers, and the ring has two
-//   stages instead of three, so two blocks fit an SM.
+//   D <= 64, 16 at D = 128) or 16 k rows (dk+dv); the score accumulator
+//   of m16n8 is the A-operand layout of m16n8k16, so p and ds are rounded
+//   to bf16 and fed to the next product from registers, with no trip
+//   through shared memory. `Tc<D>` sets what differs by head dim: at
+//   D = 128 a D-wide accumulator takes 64 registers a thread, so the
+//   forward keeps one row tile a warp, dq and dk+dv hold the scores of 32
+//   k (q) columns at a time instead of 64, dk+dv reads k and v from shared
+//   memory at each use instead of keeping them in registers, and the ring
+//   has two stages instead of three, so two blocks fit an SM. At D = 16
+//   and 32 tiles and accumulators are small and the exponentials take the
+//   time; a deeper ring gained nothing there, so it has two stages too.
 // - float32 (all three kernels): float32 FMAs on the CUDA cores, 256
 //   threads with a 4 x 4 register tile each over the 64 x 64 scores and a
 //   4 x D/16 tile over D-wide outputs, float32 tiles padded to D + 4
@@ -106,12 +111,27 @@ __device__ __forceinline__ void mm_nt(const float* A, const float* B, float acc[
   }
 }
 
+// VW floats of shared memory at p (16-byte aligned for 4, 8-byte for 2)
+template <int VW>
+__device__ __forceinline__ void lds(float v[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
 // acc[i][j] += sum_c P[ty*4+i][c] * V[c][tx*W+j]: P a 64 x 64 score tile,
-// V a D-wide tile, W = D/16 output columns a thread
+// V a D-wide tile, W = D/16 output columns a thread, read VW at a time
+// (W is 1 at D = 16 and 2 at D = 32)
 template <int D>
 __device__ __forceinline__ void mm_nn(const float* P, const float* V, float acc[4][D / 16],
                                       int ty, int tx) {
-  constexpr int LD = D + 4, W = D / 16;
+  constexpr int LD = D + 4, W = D / 16, VW = W < 4 ? W : 4;
 #pragma unroll 2
   for (int c = 0; c < T64; c += 4) {
     float4 p[4];
@@ -121,15 +141,14 @@ __device__ __forceinline__ void mm_nn(const float* P, const float* V, float acc[
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
-      for (int w = 0; w < W; w += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&V[(c + cc) * LD + tx * W + w]);
+      for (int w = 0; w < W; w += VW) {
+        float v[VW];
+        lds<VW>(v, &V[(c + cc) * LD + tx * W + w]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pv = cc == 0 ? p[i].x : cc == 1 ? p[i].y : cc == 2 ? p[i].z : p[i].w;
-          acc[i][w] = fmaf(pv, v.x, acc[i][w]);
-          acc[i][w + 1] = fmaf(pv, v.y, acc[i][w + 1]);
-          acc[i][w + 2] = fmaf(pv, v.z, acc[i][w + 2]);
-          acc[i][w + 3] = fmaf(pv, v.w, acc[i][w + 3]);
+#pragma unroll
+          for (int x = 0; x < VW; ++x) acc[i][w + x] = fmaf(pv, v[x], acc[i][w + x]);
         }
       }
     }
@@ -379,30 +398,58 @@ constexpr int NT_TC = 128;  // threads per block: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The bf16 kernels' tiling by head dim (registers a thread and shared
-// memory a block; PERF.md gives ptxas's counts and the blocks an SM holds)
+// memory a block; PERF.md gives ptxas's counts and the blocks an SM holds).
+// At D = 16 and 32 a 64 x D tile is 2 or 4 KB and a 16 x D accumulator 8
+// or 16 registers, so any depth of the ring fits; but the exponentials,
+// not the copies, take the time there: rings of 2, 3 and 4 stages ran
+// alike on the card (within the spread of one run), so the smallest is
+// kept, and a forward of 4 row tiles a warp ran slower at D = 16 and
+// spilled at 32 (scripts/torch_attention_tilings.py, PERF.md).
 template <int D>
 struct Tc;
 template <>
-struct Tc<64> {
-  static constexpr int STAGES = 3;  // depth of the cp.async ring of streamed tiles
+struct Tc<16> {
+  static constexpr int STAGES = 2;  // depth of the cp.async ring of streamed tiles
   static constexpr int FWD_MT = 2;  // forward: 16-row q tiles a warp (128 q rows a block)
   static constexpr int KW = 64;     // dq, dk+dv: score columns a warp holds at once
+  static constexpr bool KV_REGS = true;  // dk+dv: k and v as register A fragments
+};
+template <>
+struct Tc<32> {
+  static constexpr int STAGES = 2;
+  static constexpr int FWD_MT = 2;
+  static constexpr int KW = 64;
+  static constexpr bool KV_REGS = true;
+};
+template <>
+struct Tc<64> {
+  static constexpr int STAGES = 3;
+  static constexpr int FWD_MT = 2;
+  static constexpr int KW = 64;
+  static constexpr bool KV_REGS = true;
 };
 template <>
 struct Tc<128> {
   static constexpr int STAGES = 2;
   static constexpr int FWD_MT = 1;
   static constexpr int KW = 32;
+  static constexpr bool KV_REGS = false;
 };
 
 // Offset of element (r, c) in a swizzled 64 x D bf16 tile: row r's
-// 16-byte chunk c/8 (of D/8) sits at chunk (c/8) ^ (r%8), which changes
-// only the chunk's low three bits. The 8 rows that one ldmatrix phase
-// reads at one chunk column are 8 consecutive rows, so they land in 8
-// distinct bank groups (a row is a whole number of 128-byte bank cycles).
+// 16-byte chunk c/8 (of CH = D/8) sits at chunk (c/8) ^ x(r). Every
+// ldmatrix phase reads one chunk column of 8 consecutive rows from a
+// multiple of 8, and those 8 chunks must land in the 8 distinct 16-byte
+// bank groups of a 128-byte bank cycle. At D >= 64 a row is a whole number
+// of cycles and x(r) = r % 8 spreads them. At D = 32 two rows share a
+// cycle (the second sits 4 groups on) and at D = 16 four do (2 groups
+// apart), so x(r) = (r / RPC) % CH, RPC rows a cycle, spreads the rows
+// that share a group offset over the CH chunks a row has; an XOR with
+// r % 8 there would move a chunk past its row's end, into the next row.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+  constexpr int CH = D / 8, RPC = CH >= 8 ? 1 : 8 / CH, X = CH >= 8 ? 8 : CH;
+  return r * D + (((c >> 3) ^ ((r / RPC) % X)) << 3) + (c & 7);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -422,6 +469,7 @@ template <int D>
 __device__ __forceinline__ void cp_tile(bf16* s, const bf16* g, int b, int h, int row0, int L,
                                         int H) {
   constexpr int CH = D / 8;  // 16-byte chunks a row
+  static_assert(T64 * CH % NT_TC == 0, "every thread copies the same number of chunks");
 #pragma unroll
   for (int it = 0; it < T64 * CH / NT_TC; ++it) {
     const int i = it * NT_TC + threadIdx.x, r = i / CH, c = (i % CH) * 8;
@@ -574,7 +622,7 @@ __device__ __forceinline__ void store_rows(bf16* g, const float acc[D / 8][4], c
 // STAGES - 1 tiles ahead of the products, and the online softmax runs on
 // the accumulator fragments (row max and sum over the 4 lanes of a row by
 // two shuffles), in base 2 with log2(e) folded into the scale; lse is
-// stored in natural log. Each warp owns MT row tiles of 16: at D = 64
+// stored in natural log. Each warp owns MT row tiles of 16: at D <= 64
 // MT = 2, so every k/v fragment read from shared memory feeds two
 // products and a block owns 128 q rows (the last is half empty when L is
 // not a multiple of 128: its idle warps only help copy); at D = 128
@@ -587,6 +635,7 @@ __global__ void __launch_bounds__(NT_TC) fa_fwd_bf16_kernel(
     bf16* __restrict__ o, float* __restrict__ lse, int L, int H, int causal, float scale) {
   constexpr int MT = Tc<D>::FWD_MT, STAGES = Tc<D>::STAGES;
   constexpr int BM = T64 * MT, TILE = T64 * D, CH = D / 8;
+  static_assert(BM * CH % NT_TC == 0, "every thread copies the same number of q chunks");
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
   bf16* Ks = Qs + MT * TILE;       // STAGES tiles
@@ -678,7 +727,7 @@ __global__ void __launch_bounds__(NT_TC) fa_fwd_bf16_kernel(
             const float p = ex2(fmaf(s[mt][j][e], sl2, -ms[e >> 1]));
             l[mt][e >> 1] += p;  // the unrounded p, as the reference sums it
             s[mt][j][e] = p;
-            acc[mt][j][e] *= corr[e >> 1];
+            if (j < D / 8) acc[mt][j][e] *= corr[e >> 1];  // D / 8 is 2 at D = 16
           }
 #pragma unroll
         for (int j = 8; j < D / 8; ++j)  // the accumulator's columns past 64
@@ -834,7 +883,7 @@ __global__ void __launch_bounds__(NT_TC, 2) fa_dq_bf16_kernel(
 // warp forms the transposed tiles s^T = k.q^T and dp^T = v.do^T over KW q
 // columns at a time, then p^T = exp(s^T scale - lse) and ds^T = p^T
 // (dp^T - delta) scale, and feeds both, rounded to bf16, from registers
-// into dV += p^T.do and dK += ds^T.q. At D = 64 k and v sit in registers
+// into dV += p^T.do and dK += ds^T.q. At D <= 64 k and v sit in registers
 // as A fragments; at D = 128, where the dK and dV accumulators take 128
 // registers, they are read from shared memory by ldmatrix at each use and
 // the scores come 32 q columns at a time. grid (B*H, L/64), k tiles in
@@ -847,7 +896,7 @@ __global__ void __launch_bounds__(NT_TC) fa_dkv_bf16_kernel(
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H,
     int causal, float scale) {
   constexpr int STAGES = Tc<D>::STAGES, KW = Tc<D>::KW, TILE = T64 * D;
-  constexpr bool KV_REGS = D == 64;  // k and v as register A fragments
+  constexpr bool KV_REGS = Tc<D>::KV_REGS;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);
   bf16* Vs = Ks + TILE;
@@ -951,8 +1000,8 @@ __global__ void __launch_bounds__(NT_TC) fa_dkv_bf16_kernel(
 }
 
 bool bad_shape(int B, int L, int H, int Dh) {
-  return (Dh != 64 && Dh != 128) || L <= 0 || L % T64 != 0 || B <= 0 || H <= 0 ||
-         (long)B * H > 65535;
+  return (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) || L <= 0 || L % T64 != 0 || B <= 0 ||
+         H <= 0 || (long)B * H > 65535;
 }
 
 // Dynamic shared memory of each kernel at head dim D (bytes)
@@ -962,15 +1011,15 @@ size_t smem_f32(int tiles, int score_tiles, int rows) {
                           (size_t)rows * T64);
 }
 template <int D>
-size_t smem_fwd_bf16() {  // q rows and the k/v stages (D = 64: 64 KB, D = 128: 80 KB)
+size_t smem_fwd_bf16() {  // q rows and the k/v stages (D = 16: 12 KB, 32: 24, 64: 64, 128: 80)
   return (Tc<D>::FWD_MT + 2 * Tc<D>::STAGES) * T64 * D * sizeof(bf16);
 }
 template <int D>
-size_t smem_dq_bf16() {  // q and do tiles and the k/v stages (64 KB, 96 KB)
+size_t smem_dq_bf16() {  // q and do tiles and the k/v stages (12, 24, 64, 96 KB)
   return (2 + 2 * Tc<D>::STAGES) * T64 * D * sizeof(bf16);
 }
 template <int D>
-size_t smem_dkv_bf16() {  // k and v tiles, the q/do stages and their lse/delta rows (65.5 KB, 97 KB)
+size_t smem_dkv_bf16() {  // k and v tiles, the q/do stages and their lse/delta rows (13, 25, 65.5, 97 KB)
   return (2 + 2 * Tc<D>::STAGES) * T64 * D * sizeof(bf16) + Tc<D>::STAGES * 2 * T64 * sizeof(float);
 }
 
@@ -1004,7 +1053,12 @@ Launch launch_of(int which, int dtype, int B, int L, int H) {
 }
 
 Launch launch_of(int which, int Dh, int dtype, int B, int L, int H) {
-  return Dh == 64 ? launch_of<64>(which, dtype, B, L, H) : launch_of<128>(which, dtype, B, L, H);
+  switch (Dh) {
+    case 16: return launch_of<16>(which, dtype, B, L, H);
+    case 32: return launch_of<32>(which, dtype, B, L, H);
+    case 64: return launch_of<64>(which, dtype, B, L, H);
+    default: return launch_of<128>(which, dtype, B, L, H);  // bad_shape took every other
+  }
 }
 
 // cudaFuncSetAttribute for the dynamic shared memory, then the launch of
@@ -1024,7 +1078,7 @@ int launch(int which, int B, int L, int H, int Dh, int dtype, void** args, void*
 
 // C entry points. dtype: 0 = float32, 1 = bfloat16; the dtype picks the
 // design (the CUDA-core kernel for float32, the tensor-core kernel for
-// bfloat16) and Dh (64 or 128) its instantiation. Each returns the
+// bfloat16) and Dh (16, 32, 64 or 128) its instantiation. Each returns the
 // cudaError_t of the launch (0 on success); the kernel runs on `stream`.
 // The pointers are passed on as the kernel's float or bf16 pointers.
 extern "C" {

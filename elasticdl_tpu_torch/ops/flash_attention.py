@@ -27,11 +27,13 @@ every other shape to the materializing `reference_attention`, counting
 each such call in `attention.fallbacks`.
 
 Layout: [B, L, H, D] ("blhd"); compute is float32, operands float32 or
-bfloat16. The kernels take D in HEAD_DIMS (64 and 128) and L a multiple
-of BLOCK. The C entry points pick a kernel by dtype: for bfloat16 all
-three run their products on the tensor cores, for float32 all three stay
-on the CUDA cores (the tensor cores would round f32 to TF32); each kernel
-is a template on D, instantiated for both head dims.
+bfloat16. The kernels take D in HEAD_DIMS (16, 32, 64 and 128: the zoo's
+default model, the reference's kernel tests, its base and its large
+transformer) and L a multiple of BLOCK. The C entry points pick a kernel
+by dtype: for bfloat16 all three run their products on the tensor cores,
+for float32 all three stay on the CUDA cores (the tensor cores would
+round f32 to TF32); each kernel is a template on D, instantiated for
+every head dim.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Tuple
 import torch
 
 BLOCK = 64  # rows per kernel tile (q and k)
-HEAD_DIMS = (64, 128)  # the kernels' head dims
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' head dims
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -69,8 +69,9 @@ FAULTS = {
 
 
 def build_copy(work: str, name: str, fault) -> str:
-    """The kernel source with `fault` planted, built into `work`; returns
-    the library's path."""
+    """The kernel source with `fault` planted, built into `work` (the
+    compiler's output beside it as `<name>.log`); returns the library's
+    path."""
     with open(os.path.join(build.CSRC_DIR, "flash_attention.cu")) as f:
         src = f.read()
     if fault is not None:
@@ -86,6 +87,8 @@ def build_copy(work: str, name: str, fault) -> str:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    with open(os.path.join(work, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
     return lib
 
 

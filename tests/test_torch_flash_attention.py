@@ -10,7 +10,7 @@ held against these plain versions on the card by chip_smoke.py.
 Tolerances: float32 paths 2e-5 (forward) and 5e-4 (gradients, the
 reference test's own bound); bfloat16 operands 2e-2 absolute+relative,
 about two bf16 ulps at the outputs' magnitude. The same at every head
-dim (16, 64, 128).
+dim (16, 32, 64, 128).
 """
 
 import math
@@ -84,18 +84,24 @@ def _check_plain_backward(causal, L, dtype, d, seed):
         _close(got, want, tol)
 
 
+# head_dim 16 and 32: the zoo's default model (d_model 64 / 4 heads) and
+# the reference's own kernel tests (tests/test_flash_attention.py)
+
+
+@pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [128, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_forward_matches_pallas_kernel(causal, L, dtype):
-    _check_plain_forward(causal, L, dtype, d=16, seed=0)
+def test_plain_forward_matches_pallas_kernel(causal, L, dtype, d):
+    _check_plain_forward(causal, L, dtype, d=d, seed=0)
 
 
+@pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [128, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_matches_pallas_kernels(causal, L, dtype):
-    _check_plain_backward(causal, L, dtype, d=16, seed=1)
+def test_plain_backward_matches_pallas_kernels(causal, L, dtype, d):
+    _check_plain_backward(causal, L, dtype, d=d, seed=1)
 
 
 # head_dim 64 and 128, the widths the CUDA kernels take: the plain
@@ -133,15 +139,44 @@ def test_plain_backward_matches_pallas_kernels_at_head_dim_128(causal, L, dtype)
 
 
 def test_kernel_head_dims_are_the_reference_configs_widths():
-    """The CUDA kernels take the head dims of the reference's base (512 /
-    8 heads) and large (1024 / 8 heads) transformer configs; other head
-    dims run on the card through the dispatcher's fallback."""
-    assert tfa.HEAD_DIMS == (64, 128)
-    assert 512 // 8 in tfa.HEAD_DIMS and 1024 // 8 in tfa.HEAD_DIMS
+    """The CUDA kernels take the head dims of the zoo's default model (64
+    / 4 heads), the reference's kernel tests (32), and its base (512 / 8
+    heads) and large (1024 / 8 heads) transformer configs; other head dims
+    run on the card through the dispatcher's fallback."""
+    assert tfa.HEAD_DIMS == (16, 32, 64, 128)
+    for d in (64 // 4, 32, 512 // 8, 1024 // 8):
+        assert d in tfa.HEAD_DIMS
     for d in tfa.HEAD_DIMS:
         assert tfa.kernels_take((2, 128, 4, d), torch.bfloat16)
-    for d in (16, 32, 96, 256):
+    for d in (8, 96, 256):
         assert not tfa.kernels_take((2, 128, 4, d), torch.bfloat16)
+
+
+@pytest.mark.parametrize("params", [{}, {"dtype": "bfloat16"}])
+def test_zoo_default_model_reaches_the_kernels(params, monkeypatch):
+    """The zoo's `custom_model()` with no params (and with bf16 compute)
+    hands the attention dispatcher q, k, v that the kernels take, at
+    b8 x s1024 (chip_smoke.py's zoo path): on the card it runs the kernels
+    at head dim 16, not the fallback."""
+    from elasticdl_tpu_torch.convert import params_from_jax
+    from elasticdl_tpu_torch.models import transformer_lm, transformer_lm_zoo
+
+    model = transformer_lm_zoo.custom_model(**params)
+    seen = []
+
+    def recording(q, k, v, causal=True):
+        seen.append((tuple(q.shape), q.dtype))
+        return tfa.attention(q, k, v, causal)
+
+    monkeypatch.setattr(transformer_lm, "attention", recording)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, model.cfg.vocab, (8, 1024)))
+    with torch.no_grad():
+        transformer_lm.plain_forward(model.cfg, params_from_jax(model.init_params(0)), tokens)
+    assert len(seen) == model.cfg.n_layers
+    for shape, dtype in seen:
+        assert shape == (8, 1024, 4, 16)
+        assert dtype == (torch.bfloat16 if params else torch.float32)
+        assert tfa.kernels_take(shape, dtype)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -183,6 +218,65 @@ def test_every_tensor_core_kernel_is_held_to_no_spills():
     tensor_core = {n for n in names if n.endswith("_bf16_kernel")}
     assert "fa_dq_bf16_kernel" in tensor_core
     assert tensor_core <= set(chip_smoke.NO_SPILL)
+
+
+def _ptxas_log(instantiations, spill=0):
+    """ptxas -v lines, as nvcc prints them, for each (kernel, head dim)."""
+    lines = []
+    for name, d in instantiations:
+        entry = f"_ZN39_GLOBAL__N__0a1b2c3d_18_flash_attention_cu_1{len(name)}{name}ILi{d}EEEvPKf"
+        lines += [
+            f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {entry}",
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+            "ptxas info    : Used 128 registers, used 1 barriers",
+        ]
+    return "\n".join(lines)
+
+
+def test_ptxas_check_needs_every_tensor_core_instantiation():
+    """chip_smoke.py's check of ptxas's report fails when a tensor-core
+    kernel has no instantiation at one of the head dims (16 and 32 as
+    well as 64 and 128) or one of them spills."""
+    import chip_smoke
+
+    every = [(n, d) for n in chip_smoke.NO_SPILL for d in tfa.HEAD_DIMS]
+    regs = chip_smoke.check_ptxas(_ptxas_log(every))
+    assert sorted(regs) == sorted(every) and set(regs.values()) == {128}
+    for gone in (("fa_dq_bf16_kernel", 16), ("fa_fwd_bf16_kernel", 32)):
+        with pytest.raises(AssertionError, match="no registers"):
+            chip_smoke.check_ptxas(_ptxas_log([x for x in every if x != gone]))
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_ptxas(_ptxas_log(every[:3]) + "\n"
+                               + _ptxas_log([("fa_dkv_bf16_kernel", 16)], spill=8))
+
+
+def test_bound_counts_the_exponentials():
+    """chip_smoke.py's bound per kernel is the largest of three terms:
+    the products, the bytes and the exp2s (one per visible (q, k) pair,
+    and in the forward one per row and 64-column k tile it visits). At the
+    H100 SXM's rate (132 SMs x 16 a clock x 1980 MHz) the exponentials
+    bind every kernel at head dim 16 (b8 x s1024, 32 heads); at 64 (8
+    heads) the forward stays bound by bytes and the backward by products."""
+    import chip_smoke
+
+    # 1 x 1 x 128 causal: 8256 visible pairs; rows 0-63 visit one k tile,
+    # rows 64-127 two
+    ops, nbytes, exps = chip_smoke.bounds(1, 128, 1, 16)["flash_forward"]
+    assert (ops, exps) == (2 * 2 * 16 * 8256, 8256 + 64 + 128)
+    assert chip_smoke.bounds(1, 128, 1, 16)["flash_dq"][2] == 8256
+    assert chip_smoke.bounds(1, 128, 1, 16, causal=False)["flash_forward"][2] == 128 * 128 + 256
+    rate = 132 * chip_smoke.SFU_PER_SM_CLOCK * 1980e6
+    binds = {}
+    for d, (b, L, h) in ((16, chip_smoke.TIMED_16), (64, (8, 1024, 8))):
+        for name, (ops, nbytes, exps) in chip_smoke.bounds(b, L, h, d).items():
+            terms = chip_smoke.bound_terms(ops, nbytes, exps, rate)
+            binds[name, d] = max(terms, key=terms.get)
+    assert binds == {
+        ("flash_forward", 16): "exp", ("flash_dq", 16): "exp", ("flash_dkv", 16): "exp",
+        ("flash_forward", 64): "bytes", ("flash_dq", 64): "products",
+        ("flash_dkv", 64): "products",
+    }
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -251,9 +345,12 @@ def test_launch_counts_are_kept_per_kernel_and_head_dim():
     at; `launch_counts` names them f"{wrapper}_d{head dim}"."""
     tfa.reset_launch_counts()
     names = ("flash_forward", "flash_dq", "flash_dkv")
-    assert tfa.launch_counts() == {f"{n}_d{d}": 0 for n in names for d in tfa.HEAD_DIMS}
+    assert tfa.launch_counts() == {f"{n}_d{d}": 0 for n in names for d in (16, 32, 64, 128)}
     tfa.flash_dq.launches[128] += 2
-    assert tfa.launch_counts()["flash_dq_d128"] == 2
-    assert tfa.launch_counts()["flash_dq_d64"] == 0
+    tfa.flash_forward.launches[16] += 3
+    tfa.flash_dkv.launches[32] += 1
+    counts = tfa.launch_counts()
+    assert counts["flash_dq_d128"] == 2 and counts["flash_forward_d16"] == 3
+    assert counts["flash_dkv_d32"] == 1 and sum(counts.values()) == 6
     tfa.reset_launch_counts()
     assert not any(tfa.launch_counts().values())

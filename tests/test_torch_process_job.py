@@ -127,7 +127,9 @@ def test_one_worker_job_equals_the_in_process_job_bit_for_bit(tmp_path, monkeypa
     assert s["losses"] == [loss for _t, loss in worker.step_log]
     # on the CPU the wrappers run their plain versions: no launches
     assert s["launches"] == {
-        f"{k}_d{d}": 0 for k in ("flash_forward", "flash_dq", "flash_dkv") for d in (64, 128)
+        f"{k}_d{d}": 0
+        for k in ("flash_forward", "flash_dq", "flash_dkv")
+        for d in (16, 32, 64, 128)
     }
     assert set(s["rpc_seconds"]) == set(summary["server"]["calls"])
 

@@ -422,12 +422,14 @@ def test_ps_optimizer_snapshot_is_a_copy_and_step_leaves_params():
     [
         ((2, 128, 4, 64), torch.bfloat16, True),
         ((2, 1024, 8, 64), torch.float32, True),
-        ((2, 128, 4, 16), torch.bfloat16, False),  # the zoo's default head dim
+        ((2, 128, 4, 16), torch.bfloat16, True),  # the zoo's default head dim
         ((2, 100, 4, 64), torch.bfloat16, False),  # L % 64 != 0
         ((2, 128, 4, 128), torch.float32, True),  # the large config's head dim
         ((2, 1024, 8, 128), torch.bfloat16, True),
-        ((2, 128, 4, 32), torch.bfloat16, False),
+        ((2, 128, 4, 32), torch.bfloat16, True),  # the reference kernel test's head dim
         ((2, 128, 4, 64), torch.float16, False),
+        ((2, 128, 8, 8), torch.bfloat16, False),  # the zoo width with 8 heads
+        ((8, 1024, 4, 16), torch.float16, False),
     ],
 )
 def test_dispatcher_predicate_by_shape_alone(shape, dtype, takes):
