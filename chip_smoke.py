@@ -92,19 +92,42 @@ its result lines only when every phase passed:
    every step applied once); SIGKILL in a second job requeues its tasks
    and the job finishes with no failed task and every step applied once
    (the replayed windows deduped by their report keys);
-12. prints the kernels' JSON line (one row per kernel and head dim, 12
-   rows; the backward pair's yardstick once per head dim, as
-   `backward_pair`, since no single kernel's row matches it; each
-   wrapper counts its launches by head dim, and each row carries its own
-   kernel's count at its own head dim in each path: `launches` the head
-   dim's main path (`MAIN_PATH`: the zoo default's float32 per-step run
-   at 16, the base per-step run at 64, the large per-step run at 128;
-   at 32, which no path runs, every path's count summed),
-   `process_launches`, `window_launches`, `window_process_launches`,
-   `large_launches`, `large_window_launches`, `zoo_launches`,
-   `zoo_bf16_launches`, `zoo_window_launches`, `zoo_process_launches`;
-   and each row's bound term, `bound_term`, with all three terms),
-   the card line, and the result line.
+12. the image zoo (no attention: every image run checks 0 launches and 0
+   fallbacks): `phase_image_models` holds one train-mode forward and
+   backward of each image model (mnist_functional_api, mnist_subclass,
+   cifar10_functional_api, cifar10_subclass, resnet50_subclass, and
+   ResNet-50 in bf16) on the card against the same step on the CPU
+   (`IMAGE_TOL`); `phase_image_per_step` trains cifar10 (b128, 64
+   updates) and mnist (b64, 32) per-step, printing images/s and the host
+   PS apply; `phase_cifar_window` runs the reference's headline job
+   (`bench.py:360-432`: cifar10_functional_api in window mode, W 32,
+   b128, 65,536 records in tasks of 4,096, bf16 EF deltas) with the
+   exactness block, the reference's gate (median of the last 3 task
+   losses < 1.5), the PS's batch_stats moved and equal to the last
+   synced window's, images/s, then the device idle share of a profiled
+   run of 3 tasks; `phase_resnet_window` trains ResNet-50 in bf16 at 64
+   px in window mode (`bench_resnet.py:123-160`: W 32, b128, 32,768
+   records, bf16 transport) with images/s and its peak device memory;
+   `phase_image_process_job` runs master.main with `--model_def
+   cifar10_functional_api.custom_model`, 2 workers per-step: the
+   exactness block and the batch stats back through each worker's
+   GetModel frames;
+13. prints the kernels' JSON line (one row per kernel and head dim in
+   bf16, 12 rows, plus the float32 kernels' own rows at the zoo
+   default's [8, 1024, 4, 16], `{kernel}_d16_f32`, bound by products at
+   the CUDA cores' float32 peak; the backward pair's yardstick once per
+   head dim, as `backward_pair`, since no single kernel's row matches it;
+   each wrapper counts its launches by head dim, and each row carries its
+   own kernel's count at its own head dim in each path of its dtype:
+   `launches` the row's main path (`MAIN_PATH`: the zoo default's
+   per-step run in float32 for the f32 rows and in bf16 at 16, the base
+   per-step run at 64, the large per-step run at 128; at 32, which no
+   path runs, every path's count summed), `process_launches`,
+   `window_launches`, `window_process_launches`, `large_launches`,
+   `large_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
+   (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows);
+   and each row's bound term, `bound_term`, with all three terms), the
+   card line, and the result line.
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.
@@ -150,8 +173,10 @@ TOLS = {torch.bfloat16: BF16_TOL, torch.float32: dict.fromkeys(BF16_TOL, F32_TOL
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): dense bf16 tensor
-# cores and HBM3 bandwidth
+# cores, float32 outside the tensor cores (the CUDA cores the f32 kernels
+# run on) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # exp2 results a clock per SM on the special-function units (Hopper: 16);
 # times the SMs and the SM clock, the card's rate of exponentials
@@ -181,10 +206,14 @@ WINDOW_ARGS = ["--local_updates", str(WINDOW), "--sync_dtype", "bfloat16"]
 SHARD_RECORDS, TASK_RECORDS = 64, 32
 ZOO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "elasticdl_tpu_torch", "models")
 KERNELS = ("flash_forward", "flash_dq", "flash_dkv")
-# each head dim's main path, by its column in the kernels line: the zoo
-# default's per-step run as a user gets it (float32), the base per-step
-# run, the large per-step run
-MAIN_PATH = {16: "zoo_launches", 64: "launches", 128: "large_launches"}
+# each kernel row's main path, by (dtype, head dim) and its column in the
+# kernels line: the zoo default's per-step run as a user gets it (float32,
+# the CUDA-core kernels) and with dtype=bfloat16, the base per-step run,
+# the large per-step run
+MAIN_PATH = {("float32", 16): "zoo_launches", ("bfloat16", 16): "zoo_bf16_launches",
+             ("bfloat16", 64): "launches", ("bfloat16", 128): "large_launches"}
+# the paths that run the float32 kernels; every other path runs bf16
+FLOAT32_PATHS = ("zoo_launches", "zoo_process_launches")
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 # kernels that must not spill (ptxas's report): the tensor-core ones
 NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel")
@@ -289,17 +318,17 @@ def attention_inputs(b, L, h, d, dtype, seed):
     ]
 
 
-def bounds(b, L, h, d, causal=True):
+def bounds(b, L, h, d, causal=True, elem=2):
     """Per kernel: (least operations, least bytes, least exponentials).
     Operations are the matrix products' multiply-adds x2 over the visible
     (q, k) pairs; bytes read each input once and write each output once
-    (bf16 tiles, f32 rows); exponentials are one exp2 per visible pair,
+    (tiles of `elem` bytes an element, f32 rows); exponentials are one exp2 per visible pair,
     and in the forward one more per row and 64-column k tile it visits
     (the running sum's correction). The other elementwise work is not
     counted."""
     pairs = b * h * (L * (L + 1) // 2 if causal else L * L)
     row_tiles = b * h * (sum(r // 64 + 1 for r in range(L)) if causal else L * (L // 64))
-    tile = b * L * h * d * 2
+    tile = b * L * h * d * elem
     rows = b * h * L * 4
     return {
         "flash_forward": (2 * 2 * d * pairs, 3 * tile + tile + rows, pairs + row_tiles),
@@ -308,11 +337,12 @@ def bounds(b, L, h, d, causal=True):
     }
 
 
-def bound_terms(ops, nbytes, exps, exp_per_s) -> dict:
-    """The least time in ms of each term: the products on the bf16 tensor
-    cores, the bytes over the memory rate, the exponentials over the
+def bound_terms(ops, nbytes, exps, exp_per_s, flops=PEAK_BF16_FLOPS) -> dict:
+    """The least time in ms of each term: the products at `flops` (the
+    bf16 tensor cores', or PEAK_F32_FLOPS for the f32 kernels on the CUDA
+    cores), the bytes over the memory rate, the exponentials over the
     card's special-function rate `exp_per_s`."""
-    return {"products": ops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+    return {"products": ops / flops * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
             "exp": exps / exp_per_s * 1e3}
 
 
@@ -456,12 +486,16 @@ KERNEL_CHECKS = (
 
 
 def kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s) -> dict:
-    """Times each kernel at its head dim's timed bf16 shape (inputs q, k,
-    v, do, causal) beside its plain version, its bound (the largest of
-    `bound_terms`, the card's exp2 rate `exp_per_s`) and the library
-    yardstick; returns one row per kernel at head dim d."""
+    """Times each kernel at a timed shape (inputs q, k, v, do, causal)
+    beside its plain version, its bound (the largest of `bound_terms`, the
+    card's exp2 rate `exp_per_s`; in float32 the products at the CUDA
+    cores' peak and 4-byte tiles) and the library yardstick; returns one
+    row per kernel at head dim d, named `{kernel}_d{d}` in bf16 and
+    `{kernel}_d{d}_f32` in float32."""
     import torch.nn.functional as F
 
+    f32 = q.dtype == torch.float32
+    dtype_name = "float32" if f32 else "bfloat16"
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     timings = {
         "flash_forward": (
@@ -481,20 +515,22 @@ def kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s) -> dict:
         ),
     }
     print(f"library yardstick F.scaled_dot_product_attention(is_causal=True) "
-          f"{tuple(qt.shape)} bf16: forward {timings['flash_forward'][2]:.4f} ms; "
+          f"{tuple(qt.shape)} {dtype_name}: forward {timings['flash_forward'][2]:.4f} ms; "
           f"kernel {timings['flash_forward'][0]:.4f} ms")
     rows = {}
     b, L, h, _ = q.shape
-    for name, (ops, nbytes, exps) in bounds(b, L, h, d).items():
+    for name, (ops, nbytes, exps) in bounds(b, L, h, d, elem=q.element_size()).items():
         ms, plain_ms, library_ms = timings[name]
-        terms = bound_terms(ops, nbytes, exps, exp_per_s)
+        terms = bound_terms(ops, nbytes, exps, exp_per_s,
+                            flops=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
         term = max(terms, key=terms.get)
         row = rows[name] = {
-            "name": f"{name}_d{d}",
+            "name": f"{name}_d{d}" + ("_f32" if f32 else ""),
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[name],
             "head_dim": d,
+            "dtype": dtype_name,
             "shape": list(q.shape),
             "max_abs_err": max(err for err, _share in readings[name]),
             "ms": ms,
@@ -506,7 +542,7 @@ def kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s) -> dict:
             "bound_terms_ms": terms,
             "library_ms": library_ms,
             "bound_share": terms[term] / ms,
-            "blocks_per_sm": fa.blocks_per_sm(name, d, torch.bfloat16),
+            "blocks_per_sm": fa.blocks_per_sm(name, d, q.dtype),
         }
         print(f"{row['name']} {tuple(q.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms by {term} (" + ", ".join(
@@ -514,6 +550,49 @@ def kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s) -> dict:
               + f"), share {row['bound_share']:.3f}, {ops / ms / 1e9:.1f} TFLOP/s, "
               f"{exps / ms / 1e9:.3f} T exp2/s, {row['blocks_per_sm']} blocks an SM)")
     return rows
+
+
+def library_backward_f32(fa, q, k, v, do, lse, o) -> dict:
+    """The float32 backward pair's yardstick: one `torch.autograd.grad`
+    over `F.scaled_dot_product_attention` in float32 (causal; its f32
+    backend, memory-efficient attention, computes dq, dk and dv in one
+    call), on [B, H, L, D] views of the same inputs; its gradients are
+    held against plain_dq / plain_dkv (atol 1e-4 + rtol 1e-3: another
+    summation order, and no promise of full float32 products), and it is
+    timed beside attention_delta + flash_dq + flash_dkv on the kernels' lse
+    and o. Returns both times, as the kernels line's `backward_pair`."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    delta = fa.attention_delta(do, o)
+    failures = []
+    readings = check_close(
+        "SDPA float32 backward", [g.transpose(1, 2) for g in call()],
+        (fa.plain_dq(q, k, v, do, lse, delta, True), *fa.plain_dkv(q, k, v, do, lse, delta, True)),
+        (dict(atol=1e-4, rtol=1e-3),) * 3, failures,
+    )
+    if failures:
+        raise AssertionError("the float32 backward yardstick disagrees with the plain "
+                             "versions:\n" + "\n".join(failures))
+
+    def kernels():
+        dd = fa.attention_delta(do, o)
+        fa.flash_dq(q, k, v, do, lse, dd, True)
+        fa.flash_dkv(q, k, v, do, lse, dd, True)
+
+    library_ms, kernels_ms = time_ms(call), time_ms(kernels)
+    print(f"library yardstick autograd of F.scaled_dot_product_attention float32 (causal) "
+          f"{tuple(qt.shape)}, dq, dk, dv in one call: {library_ms:.4f} ms (vs plain "
+          f"(dq, dk, dv) {reading_text(readings)}); kernels attention_delta + flash_dq + "
+          f"flash_dkv: {kernels_ms:.4f} ms")
+    return {"library_call": "torch.autograd.grad(F.scaled_dot_product_attention) float32",
+            "library_ms": library_ms, "kernels_ms": kernels_ms}
 
 
 def kernel_checks(fa, q, k, v, do, causal, tag, failures):
@@ -572,19 +651,15 @@ def phase_kernels(fa):
         pairs[d] = library_backward(fa, q, k, v, do)
         rows[d] = kernel_rows(fa, d, q, k, v, do, plse, delta, readings, exp_per_s)
     # the zoo default's main path runs the float32 kernels at head dim 16:
-    # their times at its shape, beside the bf16 kernels' row
+    # their own rows at its shape, beside the bf16 kernels'
     q, k, v, do = attention_inputs(BATCH, SEQ, ZOO_DEFAULT["n_heads"], 16, torch.float32, 1)
-    o, lse = fa.flash_forward(q, k, v, True)
-    delta = fa.attention_delta(do, o)
-    f32_ms = {
-        "flash_forward": time_ms(lambda: fa.flash_forward(q, k, v, True)),
-        "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True)),
-        "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True)),
-    }
-    print(f"float32 kernels at the zoo default's {tuple(q.shape)}, causal: "
-          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in f32_ms.items()))
-    for name, ms in f32_ms.items():
-        rows[16][name].update(f32_ms=ms, f32_shape=list(q.shape))
+    tag = f"{q.dtype} {tuple(q.shape)} causal=True seed 1 (timed)"
+    po, plse, readings = kernel_checks(fa, q, k, v, do, True, tag, failures)
+    if failures:
+        raise AssertionError("\n".join(failures))
+    rows["16_f32"] = kernel_rows(fa, 16, q, k, v, do, plse, fa.attention_delta(do, po),
+                                 readings, exp_per_s)
+    pairs["16_f32"] = library_backward_f32(fa, q, k, v, do, plse, po)
     return rows, pairs
 
 
@@ -1580,6 +1655,423 @@ def phase_window_drain(tmp):
         check_params(servicer.get_params_copy()[0], "window SIGKILL job")
 
 
+# -- the image zoo ------------------------------------------------------------
+
+
+def image_spec(model_def, model_params=""):
+    """The port's image model through its entry point (`get_model_spec`
+    over the port's zoo, as `--model_def` and `--model_params` give it)."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+
+    return get_model_spec(ZOO, model_def, model_params)
+
+
+def image_job(path, model_def, batch, n_records, task_records, model_params="", **worker_kw):
+    """An in-process master/PS and one worker on the card over `n_records`
+    synthetic image records (seed 0, the reference's writer) of the
+    model's IMAGE_SHAPE, in tasks of `task_records`; `worker_kw` selects
+    window mode."""
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_image_records
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    spec = image_spec(model_def, model_params)
+    if not os.path.exists(path):
+        write_synthetic_image_records(path, n_records, spec.module.IMAGE_SHAPE,
+                                      spec.module.NUM_CLASSES, seed=0)
+    dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
+    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    master = InProcessMaster(servicer)
+    worker = Worker(0, master, spec, minibatch_size=batch, device="cuda", seed=0, **worker_kw)
+    return dispatcher, servicer, master, worker, spec.model
+
+
+def check_aux(aux, model, what):
+    """The PS's batch statistics: finite and moved from flax's init."""
+    from elasticdl_tpu_torch.common import codec
+
+    init = model.init_aux()
+    if not init:
+        if aux:
+            raise AssertionError(f"{what}: aux {list(aux)} for a model without any")
+        return
+    flat, flat0 = codec.ravel_np(aux), codec.ravel_np(init)
+    if codec.tree_paths(aux) != codec.tree_paths(init) or not np.isfinite(flat).all():
+        raise AssertionError(f"{what}: the PS's aux is not the model's tree of finite values")
+    if np.array_equal(flat, flat0):
+        raise AssertionError(f"{what}: the PS's batch statistics did not move from init")
+
+
+def run_image_job(fa, what, job, steps):
+    """Runs an in-process image job with the launch counts at 0 just
+    before and read just after, and holds it to the checks of every image
+    run: a clean finish, the exactness block with every step applied once,
+    steps computed = applied, finite losses, parameters finite and moved,
+    the PS's batch statistics finite and moved, and no attention launch or
+    fallback (the image models run no attention). Returns (wall seconds,
+    worker, servicer, master)."""
+    from elasticdl_tpu_torch.common import codec
+
+    dispatcher, servicer, master, worker, model = job
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    ex = servicer.exactness()
+    losses = ([loss for _t, loss in worker.step_log]
+              + [loss for _t, _n, loss in worker.window_log] + list(worker.task_losses))
+    if not ok or not dispatcher.finished():
+        raise AssertionError(f"{what}: the job did not finish cleanly")
+    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+        raise AssertionError(f"{what}: exactness {ex}, {steps} steps applied once expected")
+    if worker.steps_computed != steps or worker.steps_accepted != steps:
+        raise AssertionError(f"{what}: {worker.steps_computed} steps computed, "
+                             f"{worker.steps_accepted} applied, {steps} expected")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    if any(launches.values()) or fallbacks:
+        raise AssertionError(f"{what}: attention launches {launches}, fallbacks {fallbacks}; "
+                             f"an image model runs none")
+    params, aux, _v = servicer.get_params_copy()
+    flat = codec.ravel_np(params)
+    if not np.isfinite(flat).all() or np.array_equal(flat, codec.ravel_np(model.init_params(0))):
+        raise AssertionError(f"{what}: the parameters are not finite or did not move")
+    check_aux(aux, model, what)
+    print(f"{what}: {steps} steps, exactness {ex}, attention launches "
+          f"{sum(launches.values())}, fallbacks {fallbacks}")
+    return wall, worker, servicer, master
+
+
+# (model def, --model_params) of each model phase_image_models holds on the
+# card against the CPU: the five models, ResNet-50 also in bf16
+IMAGE_MODELS = (
+    ("mnist_functional_api.custom_model", ""),
+    ("mnist_subclass.custom_model", ""),
+    ("cifar10_functional_api.custom_model", ""),
+    ("cifar10_subclass.custom_model", ""),
+    ("resnet50_subclass.custom_model", ""),
+    ("resnet50_subclass.custom_model", "bfloat16=True"),
+)
+IMAGE_CHECK_BATCH = 16
+# card vs CPU, norm-relative (|card - cpu| / |cpu| over the whole output).
+# float32 (TF32 off on both) differs in the convolutions' algorithms and
+# summation orders: logits and stats 1e-6 to 2e-6 of their norm. The
+# gradient may also differ where a relu's input sits within float32
+# rounding of zero: ResNet-50's first stage holds one element at 7.4e-7
+# (float64) that the card rounds to <= 0 and the CPU does not, which
+# routes that element's gradient elsewhere and moves the whole gradient
+# by 1.9e-4 (both are within 1.7e-6 of float64 everywhere else); hence
+# 1e-3 for the gradient. bf16 also differs in where each backend rounds
+# inside its convolutions, which a BatchNorm over 16 x 2 x 2 values
+# amplifies (the port's CPU test holds bf16 ResNet to flax's bf16 at
+# 0.03 / 0.3 / 1e-3)
+IMAGE_TOL = {"float32": {"logits": 1e-4, "grad": 1e-3, "batch_stats": 1e-4},
+             "bfloat16": {"logits": 0.03, "grad": 0.3, "batch_stats": 1e-3}}
+
+
+def image_step(model, params, aux, x, y, device):
+    """One train-mode forward and backward of `model` on `device` from the
+    host trees: (logits, flat gradient, new batch stats) as float64 numpy."""
+    from elasticdl_tpu_torch.api.model_spec import new_aux_values, takes_train_kwarg
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.convert import load_variables
+
+    model = model.to(device)
+    load_variables(model, params, aux)
+    names = [".".join(p) for p in codec.tree_paths(params)]
+    xt, yt = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    out = model(xt, train=True) if takes_train_kwarg(model) else model(xt)
+    loss = torch.nn.functional.cross_entropy(out.float(), yt)
+    grads = torch.autograd.grad(loss, [model.get_parameter(n) for n in names])
+    new = new_aux_values(model, codec.tree_paths(aux)) if aux else []
+    as_np = lambda ts: torch.cat([t.reshape(-1).double().cpu() for t in ts]).numpy()  # noqa: E731
+    return as_np([out.detach()]), as_np(grads), as_np(new) if new else np.zeros(0)
+
+
+def phase_image_models():
+    """Each image model (the five, ResNet-50 also in bf16) runs one
+    train-mode forward and backward on the card and on the CPU, from the
+    same host init (BatchNorm statistics moved off init) and the same
+    uint8 batch of IMAGE_CHECK_BATCH at the model's IMAGE_SHAPE; the
+    logits, the gradient and the new batch stats are held to IMAGE_TOL."""
+    from elasticdl_tpu_torch.common import codec
+
+    failures = []
+    for model_def, model_params in IMAGE_MODELS:
+        spec = image_spec(model_def, model_params)
+        rng = np.random.default_rng(0)
+        shape = spec.module.IMAGE_SHAPE
+        x = rng.integers(0, 256, (IMAGE_CHECK_BATCH,) + shape).astype(np.uint8)
+        y = rng.integers(0, spec.module.NUM_CLASSES, IMAGE_CHECK_BATCH)
+        params = spec.model.init_params(0)
+        # running statistics off their init, as a trained model has them
+        aux = codec.tree_map(lambda a: (a + rng.uniform(-0.5, 0.5, a.shape)).astype(np.float32),
+                             spec.model.init_aux())
+        dtype = "bfloat16" if "bfloat16" in model_params else "float32"
+        t0 = time.perf_counter()
+        card = image_step(spec.model, params, aux, x, y, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = image_step(image_spec(model_def, model_params).model, params, aux, x, y, "cpu")
+        cpu_s = time.perf_counter() - t0
+        errs = {}
+        for what, got, want in zip(("logits", "grad", "batch_stats"), card, cpu):
+            if not want.size:
+                continue
+            errs[what] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            if not np.isfinite(got).all() or not errs[what] <= IMAGE_TOL[dtype][what]:
+                failures.append(f"{model_def} {model_params!r} {what}: card vs CPU "
+                                f"{errs[what]:.3e} (limit {IMAGE_TOL[dtype][what]:.0e})")
+        print(f"image model {model_def} {model_params!r} ({dtype}, {shape}, batch "
+              f"{IMAGE_CHECK_BATCH}, {card[1].size:,} params): card vs CPU norm-relative "
+              + ", ".join(f"{w} {e:.3e} (limit {IMAGE_TOL[dtype][w]:.0e})" for w, e in errs.items())
+              + f"; card {card_s:.2f} s (first call), CPU {cpu_s:.2f} s")
+    if failures:
+        raise AssertionError("the image models disagree between the card and the CPU:\n"
+                             + "\n".join(failures))
+
+
+def images_per_s(times, per_step) -> float:
+    """Images/s between the first and the last of `times` (perf_counter),
+    `per_step` images for each step after the first."""
+    return (len(times) - 1) * per_step / (times[-1] - times[0])
+
+
+def phase_image_per_step(fa, tmp):
+    """Per-step runs through the in-process master/PS: cifar10_functional_api
+    (minibatch 128, 64 updates) and mnist_functional_api (minibatch 64, 32
+    updates); each prints images/s and the host PS apply's seconds a step
+    (the ReportGradient handler: the f32 average, the zoo's SGD-momentum
+    optimizer on the host, the model's ravel)."""
+    for model_def, batch, steps in (("cifar10_functional_api.custom_model", 128, 64),
+                                    ("mnist_functional_api.custom_model", 64, 32)):
+        name = model_def.split(".")[0]
+        job = image_job(os.path.join(tmp, f"{name}-per-step.rio"), model_def, batch,
+                        batch * steps, batch * 8)
+        wall, worker, _servicer, master = run_image_job(fa, f"{name} per-step", job, steps)
+        times = [t for t, _loss in worker.step_log]
+        print(f"{name} per-step (minibatch {batch}): {steps * batch / wall:.1f} images/s over "
+              f"the whole run ({wall:.2f} s incl. model init), "
+              f"{images_per_s(times, batch):.1f} images/s over steps 2-{steps}; host PS apply "
+              f"(ReportGradient handler) {master.handler_seconds['ReportGradient'] / steps:.4f} "
+              f"s a step; losses first / last {worker.step_log[0][1]:.4f} / "
+              f"{worker.step_log[-1][1]:.4f}; worker phases {rounded(worker.phase_seconds)}, "
+              f"wire codec {rounded(master.codec_seconds)}")
+
+
+# the reference's headline job (bench.py:360-432) at its chip shape
+CIFAR_WINDOW, CIFAR_BATCH, CIFAR_RECORDS = 32, 128, 65536
+CIFAR_TASK_RECORDS = CIFAR_WINDOW * CIFAR_BATCH
+CIFAR_GATE = 1.5  # the median of the last 3 task losses, bench.py:453
+CIFAR_PROFILE_RECORDS = 3 * CIFAR_TASK_RECORDS
+
+
+def window_images_per_s(window_log, batch) -> float:
+    """Images/s from the first to the last window sync that landed."""
+    log = sorted(window_log)
+    return sum(n for _t, n, _l in log[1:]) * batch / (log[-1][0] - log[0][0])
+
+
+def phase_cifar_window(fa, tmp):
+    """The headline job: cifar10_functional_api in window mode in-process,
+    W 32, minibatch 128, 65,536 synthetic 32x32x3 records (seed 0) in
+    tasks of 4,096, one epoch, bf16 error-feedback deltas. Checks the
+    exactness block, the reference's convergence gate (the median of the
+    last 3 task losses < 1.5), that the PS's batch_stats moved from init
+    and equal the last synced window's, and 0 attention launches; prints
+    steady and overall images/s. Then a profiled second run of 3 tasks
+    gives the device idle share."""
+    from elasticdl_tpu_torch.common import codec
+
+    path = os.path.join(tmp, "cifar-headline.rio")
+    steps = CIFAR_RECORDS // CIFAR_BATCH
+    synced = []
+    t0 = time.perf_counter()
+    job = image_job(path, "cifar10_functional_api.custom_model", CIFAR_BATCH, CIFAR_RECORDS,
+                    CIFAR_TASK_RECORDS, local_updates=CIFAR_WINDOW, sync_dtype="bfloat16")
+    print(f"headline: {CIFAR_RECORDS} records written and the job built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    master = job[2]
+    call = master.call
+
+    def recording_call(method, request=None):
+        if method == "ReportLocalUpdate" and request.get("aux_state") is not None:
+            synced.append(codec.ravel_np(request["aux_state"]))
+        return call(method, request)
+
+    master.call = recording_call
+    wall, worker, servicer, master = run_image_job(fa, "headline cifar10 window", job, steps)
+    losses = list(worker.task_losses)
+    tail = statistics.median(losses[-3:])
+    _params, aux, _v = servicer.get_params_copy()
+    windows = list(worker.window_log)
+    print(f"headline cifar10_functional_api window job (W {CIFAR_WINDOW}, minibatch "
+          f"{CIFAR_BATCH}, {CIFAR_RECORDS} records, bf16 EF deltas): {len(windows)} syncs of "
+          f"{sorted({n for _t, n, _l in windows})} steps, task losses "
+          f"{[round(x, 4) for x in losses]}, last-3 median {tail:.4f} (gate < {CIFAR_GATE})")
+    print(f"headline throughput: {CIFAR_RECORDS / wall:.1f} images/s over the whole run "
+          f"({wall:.2f} s incl. model init), {window_images_per_s(windows, CIFAR_BATCH):.1f} "
+          f"images/s from the first to the last window sync; sync seconds per sync: "
+          + ", ".join(f"{k} {v / len(windows):.4f}" for k, v in sorted(worker.sync_seconds.items()))
+          + f"; PS add a window {master.handler_seconds['ReportLocalUpdate'] / len(windows):.4f}"
+          f" s; worker phases {rounded(worker.phase_seconds)}")
+    if not tail < CIFAR_GATE:
+        raise AssertionError(f"the headline job did not converge: last-3 median {tail:.3f}")
+    if not synced or codec.ravel_np(aux).tobytes() != synced[-1].tobytes():
+        raise AssertionError("the PS's batch_stats are not the last synced window's")
+    del job, worker, servicer, master
+
+    # the device idle share: a second run of 3 tasks under the profiler,
+    # over the last two thirds of the device timeline (the first window
+    # holds the warm-up)
+    from torch.profiler import ProfilerActivity, profile
+
+    *_rest, worker, _model = image_job(
+        path, "cifar10_functional_api.custom_model", CIFAR_BATCH, CIFAR_PROFILE_RECORDS,
+        CIFAR_TASK_RECORDS, local_updates=CIFAR_WINDOW, sync_dtype="bfloat16")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        worker.run()
+        torch.cuda.synchronize()
+    worker.close()
+    device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "Sync" not in e.name]
+    if not device:
+        print("headline profile: the profiler recorded no device time (not measured)")
+        return
+    first, last = min(s for s, _e in device), max(e for _s, e in device)
+    t0 = first + (last - first) / 3
+    busy = busy_us(device, t0, last)
+    prof_steps = (CIFAR_PROFILE_RECORDS // CIFAR_BATCH) * 2 / 3
+    print(f"headline profile: device busy {busy / 1e3 / prof_steps:.3f} ms per step (union of "
+          f"kernels and copies on all streams) of {(last - t0) / 1e3 / prof_steps:.3f} ms per "
+          f"step over the last two thirds of {CIFAR_PROFILE_RECORDS // CIFAR_BATCH} steps on the "
+          f"device clock under the profiler (device idle share {1 - busy / (last - t0):.3f})")
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+# ResNet-50 in window mode at bench_resnet.py:123-160's runtime shape
+RESNET_WINDOW, RESNET_BATCH, RESNET_RECORDS = 32, 128, 32768
+
+
+def phase_resnet_window(fa, tmp):
+    """ResNet-50 (`custom_model(bfloat16=True)`: bf16 compute over f32
+    parameters and statistics) in window mode in-process at 64 x 64, W 32,
+    minibatch 128, `transport_dtype="bfloat16"`, 32,768 records in tasks
+    of 4,096, one epoch. Prints images/s and the peak device memory of the
+    run (parameters, the window's optimizer and sync state, and one
+    step's activations at a time)."""
+    steps = RESNET_RECORDS // RESNET_BATCH
+    job = image_job(os.path.join(tmp, "resnet.rio"), "resnet50_subclass.custom_model",
+                    RESNET_BATCH, RESNET_RECORDS, RESNET_WINDOW * RESNET_BATCH,
+                    model_params="bfloat16=True", local_updates=RESNET_WINDOW,
+                    transport_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wall, worker, _servicer, master = run_image_job(fa, "resnet50 window", job, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    windows = list(worker.window_log)
+    print(f"resnet50 window (bf16, 64x64, W {RESNET_WINDOW}, minibatch {RESNET_BATCH}, "
+          f"{RESNET_RECORDS} records, bf16 transport): {RESNET_RECORDS / wall:.1f} images/s over "
+          f"the whole run ({wall:.2f} s incl. model init), "
+          f"{window_images_per_s(windows, RESNET_BATCH):.1f} images/s from the first to the last "
+          f"window sync; task losses {[round(x, 4) for x in worker.task_losses]}; peak device "
+          f"memory {peak:.2f} GiB; sync seconds per sync: "
+          + ", ".join(f"{k} {v / len(windows):.4f}" for k, v in sorted(worker.sync_seconds.items()))
+          + f"; PS add a window {master.handler_seconds['ReportLocalUpdate'] / len(windows):.4f} s")
+
+
+def phase_image_process_job(tmp):
+    """`python -m elasticdl_tpu_torch.master.main --model_def
+    cifar10_functional_api.custom_model --worker_backend process` (the
+    port's zoo by default) with 2 workers on the card, per-step,
+    minibatch 128, 2 shards of 1,024 records (16 updates): exit 0, the
+    `--output` version = the steps, the exactness block, each worker on
+    the card with no attention launch, the batch stats back through each
+    worker's GetModel frames (`aux_absorbed`, by RPC; the ReportGradient
+    piggybacks are printed), the final model's parameters and batch stats
+    finite and moved."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_image_records
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name, batch, records = "cifar-process", 128, 1024
+    data, log_dir = os.path.join(tmp, f"{name}-data"), os.path.join(tmp, f"{name}-logs")
+    with logs_on_failure(log_dir):
+        os.makedirs(data)
+        for i in range(2):
+            write_synthetic_image_records(os.path.join(data, f"shard-{i}.rio"), records,
+                                          (32, 32, 3), 10, seed=i)
+        output = os.path.join(tmp, f"{name}.ckpt")
+        steps = 2 * records // batch
+        os.environ[ENV_WORKER_LOG_DIR] = log_dir
+        try:
+            t0 = time.perf_counter()
+            rc, master = master_main.run([
+                "--model_def", "cifar10_functional_api.custom_model",
+                "--minibatch_size", str(batch), "--training_data_dir", data,
+                "--records_per_task", "512", "--num_epochs", "1", "--grads_to_wait", "1",
+                "--num_workers", "2", "--worker_backend", "process", "--device", "cuda",
+                "--output", output,
+            ])
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ[ENV_WORKER_LOG_DIR]
+        if rc != 0:
+            raise AssertionError(f"master.main exited {rc}")
+        model = load_model_file(output)
+        ex = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
+        if model.version != steps or ex != {"version": steps, "init_version": 0,
+                                            "applied_update_steps": steps}:
+            raise AssertionError(f"--output version {model.version}, exactness {ex}, "
+                                 f"{steps} steps expected")
+        spec = image_spec("cifar10_functional_api.custom_model")
+        flat = codec.ravel_np(model.params)
+        if not np.isfinite(flat).all():
+            raise AssertionError(f"{name}: the parameters are not finite")
+        for seed in (0, 1):
+            if np.array_equal(flat, codec.ravel_np(spec.model.init_params(seed))):
+                raise AssertionError(f"{name}: the parameters did not move from init {seed}")
+        check_aux(model.aux, spec.model, name)
+        summaries = read_summaries(log_dir)
+        card = torch.cuda.get_device_name(0)
+        if sorted(summaries) != [0, 1]:
+            raise AssertionError(f"worker summaries of {sorted(summaries)}, of [0, 1] expected")
+        if sum(s["steps_accepted"] for s in summaries.values()) != steps:
+            raise AssertionError(f"the workers' accepted steps do not sum to {steps}")
+        for wid, s in summaries.items():
+            if s["device"] != card or any(s["launches"].values()) or s["attention_fallbacks"]:
+                raise AssertionError(f"worker {wid} on {s['device']!r}, launches "
+                                     f"{s['launches']}, fallbacks {s['attention_fallbacks']}")
+            if s["aux_absorbed"].get("GetModel", 0) <= 0:
+                raise AssertionError(f"worker {wid} took no batch stats from a GetModel "
+                                     f"response: {s['aux_absorbed']}")
+        times = sorted(t for s in summaries.values() for t in s["accepted_at"])
+        print(f"{name} job (master.main --model_def cifar10_functional_api.custom_model, 2 "
+              f"workers, per-step, minibatch {batch}): rc {rc}, {wall:.2f} s, "
+              f"{steps * batch / wall:.1f} images/s over the whole run (worker boot included), "
+              f"{images_per_s(times, batch):.1f} images/s between the first and last accepted "
+              f"steps; exactness {ex}; batch stats absorbed per worker "
+              f"{[s['aux_absorbed'] for s in summaries.values()]}")
+        for wid, s in summaries.items():
+            print(f"{name} worker {wid}: {s['steps_accepted']} accepted, {s['steps_computed']} "
+                  f"computed, phase seconds {rounded(s['phase_seconds'])}, client seconds "
+                  f"{rounded(s['rpc_seconds'])}")
+        server = master["server"]
+        print(f"{name} master: server handler seconds {rounded(server['handler_seconds'])}, "
+              f"calls {server['calls']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1613,21 +2105,28 @@ def main() -> int:
         counts.update(phase_zoo_default(fa, tmp))
         phase_zoo_head_dim8(fa, tmp)
         counts["large_launches"], counts["large_window_launches"] = phase_large(fa, tmp)
+        phase_image_models()
+        phase_image_per_step(fa, tmp)
+        phase_cifar_window(fa, tmp)
+        phase_resnet_window(fa, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
         counts["process_launches"] = phase_process_job(tmp)
         counts["zoo_process_launches"] = phase_process_job(tmp, "zoo-process", "")
         phase_preemption(tmp)
         counts["window_process_launches"] = phase_window_process_job(tmp)
         phase_window_drain(tmp)
+        phase_image_process_job(tmp)
     # each row's counts are its own kernel's at its own head dim, per path
+    # of its dtype (the wrappers count by head dim; a path runs one dtype)
     for by_kernel in rows.values():
-        for row in by_kernel.values():
-            for path, launches in counts.items():
-                row[path] = launches[row["name"]]
-            # `launches`: the main path of the row's head dim; at 32, which
-            # no path of the repo runs, every path's count summed (0)
-            main_path = MAIN_PATH.get(row["head_dim"])
-            row["launches"] = row[main_path] if main_path else sum(row[p] for p in counts)
+        for kernel, row in by_kernel.items():
+            paths = [p for p in counts if (p in FLOAT32_PATHS) == (row["dtype"] == "float32")]
+            for path in paths:
+                row[path] = counts[path][f"{kernel}_d{row['head_dim']}"]
+            # `launches`: the row's main path; at 32, which no path of the
+            # repo runs, every path's count summed (0)
+            main_path = MAIN_PATH.get((row["dtype"], row["head_dim"]))
+            row["launches"] = row[main_path] if main_path else sum(row[p] for p in paths)
     print(json.dumps({
         "kernels": [row for by_kernel in rows.values() for row in by_kernel.values()],
         "backward_pair": {f"d{d}": pair for d, pair in pairs.items()},

@@ -5,7 +5,16 @@ A model-zoo module exports:
 - ``custom_model(**params)`` -> an ``nn.Module`` whose ``init_params(seed)``
   returns the host-side initial parameter tree (nested dict of float32
   numpy arrays, the tree the PS holds) and whose ``forward(features)``
-  returns the model outputs;
+  returns the model outputs. A model with non-trainable state (the
+  reference's flax collections other than ``params``, e.g. BatchNorm's
+  ``batch_stats``) also has ``init_aux()`` -> ``{collection: tree}``
+  (``{}`` or absent for a model without them); each aux leaf at
+  ``(collection, *path)`` is the module buffer ``".".join(path)``. Its
+  ``forward(features, train=...)`` takes ``train`` (found by signature,
+  as the reference finds it); in train mode the forward leaves each
+  buffer's new value in its module's ``aux_out[name]`` and the buffers
+  as they were, and the caller decides what to keep (the reference's
+  ``mutable`` collections);
 - ``dataset_fn(records, mode)`` -> ``(features, labels)`` numpy batch
   parsed from a list of raw record payloads;
 - ``loss(outputs, labels)`` -> scalar torch tensor;
@@ -21,8 +30,9 @@ from __future__ import annotations
 import ast
 import dataclasses
 import importlib.util
+import inspect
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -33,6 +43,32 @@ class ModelSpec:
     optimizer: Callable
     eval_metrics_fn: Optional[Callable] = None
     module: Any = None
+
+
+def takes_train_kwarg(model) -> bool:
+    """Whether the model's forward takes `train` (the reference's
+    `_takes_train_kwarg`, by signature)."""
+    try:
+        return "train" in inspect.signature(model.forward).parameters
+    except (TypeError, ValueError, AttributeError):
+        return False
+
+
+def init_aux(model) -> Dict:
+    """The model's initial non-trainable collections, {} without any."""
+    fn = getattr(model, "init_aux", None)
+    return fn() if fn is not None else {}
+
+
+def aux_buffer(model, path: Tuple[str, ...]):
+    """(module, buffer name) of the aux leaf at `path` = (collection, *path)."""
+    *mods, name = path[1:]
+    return model.get_submodule(".".join(mods)), name
+
+
+def new_aux_values(model, paths: List[Tuple[str, ...]]) -> List:
+    """The new value of each aux leaf after a train-mode forward."""
+    return [module.aux_out[name] for module, name in (aux_buffer(model, p) for p in paths)]
 
 
 def load_module(module_file: str):

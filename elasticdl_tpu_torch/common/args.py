@@ -25,7 +25,11 @@ profiling and master failover candidates.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List
+
+# the port's model zoo, where `--model_def` resolves by default
+ZOO_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "models")
 
 
 def pos_int(value: str) -> int:
@@ -59,8 +63,9 @@ def add_model_spec_args(parser: argparse.ArgumentParser):
     """Flags describing the user model, shared by master and worker and
     forwarded master -> worker."""
     parser.add_argument(
-        "--model_zoo", required=True,
-        help="directory containing the model-zoo modules",
+        "--model_zoo", default=ZOO_DIR,
+        help="directory containing the model-zoo modules (default: the "
+        "port's own, elasticdl_tpu_torch/models)",
     )
     parser.add_argument(
         "--model_def", required=True,

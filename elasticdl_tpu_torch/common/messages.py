@@ -2,8 +2,11 @@
 
 The reference's request/response dicts and its `Task`/`Model`
 dataclasses, serialized through this package's codec. The port speaks
-GetTask, ReportTaskResult, GetModel, ReportVariable, ReportGradient and
-GetPSConfig.
+GetTask, ReportTaskResult, GetModel, GetAux, ReportVariable,
+ReportGradient, ReportLocalUpdate and GetPSConfig. Non-trainable state
+(BatchNorm's `batch_stats`) rides as a tree: `aux` on ReportVariable and
+on every response that carries a model, `aux_state` on ReportGradient
+and ReportLocalUpdate.
 """
 
 from __future__ import annotations

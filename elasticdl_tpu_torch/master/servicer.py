@@ -17,9 +17,17 @@ pulls, and takes two kinds of update.
   worker synced in between. A repeated `report_key` is absorbed.
 
 Either response piggybacks the model in the worker's `model_dtype`
-(bfloat16 halves the bytes). The staleness down-weighting of deltas
-(`--staleness_window`) is not ported: every delta applies at full
-weight.
+(bfloat16 halves the bytes).
+
+Non-trainable state (aux: BatchNorm's `batch_stats`, a tree of float32
+arrays) rides beside the model, as the reference carries it: the first
+ReportVariable's `aux` (or `init_aux`) seeds it; every report's
+`aux_state` replaces it, last writer wins (under `grads_to_wait > 1`
+the latest pending one lands with the step); GetModel, GetAux and every
+response that carries a model carry a copy of it.
+
+The staleness down-weighting of deltas (`--staleness_window`) is not
+ported: every delta applies at full weight.
 
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
@@ -67,13 +75,15 @@ class MasterServicer:
         optimizer: Optional[PSOptimizer] = None,
         task_dispatcher=None,
         init_params: Any = None,
+        init_aux: Any = None,
     ):
         self._lock = threading.Lock()
         self._grads_to_wait = grads_to_wait
         self._opt = optimizer
         self._task_d = task_dispatcher
         self._params = _to_f32(init_params) if init_params is not None else None
-        self._aux = None
+        self._aux = init_aux
+        self._pending_aux = None  # latest aux_state of the pending reports
         self._version = 0
         self._init_version = 0
         self._applied_update_steps = 0
@@ -89,6 +99,7 @@ class MasterServicer:
             "GetTask": self.get_task,
             "ReportTaskResult": self.report_task_result,
             "GetModel": self.get_model,
+            "GetAux": self.get_aux,
             "ReportVariable": self.report_variable,
             "ReportGradient": self.report_gradient,
             "ReportLocalUpdate": self.report_local_update,
@@ -119,7 +130,7 @@ class MasterServicer:
         with self._lock:
             return (
                 _copy(self._params) if self._params is not None else None,
-                _copy(self._aux) if self._aux is not None else None,
+                _copy(self._aux),
                 self._version,
             )
 
@@ -170,13 +181,18 @@ class MasterServicer:
                 return {
                     "version": self._version,
                     "params_flat": codec.ravel_np(self._params),
-                    "aux": self._aux,
+                    "aux": _copy(self._aux),
                 }
             return {
                 "version": self._version,
                 "params": _copy(self._params),
-                "aux": self._aux,
+                "aux": _copy(self._aux),
             }
+
+    def get_aux(self, req: dict) -> dict:
+        """The non-trainable state and its version."""
+        with self._lock:
+            return {"aux": _copy(self._aux), "version": self._version}
 
     def report_variable(self, req: dict) -> dict:
         """Lazy model init from the first worker (SETNX: first wins)."""
@@ -192,6 +208,7 @@ class MasterServicer:
     def report_gradient(self, req: dict) -> dict:
         """Returns {accepted, version[, params_flat, aux]}."""
         report_version = req.get("version", -1)
+        aux_state = req.get("aux_state")
         with self._lock:
             if self._params is None:
                 raise ValueError("gradient reported before model init")
@@ -207,7 +224,7 @@ class MasterServicer:
                 resp = {"accepted": False, "version": self._version}
                 if req.get("return_model"):
                     resp["params_flat"] = self._flat_model(req.get("model_dtype"))
-                    resp["aux"] = self._aux
+                    resp["aux"] = _copy(self._aux)
                 return resp
             if report_version > self._version:
                 raise ValueError(
@@ -217,18 +234,21 @@ class MasterServicer:
                 self._grad_sum = np.array(grad, dtype=np.float32)
             else:
                 self._grad_sum += grad
+            if aux_state is not None:
+                self._pending_aux = aux_state
             self._grad_n += 1
             if self._grad_n >= self._grads_to_wait:
                 avg = self._grad_sum / np.float32(self._grad_n)
                 # clear BEFORE apply: a failed apply raises to the
                 # reporter, and leftovers would double-count its retry
+                aux_pending, self._pending_aux = self._pending_aux, None
                 self._grad_sum = None
                 self._grad_n = 0
-                self._apply(avg)
+                self._apply(avg, aux_pending)
             resp = {"accepted": True, "version": self._version}
             if req.get("return_model") and self._version != report_version:
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
-                resp["aux"] = self._aux
+                resp["aux"] = _copy(self._aux)
             return resp
 
     def report_local_update(self, req: dict) -> dict:
@@ -249,7 +269,7 @@ class MasterServicer:
                 return {
                     "version": self._version,
                     "params_flat": self._flat_model(req.get("model_dtype")),
-                    "aux": _copy(self._aux) if self._aux is not None else None,
+                    "aux": _copy(self._aux),
                     "duplicate": True,
                 }
             if self._unraveler is None:
@@ -268,7 +288,7 @@ class MasterServicer:
             resp = {"version": self._version}
             if base_version + steps != self._version or req.get("want_model"):
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
-                resp["aux"] = _copy(self._aux) if self._aux is not None else None
+                resp["aux"] = _copy(self._aux)
             return resp
 
     def _flat_model(self, model_dtype=None):  # caller holds self._lock
@@ -281,7 +301,9 @@ class MasterServicer:
             raise ValueError(f"unsupported model_dtype {model_dtype!r}")
         return vec
 
-    def _apply(self, flat_grad: np.ndarray):  # caller holds self._lock
+    def _apply(self, flat_grad: np.ndarray, aux_state=None):  # caller holds self._lock
+        if aux_state is not None:
+            self._aux = aux_state
         if self._unraveler is None:
             self._unraveler = codec.make_unraveler(self._params)
         if self._opt is not None:

@@ -1,15 +1,76 @@
-"""Token-record codec shared by the model zoo.
+"""Record payload codecs shared by the model zoo.
 
-layout: int32[seq_len + 1] token ids (LM input is [:-1], target [1:])
+Fixed-layout numpy byte records, the reference's own
+(`elasticdl_tpu/models/record_codec.py`), byte for byte:
+
+- image records: int64 label | uint8[prod(shape)] pixels;
+- token records: int32[seq_len + 1] token ids (LM input is [:-1],
+  target [1:]).
+
+Tabular records are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+# ----------------------------------------------------------- image records
+
+
+def encode_image_record(image: np.ndarray, label: int) -> bytes:
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    return np.int64(label).tobytes() + image.tobytes()
+
+
+def decode_image_records(
+    records: Sequence[bytes], shape: Tuple[int, ...], scale: bool = True
+) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (images [B, *shape], labels int64 [B]). scale=True: float32 in
+    [0, 1]; scale=False: the raw uint8, which crosses to the device at a
+    quarter of the bytes and is normalized there (`normalize_on_device`)."""
+    labels = np.empty(len(records), dtype=np.int64)
+    dtype = np.float32 if scale else np.uint8
+    images = np.empty((len(records),) + tuple(shape), dtype=dtype)
+    for i, r in enumerate(records):
+        labels[i] = np.frombuffer(r, dtype=np.int64, count=1)[0]
+        img = np.frombuffer(r, dtype=np.uint8, offset=8).reshape(shape)
+        images[i] = img.astype(np.float32) if scale else img
+    if scale:
+        images /= 255.0
+    return images, labels
+
+
+def normalize_on_device(x: torch.Tensor) -> torch.Tensor:
+    """uint8 (or any integer) images -> float32 in [0, 1] on their device;
+    float input passes through. A true division by a float32 tensor: on
+    the card, dividing by a Python scalar multiplies by its reciprocal,
+    which is not the host's x / 255.0 bit for bit."""
+    if x.dtype.is_floating_point:
+        return x
+    return x.to(torch.float32) / torch.full((), 255.0, dtype=torch.float32, device=x.device)
+
+
+def write_synthetic_image_records(
+    path: str, n: int, shape: Tuple[int, ...], num_classes: int, seed: int = 0
+):
+    """Images whose mean depends on the class, so small models can learn
+    (the reference's writer: the same draws and bytes for one seed)."""
+    rng = np.random.default_rng(seed)
+    with RecordIOWriter(path) as w:
+        for _ in range(n):
+            label = int(rng.integers(num_classes))
+            img = np.clip(
+                rng.normal(40.0 + 15.0 * label, 25.0, size=shape), 0, 255
+            ).astype(np.uint8)
+            w.write(encode_image_record(img, label))
+
+
+# ----------------------------------------------------------- token records
 
 
 def encode_token_record(tokens: np.ndarray) -> bytes:

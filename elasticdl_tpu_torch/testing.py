@@ -51,11 +51,13 @@ class InProcessMaster:
         return out
 
 
-def build_job(spec, dispatcher, grads_to_wait: int = 1, init_params=None):
+def build_job(spec, dispatcher, grads_to_wait: int = 1, init_params=None, init_aux=None):
     """Wire a MasterServicer with the spec's PS optimizer over
-    `dispatcher`, as the master's boot does. Returns the servicer. The
-    same servicer takes per-step and window-mode workers: window mode's
-    settings are the Worker's (`local_updates`, `sync_dtype`, ...)."""
+    `dispatcher`, as the master's boot does; `init_params` and `init_aux`
+    (the non-trainable collections) seed the PS, else the first worker
+    does. Returns the servicer. The same servicer takes per-step and
+    window-mode workers: window mode's settings are the Worker's
+    (`local_updates`, `sync_dtype`, ...)."""
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
     from elasticdl_tpu_torch.master.servicer import MasterServicer
 
@@ -64,4 +66,5 @@ def build_job(spec, dispatcher, grads_to_wait: int = 1, init_params=None):
         optimizer=PSOptimizer(spec.optimizer()),
         task_dispatcher=dispatcher,
         init_params=init_params,
+        init_aux=init_aux,
     )

@@ -96,6 +96,8 @@ def _summary(worker_id, worker, client, device) -> dict:
         "merged_back": worker.merged_back,
         "deduped_windows": worker.deduped_windows,
         "drained": worker.drained,
+        # aux trees (BatchNorm statistics) taken from the PS, by RPC
+        "aux_absorbed": dict(worker.aux_absorbed),
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),
         "launches": fa.launch_counts(),

@@ -46,6 +46,20 @@ wire's flat vector in the reference's leaf order); every module
 parameter is a view into it, so absorbing a pulled model is one copy
 into that buffer and every update is in place on it.
 
+Non-trainable state (aux, e.g. BatchNorm's `batch_stats`) lives the same
+way in `_aux_flat`, its module buffers views into it, as the reference
+carries it: a train-mode step computes the new state (`_train_step`);
+per-step it rides the ReportGradient as `aux_state` and the local state
+changes only when a piggybacked or pulled model brings the PS's; in
+window mode every local step keeps it (the reference's
+`_local_step_core`), each sync carries the state at its spawn, and a
+merged model brings the PS's back. The first worker's ReportVariable
+offers the model's `init_aux()`. Images stay uint8 to the device: only
+signed integer arrays (token ids, labels) widen to int64.
+
+On the card, float32 convolutions and matmuls run in full float32:
+TF32 is switched off when a worker is built for a CUDA device.
+
 The worker computes on `device` ("cuda" by default) and raises if that
 device is absent; the CPU runs only when the caller asks for it.
 
@@ -69,7 +83,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from elasticdl_tpu_torch.api.model_spec import ModelSpec
+from elasticdl_tpu_torch.api.model_spec import (
+    ModelSpec,
+    aux_buffer,
+    init_aux,
+    new_aux_values,
+    takes_train_kwarg,
+)
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.constants import (
     DEFAULT_SYNC_DEPTH,
@@ -197,6 +217,17 @@ class Worker:
         self.merged_back = 0  # merged models absorbed
         self.deduped_windows = 0  # window syncs the PS had already applied
         self.drained = False  # the run loop exited on request_drain
+        # aux trees taken from the PS, by the RPC whose response carried them
+        self.aux_absorbed: Counter = Counter()
+        # non-trainable state: host template, leaf paths, device buffer
+        self._aux_template = None
+        self._aux_paths: list = []
+        self._aux_flat: Optional[torch.Tensor] = None
+        self._takes_train = takes_train_kwarg(self._model)
+        if self._device.type == "cuda":
+            # float32 products in full float32, as the reference computes them
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
 
         # -- the sync plane
         if transport_dtype not in ("float32", "bfloat16"):
@@ -314,6 +345,7 @@ class Worker:
             self._set_flat(resp["params_flat"])
         elif resp.get("params") is not None:
             self._init_flat_from_tree(resp["params"])
+        self._set_aux(resp.get("aux"), "GetModel")
         with self._report_lock:
             self._version = resp["version"]
             self._fresh = True
@@ -321,15 +353,17 @@ class Worker:
             self._lineage_anchor_abs = self._own_steps_abs
         return True
 
-    def report_variable(self, params):
-        self._master.call("ReportVariable", {"params": params, "aux": None})
+    def report_variable(self, params, aux=None):
+        self._master.call("ReportVariable", {"params": params, "aux": aux or None})
 
-    def report_gradient(self, grad_wire, loss: float):
-        """One ReportGradient round with a host-side wire gradient."""
+    def report_gradient(self, grad_wire, loss: float, aux_state=None):
+        """One ReportGradient round with a host-side wire gradient and
+        the step's new aux tree (None for a model without aux)."""
         req = {
             "worker_id": self._id,
             "version": self._version,
             "gradient_flat": grad_wire,
+            "aux_state": aux_state,
             "loss": loss,
             "return_model": True,
         }
@@ -370,6 +404,42 @@ class Worker:
                 f"the model has {n_model} parameters, the PS tree {off}"
             )
         self._flat = flat
+        self._init_aux(init_aux(self._model))
+
+    def _init_aux(self, aux):
+        """One device buffer for the non-trainable state, the model's
+        buffers views into it, from the host tree `aux` (the model's
+        init: the PS's, when it has one, arrives with the pull)."""
+        if not aux:
+            return
+        self._aux_template = codec.tree_map(np.asarray, aux)
+        self._aux_paths = codec.tree_paths(self._aux_template)
+        flat = _host_tensor(codec.ravel_np(self._aux_template)).to(self._device)
+        off = 0
+        for path, leaf in zip(self._aux_paths, codec.tree_leaves(self._aux_template)):
+            module, name = aux_buffer(self._model, path)
+            buf = module.get_buffer(name)
+            if tuple(buf.shape) != leaf.shape:
+                raise ValueError(
+                    f"aux {'/'.join(path)}: model shape {tuple(buf.shape)} != {leaf.shape}"
+                )
+            buf.data = flat[off : off + leaf.size].view(leaf.shape)
+            off += leaf.size
+        self._aux_flat = flat
+
+    def _set_aux(self, aux, rpc: str):
+        """Absorb the PS's aux tree from the response of `rpc` into the
+        device buffer (a None or empty tree leaves the local state as it
+        is, as the reference's `_set_flat` does)."""
+        if aux and self._aux_flat is not None:
+            self._aux_flat.copy_(_host_tensor(codec.ravel_np(aux)))
+            self.aux_absorbed[rpc] += 1
+
+    def _aux_tree(self, flat_h) -> Optional[dict]:
+        """The host aux tree over a flat host copy (None without aux)."""
+        if self._aux_template is None:
+            return None
+        return codec.make_unraveler(self._aux_template)(flat_h)
 
     def _set_flat(self, vec):
         """Copy a wire model (f32 or bf16) into the flat buffer, in place:
@@ -377,11 +447,11 @@ class Worker:
         self._flat.copy_(_host_tensor(codec.as_f32(vec)))
 
     def _lazy_init_model(self):
-        """Init on the host, offer it to the PS (SETNX: first worker
-        wins), then pull whatever won."""
+        """Init on the host, offer it with its aux to the PS (SETNX: first
+        worker wins), then pull whatever won."""
         params = self._model.init_params(self._seed + self._id)
         self._init_flat_from_tree(params)
-        self.report_variable(params)
+        self.report_variable(params, self._aux_template)
         self.pull_model()
 
     # ------------------------------------------------- per-step training
@@ -392,17 +462,27 @@ class Worker:
                 self._lazy_init_model()
 
     def _to_device(self, a) -> torch.Tensor:
+        """Signed integers (token ids, labels) widen to int64, as torch
+        indexes with; unsigned ones (uint8 images) cross as they are and
+        the model normalizes them on the device."""
         a = np.asarray(a)
-        if a.dtype.kind in "iu":
+        if a.dtype.kind == "i":
             a = a.astype(np.int64)
         return _host_tensor(a).to(self._device)
 
     def _train_step(self, features, labels):
-        """(loss, flat gradient) on the device, from the current model."""
-        outputs = self._model(self._to_device(features))
+        """(loss, flat gradient, new aux flat or None) on the device, from
+        the current model; the model's buffers are left as they were."""
+        x = self._to_device(features)
+        outputs = self._model(x, train=True) if self._takes_train else self._model(x)
         loss = self._spec.loss(outputs, self._to_device(labels))
         grads = torch.autograd.grad(loss, self._params)
-        return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
+        new_aux = None
+        if self._aux_paths:
+            new_aux = torch.cat(
+                [v.reshape(-1) for v in new_aux_values(self._model, self._aux_paths)]
+            )
+        return loss.detach(), torch.cat([g.reshape(-1) for g in grads]), new_aux
 
     def _grad_to_wire(self, grad: torch.Tensor):
         """The per-step gradient's wire form on the host: EF-compressed
@@ -427,6 +507,7 @@ class Worker:
         v = resp["version"]
         if resp.get("params_flat") is not None and v > self._version:
             self._set_flat(resp["params_flat"])
+            self._set_aux(resp.get("aux"), "ReportGradient")
             self._version = v
             self._fresh = True
         elif v == self._version:
@@ -440,12 +521,13 @@ class Worker:
         for _ in range(MAX_MINIBATCH_RETRY_NUM):
             self._ensure_step_ready(task)
             with self._phase("compute"):
-                loss, grad = self._train_step(features, labels)
+                loss, grad, new_aux = self._train_step(features, labels)
                 grad_wire = self._grad_to_wire(grad)
+                aux_h = self._aux_tree(new_aux.cpu().numpy()) if new_aux is not None else None
                 loss_h = float(loss)
             self.steps_computed += 1
             with self._phase("report"):
-                resp = self.report_gradient(grad_wire, loss_h)
+                resp = self.report_gradient(grad_wire, loss_h, aux_h)
                 self._absorb_report_response(resp)
             if resp["accepted"]:
                 self.step_log.append((time.perf_counter(), loss_h))
@@ -550,11 +632,13 @@ class Worker:
     def _local_step(self, features, labels) -> torch.Tensor:
         """The one local update that the window and the per-step-local
         path share (the reference's `_local_step_core`): forward and
-        backward, then clip + Adam in place on the flat buffer. Returns
-        the loss as a device scalar."""
-        loss, grad = self._train_step(features, labels)
-        (update,) = self._tx.update([grad], self._opt_state)
+        backward, then the spec's optimizer in place on the flat buffer;
+        the new aux is kept. Returns the loss as a device scalar."""
+        loss, grad, new_aux = self._train_step(features, labels)
+        (update,) = self._tx.update([grad], self._opt_state, [self._flat])
         self._flat.add_(update)
+        if new_aux is not None:
+            self._aux_flat.copy_(new_aux)
         self.steps_computed += 1
         return loss
 
@@ -648,6 +732,8 @@ class Worker:
         loss_dev = torch.stack([l for _, l in losses] + [self._latest_step_loss])
         self._base_flat.copy_(self._flat)
         snapshot = self._flat.clone()
+        # the non-trainable state at spawn rides with the delta
+        aux_dev = [self._aux_flat.clone()] if self._aux_flat is not None else []
         event = None
         if self._device.type == "cuda":
             event = torch.cuda.Event()
@@ -677,7 +763,9 @@ class Worker:
                     # delta's base never reached the PS, so it is not sent
                     return
             t1 = time.perf_counter()
-            *payload, loss_h = self._to_host([*arrays, loss_dev], event)
+            host = self._to_host([*arrays, loss_dev, *aux_dev], event)
+            aux_h = self._aux_tree(host.pop()) if aux_dev else None
+            *payload, loss_h = host
             wire = (
                 self._materialize_wire_delta(wire_meta, payload)
                 if wire_meta is not None
@@ -687,7 +775,7 @@ class Worker:
                 "delta_flat": wire,
                 "steps": steps,
                 "base_version": spawn_base_version,
-                "aux_state": None,
+                "aux_state": aux_h,
                 "report_key": report_key,
                 "loss": float(loss_h[-1]),
             }
@@ -826,7 +914,7 @@ class Worker:
             res = self._sync_result
             if res is None:
                 return
-            seq, params_flat, _aux, new_version = res
+            seq, params_flat, aux, new_version = res
             self._sync_result = None
             snap = self._base_snapshots.get(seq)
             for k in [k for k in self._base_snapshots if k <= seq]:
@@ -843,6 +931,7 @@ class Worker:
                 younger.add_(shift)
         self._flat.add_(shift)
         self._base_flat.add_(shift)
+        self._set_aux(aux, "ReportLocalUpdate")
         self.merged_back += 1
         self._add_sync_seconds("absorb", time.perf_counter() - t0)
 

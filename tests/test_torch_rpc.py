@@ -65,6 +65,7 @@ def _calls():
         ("ReportVariable", {"params": params, "aux": aux}),
         ("GetModel", {"version": -1, "method": "minimum", "only_if_newer": True}),
         ("GetModel", {"version": -1, "method": "minimum", "flat": True}),
+        ("GetAux", {}),
         ("ReportGradient", {"worker_id": 0, "version": 0, "gradient_flat": grad,
                             "loss": 1.5, "return_model": True}),
         ("ReportGradient", {"worker_id": 0, "version": 0,
