@@ -8,8 +8,9 @@ its result lines only when every phase passed:
 1. the card's name and power limit (`nvidia-smi`);
 2. builds the attention kernels from `elasticdl_tpu_torch/ops/csrc/`,
    prints ptxas's register, shared-memory and spill lines, and fails if
-   an instantiation of a tensor-core kernel spills or is missing at a
-   head dim (16, 32, 64, 128);
+   an instantiation of a tensor-core kernel or of a float32 backward
+   kernel (`NO_SPILL`) spills or is missing at a head dim (16, 32, 64,
+   128);
 3. holds each kernel against its plain PyTorch version on the card at
    every head dim (`KERNEL_CHECKS`): in bfloat16 at the base
    transformer's [8, 1024, 8, 64], the large config's [16, 1024, 8, 128]
@@ -215,8 +216,10 @@ MAIN_PATH = {("float32", 16): "zoo_launches", ("bfloat16", 16): "zoo_bf16_launch
 # the paths that run the float32 kernels; every other path runs bf16
 FLOAT32_PATHS = ("zoo_launches", "zoo_process_launches")
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
-# kernels that must not spill (ptxas's report): the tensor-core ones
-NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel")
+# kernels that must not spill (ptxas's report): the tensor-core ones and
+# the float32 backward kernels
+NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel",
+            "fa_dq_kernel", "fa_dkv_kernel")
 REPLACES = {
     "flash_forward": "elasticdl_tpu/ops/flash_attention.py:79",
     "flash_dq": "elasticdl_tpu/ops/flash_attention.py:161",
@@ -674,12 +677,12 @@ def check_ptxas(log: str) -> dict:
             kernel = line.split()[-1].strip("'") if "properties" in line else line.split("'")[1]
         if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
             print(line.strip())
-        if "spill stores" in line and kernel and any(n in kernel for n in NO_SPILL):
+        name = kernel and re.search(r"(fa_(?:fwd|dq|dkv)(?:_bf16)?_kernel)ILi(\d+)E", kernel)
+        if "spill stores" in line and name and name.group(1) in NO_SPILL:
             stores, loads = (int(x.split()[0]) for x in line.split(",")[1:3])
             if stores or loads:
                 raise AssertionError(f"{kernel} spills: {line.strip()}")
         found = re.search(r"Used (\d+) registers", line)
-        name = kernel and re.search(r"(fa_\w+?_kernel)ILi(\d+)E", kernel)
         if found and name:
             regs[(name.group(1), int(name.group(2)))] = int(found.group(1))
     from elasticdl_tpu_torch.ops.flash_attention import HEAD_DIMS

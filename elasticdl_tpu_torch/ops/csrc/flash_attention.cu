@@ -24,11 +24,12 @@
 // products and bytes shrink with D and the exponentials bind every
 // kernel (chip_smoke.py computes and prints each bound's three terms).
 //
-// Every kernel: one block owns a 64-row tile of one (batch, head) (the
-// forward at D <= 64: 128 rows) and streams the other operand's 64-row tiles
-// past it, so nothing quadratic touches device memory and no block
-// writes another's output (no atomics). Causal tiles above the diagonal
-// are skipped; only the diagonal tile compares positions.
+// Every kernel: one block owns a tile of rows of one (batch, head) (64
+// rows; the bf16 forward at D <= 64: 128; the f32 backward: 16 to 64 by
+// head dim) and streams the other operand's tiles past it, so nothing quadratic
+// touches device memory and no block writes another's output (no
+// atomics). Causal tiles above the diagonal are skipped; only the rows
+// near the diagonal compare positions.
 //
 // Two designs, chosen by dtype in the C entry points, never on failure:
 //
@@ -51,11 +52,23 @@
 //   has two stages instead of three, so two blocks fit an SM. At D = 16
 //   and 32 tiles and accumulators are small and the exponentials take the
 //   time; a deeper ring gained nothing there, so it has two stages too.
-// - float32 (all three kernels): float32 FMAs on the CUDA cores, 256
-//   threads with a 4 x 4 register tile each over the 64 x 64 scores and a
-//   4 x D/16 tile over D-wide outputs, float32 tiles padded to D + 4
-//   floats. The tensor cores would take f32 only as TF32 (about 3 decimal
-//   digits), so f32 stays on this path.
+// - float32 (`fa_fwd_kernel`, `fa_dq_kernel`, `fa_dkv_kernel`): float32
+//   FMAs on the CUDA cores, bound by the products at their 67 TFLOP/s (the
+//   one exp2 per pair comes second in f32). The tensor cores would take
+//   f32 only as TF32 (about 3 decimal digits), so f32 stays on this path.
+//   The forward: 256 threads with a 4 x 4 register tile each over the 64 x
+//   64 scores and a 4 x D/16 tile over D-wide outputs, float32 tiles
+//   padded to D + 4 floats, p through shared memory. The backward kernels
+//   give each resident row (q in dq, k in dk+dv) to D / 16 lanes, 16 dims
+//   each in registers with its accumulators, and stream the other rows'
+//   tiles through a cp.async ring; every lane of a warp reads the same
+//   streamed row (a shared-memory broadcast) and keeps p and ds in
+//   registers, so the walk spends its issue slots on FMAs (a lane holds 16
+//   dims of two resident rows: 128 FMAs in dk+dv for 8 16-byte shared
+//   loads), with one barrier a tile. `cc<D, W>` splits each streamed
+//   tile's rows over S thread groups so that small heads still fill the
+//   SMs (the groups' partial sums are added in a fixed order), and a
+//   causal block takes row tiles y and n - 1 - y, so all do equal work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,145 +262,6 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(const float* __restrict__ q,
     for (int j = 0; j < W; ++j) o[gidx<D>(b, r, h, tx * W + j, L, H)] = acc[i][j] / l[i];
     if (tx == 0) lse[(size_t)bh * L + r] = m[i] + logf(l[i]);
   }
-}
-
-// dq; replaces `_dq_kernel` (elasticdl_tpu/ops/flash_attention.py:161).
-// grid (L/64, B*H): one block per (head, 64-row q tile); k/v tiles stream.
-// Float32 only: bfloat16 takes the tensor-core `fa_dq_bf16_kernel` below.
-template <int D>
-__global__ void __launch_bounds__(NT) fa_dq_kernel(const float* __restrict__ q,
-                                                   const float* __restrict__ k,
-                                                   const float* __restrict__ v,
-                                                   const float* __restrict__ dout,
-                                                   const float* __restrict__ lse,
-                                                   const float* __restrict__ delta,
-                                                   float* __restrict__ dq, int L, int H,
-                                                   int causal, float scale) {
-  constexpr int LD = D + 4, W = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + T64 * LD;
-  float* Ks = dOs + T64 * LD;
-  float* Vs = Ks + T64 * LD;
-  float* DSs = Vs + T64 * LD;  // 64 x LDS
-  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * T64;
-
-  load_tile<D>(Qs, q, b, h, q0, L, H);
-  load_tile<D>(dOs, dout, b, h, q0, L, H);
-  float lse_r[4], delta_r[4], acc[4][W];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse_r[i] = lse[(size_t)bh * L + q0 + ty * 4 + i];
-    delta_r[i] = delta[(size_t)bh * L + q0 + ty * 4 + i];
-  }
-  zero<W>(acc);
-
-  const int n_k = causal ? qt + 1 : L / T64;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * T64;
-    __syncthreads();
-    load_tile<D>(Ks, k, b, h, k0, L, H);
-    load_tile<D>(Vs, v, b, h, k0, L, H);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero<4>(s);
-    zero<4>(dp);
-    mm_nt<D>(Qs, Ks, s, ty, tx);
-    mm_nt<D>(dOs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (causal && q0 + ty * 4 + i < k0 + tx + 16 * j) x = NEG_INF;
-        const float p = expf(x - lse_r[i]);
-        DSs[(ty * 4 + i) * LDS + tx + 16 * j] = p * (dp[i][j] - delta_r[i]) * scale;
-      }
-    __syncthreads();
-    mm_nn<D>(DSs, Ks, acc, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < W; ++j)
-      dq[gidx<D>(b, q0 + ty * 4 + i, h, tx * W + j, L, H)] = acc[i][j];
-}
-
-// dk and dv; replaces `_dkv_kernel` (elasticdl_tpu/ops/flash_attention.py:204).
-// grid (L/64, B*H): one block per (head, 64-row k tile); k and v stay
-// resident while q tiles stream past; no atomics. Float32 only: bfloat16
-// takes the tensor-core `fa_dkv_bf16_kernel` below.
-template <int D>
-__global__ void __launch_bounds__(NT) fa_dkv_kernel(const float* __restrict__ q,
-                                                    const float* __restrict__ k,
-                                                    const float* __restrict__ v,
-                                                    const float* __restrict__ dout,
-                                                    const float* __restrict__ lse,
-                                                    const float* __restrict__ delta,
-                                                    float* __restrict__ dk,
-                                                    float* __restrict__ dv, int L, int H,
-                                                    int causal, float scale) {
-  constexpr int LD = D + 4, W = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + T64 * LD;
-  float* Qs = Vs + T64 * LD;
-  float* dOs = Qs + T64 * LD;
-  float* Ps = dOs + T64 * LD;  // 64 x LDS
-  float* DSs = Ps + T64 * LDS;  // 64 x LDS
-  float* lse_s = DSs + T64 * LDS;
-  float* delta_s = lse_s + T64;
-  const int kt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = kt * T64;
-
-  load_tile<D>(Ks, k, b, h, k0, L, H);
-  load_tile<D>(Vs, v, b, h, k0, L, H);
-  float dk_acc[4][W], dv_acc[4][W];
-  zero<W>(dk_acc);
-  zero<W>(dv_acc);
-
-  for (int qt = causal ? kt : 0; qt < L / T64; ++qt) {
-    const int q0 = qt * T64;
-    __syncthreads();
-    load_tile<D>(Qs, q, b, h, q0, L, H);
-    load_tile<D>(dOs, dout, b, h, q0, L, H);
-    if (threadIdx.x < T64) {
-      lse_s[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    // transposed tiles: row i = k row ty*4+i, column j = q row tx+16j
-    float st[4][4], dpt[4][4];
-    zero<4>(st);
-    zero<4>(dpt);
-    mm_nt<D>(Ks, Qs, st, ty, tx);
-    mm_nt<D>(Vs, dOs, dpt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        float x = st[i][j] * scale;
-        if (causal && q0 + r < k0 + ty * 4 + i) x = NEG_INF;
-        const float p = expf(x - lse_s[r]);
-        Ps[(ty * 4 + i) * LDS + r] = p;
-        DSs[(ty * 4 + i) * LDS + r] = p * (dpt[i][j] - delta_s[r]) * scale;
-      }
-    __syncthreads();
-    mm_nn<D>(Ps, dOs, dv_acc, ty, tx);
-    mm_nn<D>(DSs, Qs, dk_acc, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const size_t g = gidx<D>(b, k0 + ty * 4 + i, h, tx * W + j, L, H);
-      dk[g] = dk_acc[i][j];
-      dv[g] = dv_acc[i][j];
-    }
 }
 
 // ------------------------------------------------ bfloat16, tensor cores
@@ -999,6 +873,442 @@ __global__ void __launch_bounds__(NT_TC) fa_dkv_bf16_kernel(
   store_rows<D>(dv, dva, one, b, h, k0 + warp * 16, L, H);
 }
 
+// --------------------------------------------- float32 backward, CUDA cores
+
+// Each thread of the f32 backward kernels holds DL = 16 dims of MR = 2
+// resident rows (q rows in dq, k rows in dk+dv) with their accumulators;
+// R = D / 16 neighbouring lanes share a row, so a warp holds 64 / R rows.
+// A block of 128 threads is S groups, each holding the block's RB = (128 /
+// S) 2 / R rows; group g takes rows [g TS / S, (g + 1) TS / S) of every
+// streamed tile of TS rows (which all groups share, brought by a cp.async
+// ring of STAGES), and the S partial sums are added in group order at the
+// end. With AHEAD, the walk reads the next streamed row while it uses
+// this one: dq gained 4% from it at D = 16, lost 8% at 32 and spilled at
+// 64 and 128; dk+dv lost 12% at 16. Two blocks an SM (__launch_bounds__:
+// up to 255 registers).
+//
+// What bounds them on this card: the products, and behind them the
+// streamed floats every lane takes from shared memory. A broadcast read
+// costs per float it delivers to each lane (four LDS.32 ran as one
+// LDS.128), and a loop feeding FMAs that way reached 0.48 (32 FMAs a
+// 16-float row) to 0.63 (64) of the card's 67 TFLOP/s, well under what
+// FMAs alone reach (scripts/torch_f32_fma_rates.py, PERF.md). A lane reads
+// 32 floats a streamed row and does 96 (dq) or 128 (dk+dv) FMAs with
+// them; with one resident row a thread, half that, dq ran at 0.19 of its
+// bound. More rows, or 8 dims a lane, did not fit the registers or paid
+// the shuffles back. The settings by head dim were timed by
+// scripts/torch_attention_f32_turns.py.
+constexpr int NT_F32 = 128;  // threads a block
+constexpr int DL = 16;       // dims of a resident row a lane holds
+constexpr int MR = 2;        // resident rows a thread holds
+
+struct Cc {
+  int S, TS, STAGES, AHEAD;
+};
+template <int D, int W>  // W: 1 dq, 2 dk+dv
+__host__ __device__ constexpr Cc cc();
+//                                                         S  TS STAGES AHEAD
+template <> __host__ __device__ constexpr Cc cc<16, 1>() { return {4, 64, 3, 1}; }
+template <> __host__ __device__ constexpr Cc cc<16, 2>() { return {4, 64, 3, 0}; }
+template <> __host__ __device__ constexpr Cc cc<32, 1>() { return {4, 64, 3, 0}; }
+template <> __host__ __device__ constexpr Cc cc<32, 2>() { return {4, 64, 3, 0}; }
+template <> __host__ __device__ constexpr Cc cc<64, 1>() { return {2, 64, 3, 0}; }
+template <> __host__ __device__ constexpr Cc cc<64, 2>() { return {2, 64, 2, 0}; }
+template <> __host__ __device__ constexpr Cc cc<128, 1>() { return {2, 32, 2, 0}; }
+template <> __host__ __device__ constexpr Cc cc<128, 2>() { return {2, 32, 2, 0}; }
+
+template <int D, int W>
+__host__ __device__ constexpr int rows_of() {  // RB, the resident rows of a block
+  return NT_F32 / cc<D, W>().S * MR / (D / DL);
+}
+
+// The row tiles a block takes: one, or when causal two, y and n - 1 - y,
+// which see n + 1 streamed tiles together, so every block of the causal
+// grid has the same work (the middle tile of an odd n alone, dispatched
+// last). The launch's grid height for n row tiles.
+__host__ __device__ constexpr int row_blocks(int n, int causal) { return causal ? (n + 1) / 2 : n; }
+
+// Float offset of 16-byte chunk c (0..3) of 16-dim slice j in a row of a
+// streamed f32 tile. The R lanes of a resident row read their slices of
+// one streamed row together, 64 bytes apart; at D >= 64 (two slices a
+// 128-byte bank cycle) chunk c of slice j sits at c ^ ((j / 2) % 4) within
+// its slice, so those R reads fall in distinct 16-byte bank groups.
+__device__ __forceinline__ int slice_off(int j, int c) {
+  return 4 * (4 * j + (c ^ ((j >> 1) & 3)));
+}
+
+// rows [row0, row0 + TS) of head (b, h) -> f32 tile, rows of D floats with
+// slice_off's chunk order, 16 bytes a copy
+template <int D, int TS>
+__device__ __forceinline__ void cp_tile_f32(float* s, const float* g, int b, int h, int row0,
+                                            int L, int H) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  static_assert(TS * CH % NT_F32 == 0, "every thread copies the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < TS * CH / NT_F32; ++it) {
+    const int i = it * NT_F32 + threadIdx.x, r = i / CH, ch = i % CH;
+    cp_async16(s + r * D + slice_off(ch >> 2, ch & 3), g + gidx<D>(b, row0 + r, h, 4 * ch, L, H));
+  }
+}
+
+// 16 floats: from device memory (contiguous), from slice j of a streamed
+// tile's row, to device memory times `scale`
+__device__ __forceinline__ void ldg16(float* x, const float* g) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(g) + c);
+    x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
+  }
+}
+__device__ __forceinline__ void lds16(float* x, const float* row, int j) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 t = *reinterpret_cast<const float4*>(row + slice_off(j, c));
+    x[4 * c] = t.x, x[4 * c + 1] = t.y, x[4 * c + 2] = t.z, x[4 * c + 3] = t.w;
+  }
+}
+__device__ __forceinline__ void stg16(float* g, const float* x, float scale) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    reinterpret_cast<float4*>(g)[c] = make_float4(x[4 * c] * scale, x[4 * c + 1] * scale,
+                                                  x[4 * c + 2] * scale, x[4 * c + 3] * scale);
+}
+
+// For each resident row i: s[i] = a[i].x and dp[i] = b[i].y over this
+// lane's 16 dims (two chains each), then summed over the R lanes of the
+// row by an XOR butterfly, which leaves the same bits in each of them
+template <int R>
+__device__ __forceinline__ void dots(const float (*a)[DL], const float* x, const float (*b)[DL],
+                                     const float* y, float* s, float* dp) {
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    float s0 = 0.f, s1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < DL; e += 2) {
+      s0 = fmaf(a[i][e], x[e], s0);
+      s1 = fmaf(a[i][e + 1], x[e + 1], s1);
+      d0 = fmaf(b[i][e], y[e], d0);
+      d1 = fmaf(b[i][e + 1], y[e + 1], d1);
+    }
+    s[i] = s0 + s1;
+    dp[i] = d0 + d1;
+  }
+#pragma unroll
+  for (int o = 1; o < R; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+      dp[i] += __shfl_xor_sync(0xffffffffu, dp[i], o);
+    }
+}
+
+// Rows [ra, rb) of a streamed tile, whose two operands' rows start at X and
+// Y: this lane's slice j of both rows is read into registers (with AHEAD
+// one row ahead of its use, in two register sets), then pair(x, y, r)
+// runs on it
+template <int D, bool AHEAD, typename F>
+__device__ __forceinline__ void walk(const float* X, const float* Y, int j, int ra, int rb,
+                                     F&& pair) {
+  if constexpr (!AHEAD) {
+    for (int r = ra; r < rb; ++r) {
+      float x[DL], y[DL];
+      lds16(x, X + r * D, j);
+      lds16(y, Y + r * D, j);
+      pair(x, y, r);
+    }
+  } else {
+    if (ra >= rb) return;
+    float x[2][DL], y[2][DL];
+    lds16(x[0], X + ra * D, j);
+    lds16(y[0], Y + ra * D, j);
+    for (int r = ra; r < rb; r += 2) {
+      if (r + 1 < rb) {
+        lds16(x[1], X + (r + 1) * D, j);
+        lds16(y[1], Y + (r + 1) * D, j);
+      }
+      pair(x[0], y[0], r);
+      if (r + 1 < rb) {
+        if (r + 2 < rb) {
+          lds16(x[0], X + (r + 2) * D, j);
+          lds16(y[0], Y + (r + 2) * D, j);
+        }
+        pair(x[1], y[1], r + 1);
+      }
+    }
+  }
+}
+
+// The S groups' partial sums of N accumulator floats (acc), added into
+// group 0's in group order (the same bits every run) through shared
+// memory `smem`, once every group is done with it. Returns whether this
+// thread holds the sums (group 0).
+template <int S, int N>
+__device__ __forceinline__ bool sum_groups(float4* smem, float* acc) {
+  if constexpr (S == 1) {
+    return true;
+  } else {
+    constexpr int GT = NT_F32 / S;  // threads a group
+    const int t = threadIdx.x % GT, g = threadIdx.x / GT;
+    cp_wait<0>();
+    __syncthreads();
+    if (g > 0)  // [S - 1][N / 4 chunks][GT]: neighbouring threads, neighbouring chunks
+#pragma unroll
+      for (int c = 0; c < N / 4; ++c)
+        smem[((g - 1) * (N / 4) + c) * GT + t] =
+            make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+    __syncthreads();
+    if (g > 0) return false;
+#pragma unroll 1
+    for (int p = 0; p < S - 1; ++p)
+#pragma unroll
+      for (int c = 0; c < N / 4; ++c) {
+        const float4 x = smem[(p * (N / 4) + c) * GT + t];
+        acc[4 * c] += x.x, acc[4 * c + 1] += x.y, acc[4 * c + 2] += x.z, acc[4 * c + 3] += x.w;
+      }
+    return true;
+  }
+}
+
+// dq, float32; replaces `_dq_kernel` (elasticdl_tpu/ops/flash_attention.py:161).
+// Bound by the products on the CUDA cores (three D-long products per
+// visible (q, k) pair at 67 TFLOP/s; the one exp2 per pair comes second in
+// f32) and, behind them, by the streamed k and v floats each lane takes
+// from shared memory. Each thread holds 16 dims of 2 q rows in registers:
+// q (scaled by scale * log2 e, so s comes out in base 2), do and the dq
+// accumulator, with each row's lse (base 2) and delta, and walks the k
+// rows they see. Every row group of a warp reads the same k and v row of
+// the streamed tile with 16-byte shared loads (a broadcast), forms s and
+// dp for its 2 rows (summed over the row's R lanes by shuffles at D >=
+// 32), then p = exp2(s - lse) and ds = p (dp - delta), and adds ds k into
+// its accumulators: p and ds never leave registers, and the walk has one
+// barrier a tile. k/v tiles arrive by cp.async STAGES - 1 tiles ahead; the
+// S groups of a block take a share of every tile's k rows each and add
+// their partial dq in group order at the end (no atomics). The scale is
+// applied once, to the sum. grid (B*H, row_blocks): a causal block takes
+// q tiles y and n - 1 - y. Only the k rows after a warp's first q row
+// compare positions.
+template <int D>
+__global__ void __launch_bounds__(NT_F32, 2) fa_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int L, int H, int causal,
+    float scale) {
+  constexpr Cc C = cc<D, 1>();
+  constexpr int S = C.S, TS = C.TS, STAGES = C.STAGES, R = D / DL, RW = 32 * MR / R;
+  constexpr int GT = NT_F32 / S, RB = rows_of<D, 1>(), TILE = TS * D;
+  static_assert(GT % 32 == 0 && TS % S == 0 && T64 % TS == 0 && T64 % RB == 0,
+                "groups of whole warps, tiles that divide 64 rows");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // STAGES x (k tile, v tile)
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, n_rb = L / RB, y = blockIdx.y;
+  const int t = threadIdx.x % GT, g = threadIdx.x / GT, lane = t % 32, j = lane % R;
+  const float sl2 = scale * LOG2E;
+  const int items = causal && 2 * y + 1 < n_rb ? 2 : 1;
+
+  for (int item = 0; item < items; ++item) {
+    const int q0 = (item == 1 ? n_rb - 1 - y : y) * RB;
+    const int w0 = q0 + t / 32 * RW, wl = w0 + RW - 1;  // this warp's first and last q rows
+    const int row0 = w0 + lane / R;  // this thread's q rows: row0 and row0 + 32 / R
+    const int n_t = causal ? (q0 + RB - 1) / TS + 1 : L / TS;
+    if (item > 0) {
+      cp_wait<0>();
+      __syncthreads();  // the last row tile is done with the ring and the sums
+    }
+    auto load_stage = [&](int st, int kt) {
+      cp_tile_f32<D, TS>(ring + st * 2 * TILE, k, b, h, kt * TS, L, H);
+      cp_tile_f32<D, TS>(ring + st * 2 * TILE + TILE, v, b, h, kt * TS, L, H);
+    };
+    // k/v tiles 0 .. STAGES-2 in flight, one commit group each
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < n_t) load_stage(i, i);
+      cp_commit();
+    }
+
+    float qx[MR][DL], dox[MR][DL], acc[MR][DL], lse2[MR], dl[MR];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int r = row0 + i * (32 / R);
+      ldg16(qx[i], q + gidx<D>(b, r, h, DL * j, L, H));
+      ldg16(dox[i], dout + gidx<D>(b, r, h, DL * j, L, H));
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        qx[i][e] *= sl2;
+        acc[i][e] = 0.f;
+      }
+      lse2[i] = lse[(size_t)bh * L + r] * LOG2E;
+      dl[i] = delta[(size_t)bh * L + r];
+    }
+
+    for (int kt = 0; kt < n_t; ++kt) {
+      const int st = kt % STAGES, k0 = kt * TS;
+      cp_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
+      __syncthreads();        // ... everyone's, and the stage read at kt-1 is free
+      const int nt = kt + STAGES - 1;
+      if (nt < n_t) load_stage(nt % STAGES, nt);
+      cp_commit();  // possibly empty, so that every iteration commits one group
+      const float* Kt = ring + st * 2 * TILE;
+      const float* Vt = Kt + TILE;
+
+      auto pair = [&](const float* kx, const float* vx, int r, bool mask) {
+        float s[MR], dp[MR];
+        dots<R>(qx, kx, dox, vx, s, dp);
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          float p = ex2(s[i] - lse2[i]);
+          if (mask && k0 + r > row0 + i * (32 / R)) p = 0.f;  // k after q
+          const float ds = p * (dp[i] - dl[i]);
+#pragma unroll
+          for (int e = 0; e < DL; ++e) acc[i][e] = fmaf(ds, kx[e], acc[i][e]);
+        }
+      };
+      // this group's k rows of the tile, [ra, rb); when causal, rows after
+      // the warp's last q row add nothing to it and rows up to its first
+      // need no mask
+      const int ra = g * (TS / S);
+      int rb = ra + TS / S, rm = rb;
+      if (causal) {
+        rb = min(rb, wl + 1 - k0);
+        rm = max(ra, min(rb, w0 + 1 - k0));
+      }
+      walk<D, C.AHEAD>(Kt, Vt, j, ra, rm,
+                       [&](const float* kx, const float* vx, int r) { pair(kx, vx, r, false); });
+      walk<D, C.AHEAD>(Kt, Vt, j, rm, rb,
+                       [&](const float* kx, const float* vx, int r) { pair(kx, vx, r, true); });
+    }
+
+    if (sum_groups<S, MR * DL>(smem4, &acc[0][0]))
+#pragma unroll
+      for (int i = 0; i < MR; ++i)
+        stg16(dq + gidx<D>(b, row0 + i * (32 / R), h, DL * j, L, H), acc[i], scale);
+  }
+}
+
+// dk and dv, float32; replaces `_dkv_kernel`
+// (elasticdl_tpu/ops/flash_attention.py:204). Bound by the products on
+// the CUDA cores (four D-long products per visible pair) and, behind
+// them, by the streamed q and do floats each lane takes from shared
+// memory. As dq, each thread holds 16 dims of 2 k rows in registers: k
+// (scaled by scale * log2 e), v and the dk and dv accumulators, and walks
+// the q rows that see them. Every row group of a warp reads the same q and
+// do row (a broadcast) and that row's lse and delta, forms s and dp for
+// its 2 rows, p = exp2(s - lse log2 e) and ds = p (dp - delta), and adds p
+// do into dv and ds q into dk: 128 FMAs for 34 shared floats, with p and
+// ds in registers throughout. q/do tiles and their lse/delta rows arrive
+// by cp.async STAGES - 1 tiles ahead; the S groups of a block split every
+// tile's q rows and add their partial dk and dv in group order at the
+// end. grid (B*H, row_blocks): a causal block takes k tiles y and n - 1 -
+// y. Only the q rows up to a warp's last k row compare positions.
+template <int D>
+__global__ void __launch_bounds__(NT_F32, 2) fa_dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int L, int H,
+    int causal, float scale) {
+  constexpr Cc C = cc<D, 2>();
+  constexpr int S = C.S, TS = C.TS, STAGES = C.STAGES, R = D / DL, RW = 32 * MR / R;
+  constexpr int GT = NT_F32 / S, RB = rows_of<D, 2>(), TILE = TS * D, STAGE = 2 * TILE + 2 * TS;
+  static_assert(GT % 32 == 0 && TS % S == 0 && T64 % TS == 0 && T64 % RB == 0,
+                "groups of whole warps, tiles that divide 64 rows");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // STAGES x (q tile, do tile, lse, delta)
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, n_rb = L / RB, y = blockIdx.y;
+  const int t = threadIdx.x % GT, g = threadIdx.x / GT, lane = t % 32, j = lane % R;
+  const float sl2 = scale * LOG2E;
+  const int items = causal && 2 * y + 1 < n_rb ? 2 : 1;
+
+  for (int item = 0; item < items; ++item) {
+    const int k0 = (item == 1 ? n_rb - 1 - y : y) * RB;
+    const int w0 = k0 + t / 32 * RW, wl = w0 + RW - 1;  // this warp's first and last k rows
+    const int row0 = w0 + lane / R;  // this thread's k rows: row0 and row0 + 32 / R
+    const int n_t = L / TS, t_first = causal ? k0 / TS : 0;
+    if (item > 0) {
+      cp_wait<0>();
+      __syncthreads();  // the last row tile is done with the ring and the sums
+    }
+    auto load_stage = [&](int st, int qt) {
+      float* s = ring + st * STAGE;
+      cp_tile_f32<D, TS>(s, q, b, h, qt * TS, L, H);
+      cp_tile_f32<D, TS>(s + TILE, dout, b, h, qt * TS, L, H);
+      if (threadIdx.x < TS / 2) {  // TS / 4 copies each for lse and delta
+        const int i = threadIdx.x % (TS / 4), which = threadIdx.x / (TS / 4);
+        cp_async16(s + 2 * TILE + which * TS + 4 * i,
+                   (which ? delta : lse) + (size_t)bh * L + qt * TS + 4 * i);
+      }
+    };
+    // q tiles t_first .. t_first+STAGES-2 in flight, one commit group each
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (t_first + i < n_t) load_stage(i, t_first + i);
+      cp_commit();
+    }
+
+    float kx[MR][DL], vx[MR][DL], acc[2][MR][DL];  // acc: dk, dv
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      const int r = row0 + i * (32 / R);
+      ldg16(kx[i], k + gidx<D>(b, r, h, DL * j, L, H));
+      ldg16(vx[i], v + gidx<D>(b, r, h, DL * j, L, H));
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        kx[i][e] *= sl2;
+        acc[0][i][e] = acc[1][i][e] = 0.f;
+      }
+    }
+
+    for (int qt = t_first; qt < n_t; ++qt) {
+      const int st = (qt - t_first) % STAGES, q0 = qt * TS;
+      cp_wait<STAGES - 2>();  // tile qt has landed (this thread's copies)
+      __syncthreads();        // ... everyone's, and the stage read at qt-1 is free
+      const int nt = qt + STAGES - 1;
+      if (nt < n_t) load_stage((nt - t_first) % STAGES, nt);
+      cp_commit();  // possibly empty, so that every iteration commits one group
+      const float* Qt = ring + st * STAGE;
+      const float* dOt = Qt + TILE;
+      const float* ls = dOt + TILE;
+      const float* dls = ls + TS;
+
+      auto pair = [&](const float* qx, const float* dox, int r, bool mask) {
+        float s[MR], dp[MR];
+        dots<R>(kx, qx, vx, dox, s, dp);
+        const float lq = ls[r] * LOG2E, dq = dls[r];
+#pragma unroll
+        for (int i = 0; i < MR; ++i) {
+          float p = ex2(s[i] - lq);
+          if (mask && q0 + r < row0 + i * (32 / R)) p = 0.f;  // q before k
+          const float ds = p * (dp[i] - dq);
+#pragma unroll
+          for (int e = 0; e < DL; ++e) {
+            acc[0][i][e] = fmaf(ds, qx[e], acc[0][i][e]);
+            acc[1][i][e] = fmaf(p, dox[e], acc[1][i][e]);
+          }
+        }
+      };
+      // this group's q rows of the tile, [ra, rb); when causal, rows before
+      // the warp's first k row see none of it and rows after its last need
+      // no mask
+      int ra = g * (TS / S), rm = ra;
+      const int rb = ra + TS / S;
+      if (causal) {
+        ra = max(ra, w0 - q0);
+        rm = max(ra, min(rb, wl + 1 - q0));
+      }
+      walk<D, C.AHEAD>(Qt, dOt, j, ra, rm,
+                       [&](const float* qx, const float* dox, int r) { pair(qx, dox, r, true); });
+      walk<D, C.AHEAD>(Qt, dOt, j, rm, rb,
+                       [&](const float* qx, const float* dox, int r) { pair(qx, dox, r, false); });
+    }
+
+    if (sum_groups<S, 2 * MR * DL>(smem4, &acc[0][0][0]))
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        const size_t o = gidx<D>(b, row0 + i * (32 / R), h, DL * j, L, H);
+        stg16(dk + o, acc[0][i], scale);
+        stg16(dv + o, acc[1][i], 1.f);
+      }
+  }
+}
+
 bool bad_shape(int B, int L, int H, int Dh) {
   return (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) || L <= 0 || L % T64 != 0 || B <= 0 ||
          H <= 0 || (long)B * H > 65535;
@@ -1006,9 +1316,19 @@ bool bad_shape(int B, int L, int H, int Dh) {
 
 // Dynamic shared memory of each kernel at head dim D (bytes)
 template <int D>
-size_t smem_f32(int tiles, int score_tiles, int rows) {
-  return sizeof(float) * ((size_t)tiles * T64 * (D + 4) + (size_t)score_tiles * T64 * LDS +
-                          (size_t)rows * T64);
+size_t smem_fwd_f32() {  // q, k and v tiles padded to D + 4 floats and the 64 x 64 score tile
+  return sizeof(float) * (3 * T64 * (D + 4) + T64 * LDS);
+}
+// the f32 backward kernel W (1 dq, 2 dk+dv): the ring of two streamed
+// tiles (and dk+dv's lse and delta rows) a stage, or the S - 1 groups'
+// partial sums if larger (dq: 24, 48, 96, 64 KB at D = 16, 32, 64, 128;
+// dk+dv: 25.5, 49.5, 65, 64.5 KB)
+template <int D, int W>
+size_t smem_bwd_f32() {
+  constexpr Cc C = cc<D, W>();
+  const size_t ring = (size_t)C.STAGES * (2 * C.TS * D + (W == 2 ? 2 * C.TS : 0));
+  const size_t sums = (size_t)(C.S - 1) * rows_of<D, W>() * D * W;
+  return sizeof(float) * (ring > sums ? ring : sums);
 }
 template <int D>
 size_t smem_fwd_bf16() {  // q rows and the k/v stages (D = 16: 12 KB, 32: 24, 64: 64, 128: 80)
@@ -1025,9 +1345,10 @@ size_t smem_dkv_bf16() {  // k and v tiles, the q/do stages and their lse/delta 
 
 // Each kernel's launch by head dim and dtype (which: 0 forward, 1 dq, 2
 // dk+dv): its function, grid, threads and dynamic shared memory. The
-// launches and the occupancy query both read it. The float32 kernels run
-// one block per 64 rows of a head, grid (L/64, B*H); the bfloat16 ones
-// take the head first, grid (B*H, q or k tiles).
+// launches and the occupancy query both read it. The float32 forward runs
+// one block per 64 rows of a head, grid (L/64, B*H); the float32
+// backward kernels (RB rows a block, `Cc<D>`) and the bfloat16 ones take
+// the head first, grid (B*H, q or k tiles).
 struct Launch {
   const void* fn;
   dim3 grid;
@@ -1036,12 +1357,17 @@ struct Launch {
 };
 
 template <int D>
-Launch launch_of(int which, int dtype, int B, int L, int H) {
+Launch launch_of(int which, int dtype, int B, int L, int H, int causal) {
   const dim3 rows(L / T64, B * H), heads(B * H, L / T64);
   if (dtype == 0) {
-    if (which == 0) return {(const void*)fa_fwd_kernel<D>, rows, NT, smem_f32<D>(3, 1, 0)};
-    if (which == 1) return {(const void*)fa_dq_kernel<D>, rows, NT, smem_f32<D>(4, 1, 0)};
-    return {(const void*)fa_dkv_kernel<D>, rows, NT, smem_f32<D>(4, 2, 2)};
+    if (which == 0) return {(const void*)fa_fwd_kernel<D>, rows, NT, smem_fwd_f32<D>()};
+    if (which == 1)
+      return {(const void*)fa_dq_kernel<D>,
+              dim3(B * H, row_blocks(L / rows_of<D, 1>(), causal)),
+              NT_F32, smem_bwd_f32<D, 1>()};
+    return {(const void*)fa_dkv_kernel<D>,
+            dim3(B * H, row_blocks(L / rows_of<D, 2>(), causal)),
+            NT_F32, smem_bwd_f32<D, 2>()};
   }
   if (which == 0) {
     const int bm = T64 * Tc<D>::FWD_MT;
@@ -1052,21 +1378,22 @@ Launch launch_of(int which, int dtype, int B, int L, int H) {
   return {(const void*)fa_dkv_bf16_kernel<D>, heads, NT_TC, smem_dkv_bf16<D>()};
 }
 
-Launch launch_of(int which, int Dh, int dtype, int B, int L, int H) {
+Launch launch_of(int which, int Dh, int dtype, int B, int L, int H, int causal) {
   switch (Dh) {
-    case 16: return launch_of<16>(which, dtype, B, L, H);
-    case 32: return launch_of<32>(which, dtype, B, L, H);
-    case 64: return launch_of<64>(which, dtype, B, L, H);
-    default: return launch_of<128>(which, dtype, B, L, H);  // bad_shape took every other
+    case 16: return launch_of<16>(which, dtype, B, L, H, causal);
+    case 32: return launch_of<32>(which, dtype, B, L, H, causal);
+    case 64: return launch_of<64>(which, dtype, B, L, H, causal);
+    default: return launch_of<128>(which, dtype, B, L, H, causal);  // bad_shape took every other
   }
 }
 
 // cudaFuncSetAttribute for the dynamic shared memory, then the launch of
 // kernel `which` with the kernel's arguments `args`; returns the
 // cudaError_t
-int launch(int which, int B, int L, int H, int Dh, int dtype, void** args, void* stream) {
+int launch(int which, int B, int L, int H, int Dh, int causal, int dtype, void** args,
+           void* stream) {
   if (bad_shape(B, L, H, Dh) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const Launch k = launch_of(which, Dh, dtype, B, L, H);
+  const Launch k = launch_of(which, Dh, dtype, B, L, H, causal);
   cudaError_t e = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)k.smem);
   if (e != cudaSuccess) return (int)e;
@@ -1086,21 +1413,21 @@ extern "C" {
 int edl_fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
                int H, int Dh, int causal, float scale, int dtype, void* stream) {
   void* args[] = {&q, &k, &v, &o, &lse, &L, &H, &causal, &scale};
-  return launch(0, B, L, H, Dh, dtype, args, stream);
+  return launch(0, B, L, H, Dh, causal, dtype, args, stream);
 }
 
 int edl_fa_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int L, int H, int Dh, int causal, float scale,
               int dtype, void* stream) {
   void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dq, &L, &H, &causal, &scale};
-  return launch(1, B, L, H, Dh, dtype, args, stream);
+  return launch(1, B, L, H, Dh, causal, dtype, args, stream);
 }
 
 int edl_fa_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int L, int H, int Dh, int causal,
                float scale, int dtype, void* stream) {
   void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &L, &H, &causal, &scale};
-  return launch(2, B, L, H, Dh, dtype, args, stream);
+  return launch(2, B, L, H, Dh, causal, dtype, args, stream);
 }
 
 // Blocks an SM holds of kernel `which` (0 forward, 1 dq, 2 dk+dv) at
@@ -1108,7 +1435,7 @@ int edl_fa_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // memory and threads together); a negative value is a cudaError_t
 int edl_fa_blocks_per_sm(int which, int Dh, int dtype) {
   if (bad_shape(1, T64, 1, Dh) || (dtype != 0 && dtype != 1)) return -(int)cudaErrorInvalidValue;
-  const Launch k = launch_of(which, Dh, dtype, 1, T64, 1);
+  const Launch k = launch_of(which, Dh, dtype, 1, T64, 1, 1);
   cudaError_t e = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)k.smem);
   int n = 0;

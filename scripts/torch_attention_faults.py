@@ -1,22 +1,24 @@
 """Plant known faults in a copy of the attention kernels and show that
-chip_smoke.py's bf16 gradient checks catch each, on one CUDA card.
+chip_smoke.py's gradient checks catch each, on one CUDA card.
 
     python3 scripts/torch_attention_faults.py [--work DIR]
 
 chip_smoke.py holds the bf16 dq and dk+dv kernels to BF16_TOL plus two
 bf16 rounding flips of a row's largest term (`exact_backward`), and to
 a root mean square distance from the float64 function of at most
-BF16_RMS_RATIO times the plain version's. This script measures what
-those checks catch. For each entry of FAULTS it copies
-`ops/csrc/flash_attention.cu` into DIR (a new temporary directory by
-default), replaces one line of it (the fault), builds the copy with
-`ops/build.py`'s nvcc flags, loads it in place of the repo's library,
-and runs chip_smoke.py's `backward_errs` on the plain forward's lse at
-every bfloat16 shape of `KERNEL_CHECKS` (first seed, each causal case).
-The first entry plants nothing. Per fault and shape it prints the
-largest share of the element limit that dq, dk and dv use and the
-checks that failed (`backward_errs` prints the rms ratios). Exits 1 if
-the copy with nothing planted fails or a fault passes every check.
+BF16_RMS_RATIO times the plain version's; it holds the float32 ones to
+F32_TOL (atol = rtol = 1e-5). This script measures what those checks
+catch. For each entry of FAULTS it copies `ops/csrc/flash_attention.cu`
+into DIR (a new temporary directory by default), replaces one line of it
+(the fault), builds the copy with `ops/build.py`'s nvcc flags (all
+copies at once), loads it in place of the repo's library, and runs
+chip_smoke.py's `backward_errs` on the plain forward's lse at every
+shape of `KERNEL_CHECKS` in the fault's dtype (first seed, each causal
+case). The first entry plants nothing and is checked in both dtypes. Per
+fault and shape it prints the largest share of the element limit that
+dq, dk and dv use and the checks that failed (`backward_errs` prints the
+bf16 rms ratios). Exits 1 if the copy with nothing planted fails or a
+fault passes every check.
 """
 
 import argparse
@@ -25,6 +27,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -35,44 +38,68 @@ import chip_smoke as cs  # noqa: E402
 from elasticdl_tpu_torch.ops import build  # noqa: E402
 from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-# name: (line of the source, what replaces it); each line occurs once
+BF16, F32 = (torch.bfloat16,), (torch.float32,)
+# name: (dtypes checked, (line of the source, what replaces it)); each
+# line occurs once
 FAULTS = {
-    "none": None,
+    "none": (BF16 + F32, None),
     # the first block to be dispatched (the last q tile when causal) skips
     # k tile 0 in dq
-    "dq_drops_a_k_tile": (
+    "dq_drops_a_k_tile": (BF16, (
         "    const bf16* Kt = Ks + st * TILE;\n",
         "    if (blockIdx.y == 0 && kt == 0 && n_k > 1) continue;\n"
         "    const bf16* Kt = Ks + st * TILE;\n",
-    ),
+    )),
     # dq masks the diagonal (q == k) as well
-    "dq_masks_the_diagonal": (
+    "dq_masks_the_diagonal": (BF16, (
         "if (part && w0 + row + (e >> 1) * 8 < kc + j * 8 + col + (e & 1)) p = 0.f;",
         "if (part && w0 + row + (e >> 1) * 8 <= kc + j * 8 + col + (e & 1)) p = 0.f;",
-    ),
+    )),
     # dk+dv forms ds without the 1/sqrt(D) scale
-    "dkv_ds_unscaled": (
+    "dkv_ds_unscaled": (BF16, (
         "dst[j][e] = p * (dst[j][e] - dq) * scale;",
         "dst[j][e] = p * (dst[j][e] - dq);",
-    ),
+    )),
     # dq rounds dp = do.v^T to bf16 before ds
-    "dq_dp_rounded_to_bf16": (
+    "dq_dp_rounded_to_bf16": (BF16, (
         "s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;",
         "s[j][e] = p * (__bfloat162float(__float2bfloat16(dp[j][e])) - dl[e >> 1]) * scale;",
-    ),
+    )),
     # dk+dv rounds dp^T to bf16 before ds^T
-    "dkv_dp_rounded_to_bf16": (
+    "dkv_dp_rounded_to_bf16": (BF16, (
         "dst[j][e] = p * (dst[j][e] - dq) * scale;",
         "dst[j][e] = p * (__bfloat162float(__float2bfloat16(dst[j][e])) - dq) * scale;",
-    ),
+    )),
+    # f32 dq and dk+dv: the last group's partial sums are left out of the
+    # final sum (at the head dims whose blocks split the streamed tiles)
+    "f32_split_partial_dropped": (F32, (
+        "    for (int p = 0; p < S - 1; ++p)\n",
+        "    for (int p = 0; p < S - 2; ++p)\n",
+    )),
+    # f32 dk+dv: each warp's causal walk starts one q row late, so its
+    # first k row misses its diagonal pair
+    "f32_dkv_causal_start_late": (F32, (
+        "        ra = max(ra, w0 - q0);\n",
+        "        ra = max(ra, w0 - q0 + 1);\n",
+    )),
+    # f32 dk+dv: ds = p dp, delta not subtracted
+    "f32_dkv_delta_not_subtracted": (F32, (
+        "const float ds = p * (dp[i] - dq);",
+        "const float ds = p * dp[i];",
+    )),
+    # f32 dq: lse taken as base 2 without the log2(e) fold
+    "f32_dq_lse_log2e_missing": (F32, (
+        "      lse2[i] = lse[(size_t)bh * L + r] * LOG2E;\n",
+        "      lse2[i] = lse[(size_t)bh * L + r];\n",
+    )),
 }
 
 
-def build_copy(work: str, name: str, fault) -> str:
-    """The kernel source with `fault` planted, built into `work` (the
-    compiler's output beside it as `<name>.log`); returns the library's
-    path."""
-    with open(os.path.join(build.CSRC_DIR, "flash_attention.cu")) as f:
+def build_copy(work: str, name: str, fault, source=None) -> str:
+    """The kernel source (`source`, by default the tree's) with `fault`
+    planted, built into `work` (the compiler's output beside it as
+    `<name>.log`); returns the library's path."""
+    with open(source or os.path.join(build.CSRC_DIR, "flash_attention.cu")) as f:
         src = f.read()
     if fault is not None:
         old, new = fault
@@ -92,12 +119,12 @@ def build_copy(work: str, name: str, fault) -> str:
     return lib
 
 
-def check(name: str) -> bool:
-    """chip_smoke.py's bf16 backward checks at every bf16 shape; prints
-    the readings and returns whether any check failed."""
+def check(name: str, dtypes) -> bool:
+    """chip_smoke.py's backward checks at every shape of KERNEL_CHECKS in
+    `dtypes`; prints the readings and returns whether any check failed."""
     caught = False
     for dtype, shape, d, causals, seeds in cs.KERNEL_CHECKS:
-        if dtype != torch.bfloat16:
+        if dtype not in dtypes:
             continue
         q, k, v, do = cs.attention_inputs(*shape, d, dtype, seed=seeds[0])
         for causal in causals:
@@ -129,12 +156,14 @@ def main() -> int:
     print(cs.card_line())
     work = args.work or tempfile.mkdtemp(prefix="attention-faults-")
     os.makedirs(work, exist_ok=True)
+    with ThreadPoolExecutor(len(FAULTS)) as pool:
+        libs = dict(zip(FAULTS, pool.map(
+            lambda name: build_copy(work, name, FAULTS[name][1]), FAULTS)))
     escaped = []
-    for name, fault in FAULTS.items():
-        lib = build_copy(work, name, fault)
-        build.load = lambda _name, lib=lib: ctypes.CDLL(lib)
+    for name, (dtypes, fault) in FAULTS.items():
+        build.load = lambda _name, lib=libs[name]: ctypes.CDLL(lib)
         fa._lib.cache_clear()
-        caught = check(name)
+        caught = check(name, dtypes)
         if caught != (fault is not None):
             escaped.append(name)
     print(f"faults not caught (or a false alarm for 'none'): {escaped}")

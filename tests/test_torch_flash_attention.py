@@ -251,6 +251,46 @@ def test_ptxas_check_needs_every_tensor_core_instantiation():
                                + _ptxas_log([("fa_dkv_bf16_kernel", 16)], spill=8))
 
 
+def _every_held():
+    import chip_smoke
+
+    return [(n, d) for n in chip_smoke.NO_SPILL for d in tfa.HEAD_DIMS]
+
+
+def test_ptxas_check_fails_on_a_missing_float32_dq_instantiation():
+    """chip_smoke.py's check of ptxas's report holds the float32 backward
+    kernels too: without `fa_dq_kernel` at D = 32 it fails."""
+    import chip_smoke
+
+    assert {"fa_dq_kernel", "fa_dkv_kernel"} <= set(chip_smoke.NO_SPILL)
+    chip_smoke.check_ptxas(_ptxas_log(_every_held()))
+    with pytest.raises(AssertionError, match=r"no registers for \[\('fa_dq_kernel', 32\)\]"):
+        chip_smoke.check_ptxas(_ptxas_log([x for x in _every_held() if x != ("fa_dq_kernel", 32)]))
+
+
+def test_ptxas_check_fails_on_a_spilling_float32_dkv():
+    """A spilling `fa_dkv_kernel` at D = 16 fails the check, wherever in
+    the report it stands."""
+    import chip_smoke
+
+    log = "\n".join(
+        _ptxas_log([x], spill=4 if x == ("fa_dkv_kernel", 16) else 0) for x in _every_held()
+    )
+    with pytest.raises(AssertionError, match="fa_dkv_kernelILi16E.* spills"):
+        chip_smoke.check_ptxas(log)
+
+
+def test_ptxas_check_leaves_the_float32_forward_free_to_spill():
+    """`fa_fwd_kernel`, the float32 forward, is not held to no spills: its
+    spilling instantiations pass, and their registers are reported."""
+    import chip_smoke
+
+    assert "fa_fwd_kernel" not in chip_smoke.NO_SPILL
+    forward = [("fa_fwd_kernel", d) for d in tfa.HEAD_DIMS]
+    regs = chip_smoke.check_ptxas(_ptxas_log(_every_held()) + "\n" + _ptxas_log(forward, spill=8))
+    assert set(forward) <= set(regs)
+
+
 def test_bound_counts_the_exponentials():
     """chip_smoke.py's bound per kernel is the largest of three terms:
     the products, the bytes and the exp2s (one per visible (q, k) pair,
