@@ -8,8 +8,8 @@ its result lines only when every phase passed:
 1. the card's name and power limit (`nvidia-smi`);
 2. builds the attention kernels from `elasticdl_tpu_torch/ops/csrc/`,
    prints ptxas's register, shared-memory and spill lines, and fails if
-   an instantiation of a tensor-core kernel or of a float32 backward
-   kernel (`NO_SPILL`) spills or is missing at a head dim (16, 32, 64,
+   an instantiation of a kernel (`NO_SPILL`: the tensor-core ones and the
+   three float32 ones) spills or is missing at a head dim (16, 32, 64,
    128);
 3. holds each kernel against its plain PyTorch version on the card at
    every head dim (`KERNEL_CHECKS`): in bfloat16 at the base
@@ -217,9 +217,9 @@ MAIN_PATH = {("float32", 16): "zoo_launches", ("bfloat16", 16): "zoo_bf16_launch
 FLOAT32_PATHS = ("zoo_launches", "zoo_process_launches")
 SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 # kernels that must not spill (ptxas's report): the tensor-core ones and
-# the float32 backward kernels
+# the float32 ones
 NO_SPILL = ("fa_fwd_bf16_kernel", "fa_dq_bf16_kernel", "fa_dkv_bf16_kernel",
-            "fa_dq_kernel", "fa_dkv_kernel")
+            "fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")
 REPLACES = {
     "flash_forward": "elasticdl_tpu/ops/flash_attention.py:79",
     "flash_dq": "elasticdl_tpu/ops/flash_attention.py:161",

@@ -25,7 +25,7 @@
 // kernel (chip_smoke.py computes and prints each bound's three terms).
 //
 // Every kernel: one block owns a tile of rows of one (batch, head) (64
-// rows; the bf16 forward at D <= 64: 128; the f32 backward: 16 to 64 by
+// rows; the bf16 forward at D <= 64: 128; the f32 kernels: 16 to 128 by
 // head dim) and streams the other operand's tiles past it, so nothing quadratic
 // touches device memory and no block writes another's output (no
 // atomics). Causal tiles above the diagonal are skipped; only the rows
@@ -56,19 +56,20 @@
 //   FMAs on the CUDA cores, bound by the products at their 67 TFLOP/s (the
 //   one exp2 per pair comes second in f32). The tensor cores would take
 //   f32 only as TF32 (about 3 decimal digits), so f32 stays on this path.
-//   The forward: 256 threads with a 4 x 4 register tile each over the 64 x
-//   64 scores and a 4 x D/16 tile over D-wide outputs, float32 tiles
-//   padded to D + 4 floats, p through shared memory. The backward kernels
-//   give each resident row (q in dq, k in dk+dv) to D / 16 lanes, 16 dims
-//   each in registers with its accumulators, and stream the other rows'
-//   tiles through a cp.async ring; every lane of a warp reads the same
-//   streamed row (a shared-memory broadcast) and keeps p and ds in
-//   registers, so the walk spends its issue slots on FMAs (a lane holds 16
-//   dims of two resident rows: 128 FMAs in dk+dv for 8 16-byte shared
-//   loads), with one barrier a tile. `cc<D, W>` splits each streamed
-//   tile's rows over S thread groups so that small heads still fill the
-//   SMs (the groups' partial sums are added in a fixed order), and a
-//   causal block takes row tiles y and n - 1 - y, so all do equal work.
+//   All three give each resident row (q in the forward and dq, k in
+//   dk+dv) to D / 16 lanes, 16 dims each in registers with its
+//   accumulators, and stream the other rows' tiles through a cp.async
+//   ring; every lane of a warp reads the same streamed row (a
+//   shared-memory broadcast) and keeps p and ds in registers, so the walk
+//   spends its issue slots on FMAs (a lane holds 16 dims of two resident
+//   rows, four in the forward at D = 32: 128 FMAs in dk+dv, 64 in the
+//   forward, for 8 16-byte shared loads), with one barrier a tile. The
+//   forward's online softmax goes by steps of C streamed rows, one max
+//   and one correction a row a step. `fc<D>` and `cc<D, W>` split
+//   each streamed tile's rows over S thread groups so that small heads
+//   still fill the SMs (the groups' partial sums, in the forward their
+//   partial (m, l, acc), are merged in a fixed order), and a causal block
+//   takes row tiles y and n - 1 - y, so all do equal work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,191 +78,11 @@
 namespace {
 
 constexpr int T64 = 64;       // rows per tile (q and k)
-constexpr int LDS = T64 + 4;  // shared-memory row stride in floats of a 64 x 64 score tile
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;
 
 template <int D>
 __device__ __forceinline__ size_t gidx(int b, int l, int h, int d, int L, int H) {
   return (((size_t)b * L + l) * H + h) * D + d;
-}
-
-// rows [row0, row0 + 64) of head (b, h) -> s[r * (D + 4) + d]
-template <int D>
-__device__ __forceinline__ void load_tile(float* s, const float* g, int b, int h, int row0,
-                                          int L, int H) {
-  for (int idx = threadIdx.x; idx < T64 * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    s[r * (D + 4) + d] = g[gidx<D>(b, row0 + r, h, d, L, H)];
-  }
-}
-
-// acc[i][j] += sum_d A[ty*4+i][d] * B[tx+16j][d], A and B D-wide tiles
-template <int D>
-__device__ __forceinline__ void mm_nt(const float* A, const float* B, float acc[4][4],
-                                      int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(ty * 4 + i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&B[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = acc[i][j];
-        t = fmaf(a[i].x, b[j].x, t);
-        t = fmaf(a[i].y, b[j].y, t);
-        t = fmaf(a[i].z, b[j].z, t);
-        t = fmaf(a[i].w, b[j].w, t);
-        acc[i][j] = t;
-      }
-  }
-}
-
-// VW floats of shared memory at p (16-byte aligned for 4, 8-byte for 2)
-template <int VW>
-__device__ __forceinline__ void lds(float v[VW], const float* p) {
-  if constexpr (VW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (VW == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-// acc[i][j] += sum_c P[ty*4+i][c] * V[c][tx*W+j]: P a 64 x 64 score tile,
-// V a D-wide tile, W = D/16 output columns a thread, read VW at a time
-// (W is 1 at D = 16 and 2 at D = 32)
-template <int D>
-__device__ __forceinline__ void mm_nn(const float* P, const float* V, float acc[4][D / 16],
-                                      int ty, int tx) {
-  constexpr int LD = D + 4, W = D / 16, VW = W < 4 ? W : 4;
-#pragma unroll 2
-  for (int c = 0; c < T64; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(&P[(ty * 4 + i) * LDS + c]);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-      for (int w = 0; w < W; w += VW) {
-        float v[VW];
-        lds<VW>(v, &V[(c + cc) * LD + tx * W + w]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pv = cc == 0 ? p[i].x : cc == 1 ? p[i].y : cc == 2 ? p[i].z : p[i].w;
-#pragma unroll
-          for (int x = 0; x < VW; ++x) acc[i][w + x] = fmaf(pv, v[x], acc[i][w + x]);
-        }
-      }
-    }
-  }
-}
-
-// reductions over the 16 lanes that share a row (lanes 16k .. 16k+15)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float a[4][N]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) a[i][j] = 0.f;
-}
-
-// Forward; replaces `_fa_kernel` (elasticdl_tpu/ops/flash_attention.py:79).
-// grid (L/64, B*H): one block per (head, 64-row q tile); k/v tiles stream
-// through shared memory under the online softmax. Float32 only: bfloat16
-// takes the tensor-core `fa_fwd_bf16_kernel` below.
-template <int D>
-__global__ void __launch_bounds__(NT) fa_fwd_kernel(const float* __restrict__ q,
-                                                    const float* __restrict__ k,
-                                                    const float* __restrict__ v,
-                                                    float* __restrict__ o,
-                                                    float* __restrict__ lse, int L, int H,
-                                                    int causal, float scale) {
-  constexpr int LD = D + 4, W = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + T64 * LD;
-  float* Vs = Ks + T64 * LD;
-  float* Ps = Vs + T64 * LD;  // 64 x LDS
-  const int qt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * T64;
-
-  load_tile<D>(Qs, q, b, h, q0, L, H);
-  float m[4], l[4], acc[4][W];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-  }
-  zero<W>(acc);
-
-  const int n_k = causal ? qt + 1 : L / T64;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * T64;
-    __syncthreads();  // the previous tile's reads of Ks/Vs/Ps are done
-    load_tile<D>(Ks, k, b, h, k0, L, H);
-    load_tile<D>(Vs, v, b, h, k0, L, H);
-    __syncthreads();
-    float s[4][4];
-    zero<4>(s);
-    mm_nt<D>(Qs, Ks, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (causal && q0 + ty * 4 + i < k0 + tx + 16 * j) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ty * 4 + i) * LDS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < W; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    mm_nn<D>(Ps, Vs, acc, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < W; ++j) o[gidx<D>(b, r, h, tx * W + j, L, H)] = acc[i][j] / l[i];
-    if (tx == 0) lse[(size_t)bh * L + r] = m[i] + logf(l[i]);
-  }
 }
 
 // ------------------------------------------------ bfloat16, tensor cores
@@ -1309,15 +1130,319 @@ __global__ void __launch_bounds__(NT_F32, 2) fa_dkv_kernel(
   }
 }
 
+// ---------------------------------------------- float32 forward, CUDA cores
+
+// The f32 forward carries the f32 backward's design over: each thread
+// holds DL = 16 dims of MR resident q rows (scaled by scale * log2 e) with
+// their o accumulators, running max m and sum l in registers, R = D / 16
+// lanes share a row, and the k and v rows stream past as shared-memory
+// broadcasts from a cp.async ring. The online softmax goes by steps of C
+// streamed rows: C scores a row in registers, one new max and one
+// correction exp2 a row a step, then p = exp2(s - m) and acc += p v (a
+// correction per streamed row would rescale D accumulators per k row and
+// double the pv FMAs); p never leaves registers. `fc<D>` sets by head dim
+// MR, the S thread groups that split each streamed tile, the tile rows TS,
+// the ring depth and C; a block holds RB = 128 / S * MR / R q rows (which
+// must divide 64), all of which every group holds.
+//
+// What bounds it on this card: not the streamed floats a lane takes from
+// shared memory, which bound the f32 backward. Four rows a thread (64 FMAs
+// a 16-float broadcast row instead of 32) ran slower at D = 16 and 64 and
+// spilled at 128 (at 32 they fit with C = 4 and won), and a lane holding 8
+// dims of four rows, which halves the floats a FMA, was slower at every
+// head dim. The time follows the instructions a pair issues
+// (two D-long products and, per row, a max, an exp2, a subtraction and an
+// addition), issued at about half the scheduler's rate with the two warps
+// a scheduler that the registers and, at the zoo's [8, 1024, 4, 16], the
+// grid allow. The settings by head dim were timed by
+// scripts/torch_attention_f32_turns.py (PERF.md).
+struct Fc {
+  int MR, S, TS, STAGES, C;
+};
+template <int D>
+__host__ __device__ constexpr Fc fc();
+//                                                      MR  S  TS STAGES  C
+template <> __host__ __device__ constexpr Fc fc<16>() { return {2, 4, 64, 3, 8}; }
+template <> __host__ __device__ constexpr Fc fc<32>() { return {4, 4, 64, 3, 4}; }
+template <> __host__ __device__ constexpr Fc fc<64>() { return {2, 2, 64, 3, 8}; }
+template <> __host__ __device__ constexpr Fc fc<128>() { return {2, 2, 32, 2, 8}; }
+
+template <int D>
+__host__ __device__ constexpr int fwd_rows() {  // RB, the resident rows of a block
+  return NT_F32 / fc<D>().S * fc<D>().MR / (D / DL);
+}
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// The max and the sum of x[0 .. C) by pairs, so that no chain runs
+// through all C
+template <int C>
+__device__ __forceinline__ float max_of(const float* x) {
+  if constexpr (C == 1) return x[0];
+  else return fmaxf(max_of<C / 2>(x), max_of<C / 2>(x + C / 2));
+}
+template <int C>
+__device__ __forceinline__ float sum_of(const float* x) {
+  if constexpr (C == 1) return x[0];
+  else return sum_of<C / 2>(x) + sum_of<C / 2>(x + C / 2);
+}
+
+// One online-softmax step over C streamed rows, whose k and v rows start
+// at K and V, for the thread's M resident rows (qx, with acc, m and l):
+// this lane's 16 dims of each row's C scores (two chains each), summed
+// over the row's R lanes by an XOR butterfly (the same bits in each lane);
+// the new max m and the correction exp2(m_old - m) of l and acc; then p =
+// exp2(s - m) into l and acc += p v. With EDGE, only the first n rows
+// count, and row c only for the resident rows it does not follow: its
+// position kp + c is at most the row's, qp + i (32 / R).
+template <int R, int M, int C, bool EDGE>
+__device__ __forceinline__ void fwd_step(const float (*qx)[DL], float (*acc)[DL], float* m,
+                                         float* l, const float* K, const float* V, int j, int n,
+                                         int kp, int qp) {
+  constexpr int D = R * DL;
+  float s[M][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float x[DL];
+    if (EDGE && c >= n) continue;
+    lds16(x, K + c * D, j);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int e = 0; e < DL; e += 2) {
+        s0 = fmaf(qx[i][e], x[e], s0);
+        s1 = fmaf(qx[i][e + 1], x[e + 1], s1);
+      }
+      s[i][c] = s0 + s1;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < R; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (!EDGE || c < n) s[i][c] += __shfl_xor_sync(0xffffffffu, s[i][c], o);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (EDGE && (c >= n || kp + c > qp + i * (32 / R))) s[i][c] = NEG_INF;  // k after q
+    const float mx = fmaxf(m[i], max_of<C>(s[i]));
+    const float corr = ex2(m[i] - mx);
+    m[i] = mx;
+#pragma unroll
+    for (int e = 0; e < DL; ++e) acc[i][e] *= corr;  // the step's correction
+#pragma unroll
+    for (int c = 0; c < C; ++c)  // s becomes p (0 where masked, also while m is NEG_INF)
+      s[i][c] = EDGE && s[i][c] == NEG_INF ? 0.f : ex2(s[i][c] - mx);
+    l[i] = fmaf(l[i], corr, sum_of<C>(s[i]));
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float y[DL];
+    if (EDGE && c >= n) continue;
+    lds16(y, V + c * D, j);
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int e = 0; e < DL; ++e) acc[i][e] = fmaf(s[i][c], y[e], acc[i][e]);
+  }
+}
+
+// The S groups' partial softmax states of the block's rows (m, l and acc,
+// M rows a thread), merged into group 0's through shared memory `smem`
+// once every group is done with it: m becomes the max over the groups,
+// and each group's l and acc, scaled by exp2(m_g - m), are added in group
+// order (the same bits every run). Returns whether this thread holds the
+// merged state (group 0).
+template <int S, int M>
+__device__ __forceinline__ bool merge_groups(float4* smem, float (*acc)[DL], float* m, float* l) {
+  if constexpr (S == 1) {
+    return true;
+  } else {
+    constexpr int GT = NT_F32 / S;         // threads a group
+    constexpr int F = M * DL / 4 + M / 2;  // float4s a thread: acc, then (m, l) of row pairs
+    const int t = threadIdx.x % GT, g = threadIdx.x / GT;
+    cp_wait<0>();
+    __syncthreads();
+    if (g > 0) {  // [S - 1][F][GT]: neighbouring threads, neighbouring float4s
+      float4* x = smem + (g - 1) * F * GT + t;
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int c = 0; c < DL / 4; ++c)
+          x[(i * DL / 4 + c) * GT] = make_float4(acc[i][4 * c], acc[i][4 * c + 1],
+                                                 acc[i][4 * c + 2], acc[i][4 * c + 3]);
+#pragma unroll
+      for (int i = 0; i < M; i += 2)
+        x[(M * DL / 4 + i / 2) * GT] = make_float4(m[i], l[i], m[i + 1], l[i + 1]);
+    }
+    __syncthreads();
+    if (g > 0) return false;
+    float mx[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) mx[i] = m[i];
+#pragma unroll 1
+    for (int gp = 1; gp < S; ++gp)
+#pragma unroll
+      for (int i = 0; i < M; i += 2) {
+        const float4 z = smem[((gp - 1) * F + M * DL / 4 + i / 2) * GT + t];
+        mx[i] = fmaxf(mx[i], z.x);
+        mx[i + 1] = fmaxf(mx[i + 1], z.z);
+      }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const float a = ex2(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= a;
+#pragma unroll
+      for (int e = 0; e < DL; ++e) acc[i][e] *= a;
+    }
+#pragma unroll 1
+    for (int p = 1; p < S; ++p) {
+      const float4* x = smem + (p - 1) * F * GT + t;
+      float a[M];
+#pragma unroll
+      for (int i = 0; i < M; i += 2) {
+        const float4 z = x[(M * DL / 4 + i / 2) * GT];
+        a[i] = ex2(z.x - mx[i]);
+        a[i + 1] = ex2(z.z - mx[i + 1]);
+        l[i] = fmaf(z.y, a[i], l[i]);
+        l[i + 1] = fmaf(z.w, a[i + 1], l[i + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int c = 0; c < DL / 4; ++c) {
+          const float4 w = x[(i * DL / 4 + c) * GT];
+          float* d = &acc[i][4 * c];
+          d[0] = fmaf(w.x, a[i], d[0]);
+          d[1] = fmaf(w.y, a[i], d[1]);
+          d[2] = fmaf(w.z, a[i], d[2]);
+          d[3] = fmaf(w.w, a[i], d[3]);
+        }
+    }
+    return true;
+  }
+}
+
+// Forward, float32; replaces `_fa_kernel` (elasticdl_tpu/ops/flash_attention.py:79).
+// Bound by the products on the CUDA cores (two D-long products per visible
+// (q, k) pair at 67 TFLOP/s; the one exp2 per pair comes second in f32).
+// Each thread holds 16 dims of MR q rows (`fc<D>`) with their o
+// accumulators, m and l (base 2) in registers and walks the k rows they
+// see by steps of C (`fwd_step`): every row group of a warp reads the
+// same k and v row of the streamed tile (a broadcast), and p stays in
+// registers. k/v tiles arrive by cp.async STAGES - 1 tiles ahead, with one
+// barrier a tile; the S groups of a block take a share of every tile's k
+// rows each and merge their partial (m, l, acc) in group order at the end
+// (no atomics). o = acc / l, and lse = (m + log2 l) ln 2, natural as the
+// backward kernels read it. grid (B*H, row_blocks): a causal block takes
+// q tiles y and n - 1 - y. Only the steps that reach past a warp's first q
+// row compare positions.
+template <int D>
+__global__ void __launch_bounds__(NT_F32, 2) fa_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int L, int H, int causal, float scale) {
+  constexpr Fc F = fc<D>();
+  constexpr int M = F.MR, S = F.S, TS = F.TS, STAGES = F.STAGES, C = F.C, R = D / DL;
+  constexpr int RW = 32 * M / R, GT = NT_F32 / S, RB = fwd_rows<D>(), TILE = TS * D;
+  static_assert(GT % 32 == 0 && M % 2 == 0 && TS % S == 0 && T64 % TS == 0 &&
+                    T64 % RB == 0 && TS / S % C == 0,
+                "groups of whole warps, pairs of rows, tiles that divide 64 rows, whole steps");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // STAGES x (k tile, v tile)
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, n_rb = L / RB, y = blockIdx.y;
+  const int t = threadIdx.x % GT, g = threadIdx.x / GT, lane = t % 32, j = lane % R;
+  const float sl2 = scale * LOG2E;
+  const int items = causal && 2 * y + 1 < n_rb ? 2 : 1;
+
+  for (int item = 0; item < items; ++item) {
+    const int q0 = (item == 1 ? n_rb - 1 - y : y) * RB;
+    const int w0 = q0 + t / 32 * RW, wl = w0 + RW - 1;  // this warp's first and last q rows
+    const int row0 = w0 + lane / R;  // this thread's q rows: row0 + i * 32 / R
+    const int n_t = causal ? (q0 + RB - 1) / TS + 1 : L / TS;
+    if (item > 0) {
+      cp_wait<0>();
+      __syncthreads();  // the last row tile is done with the ring and the merge
+    }
+    auto load_stage = [&](int st, int kt) {
+      cp_tile_f32<D, TS>(ring + st * 2 * TILE, k, b, h, kt * TS, L, H);
+      cp_tile_f32<D, TS>(ring + st * 2 * TILE + TILE, v, b, h, kt * TS, L, H);
+    };
+    // k/v tiles 0 .. STAGES-2 in flight, one commit group each
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < n_t) load_stage(i, i);
+      cp_commit();
+    }
+
+    float qx[M][DL], acc[M][DL], m[M], l[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      ldg16(qx[i], q + gidx<D>(b, row0 + i * (32 / R), h, DL * j, L, H));
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        qx[i][e] *= sl2;
+        acc[i][e] = 0.f;
+      }
+      m[i] = NEG_INF;
+      l[i] = 0.f;
+    }
+
+    for (int kt = 0; kt < n_t; ++kt) {
+      const int st = kt % STAGES, k0 = kt * TS;
+      cp_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
+      __syncthreads();        // ... everyone's, and the stage read at kt-1 is free
+      const int nt = kt + STAGES - 1;
+      if (nt < n_t) load_stage(nt % STAGES, nt);
+      cp_commit();  // possibly empty, so that every iteration commits one group
+      const float* Kt = ring + st * 2 * TILE;
+      const float* Vt = Kt + TILE;
+      // this group's k rows of the tile, [ra, rb); when causal, rows after
+      // the warp's last q row add nothing to it and rows up to its first
+      // need no compare
+      const int ra = g * (TS / S);
+      int rb = ra + TS / S, rm = rb;
+      if (causal) {
+        rb = min(rb, wl + 1 - k0);
+        rm = max(ra, min(rb, w0 + 1 - k0));
+      }
+      for (int r0 = ra; r0 < rb; r0 += C) {
+        if (r0 + C <= rm)
+          fwd_step<R, M, C, false>(qx, acc, m, l, Kt + r0 * D, Vt + r0 * D, j, C, 0, 0);
+        else
+          fwd_step<R, M, C, true>(qx, acc, m, l, Kt + r0 * D, Vt + r0 * D, j, rb - r0, k0 + r0,
+                                  row0);
+      }
+    }
+
+    if (merge_groups<S, M>(smem4, acc, m, l))
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const int r = row0 + i * (32 / R);
+        stg16(o + gidx<D>(b, r, h, DL * j, L, H), acc[i], 1.f / l[i]);
+        if (j == 0) lse[(size_t)bh * L + r] = (m[i] + log2f(l[i])) * LN2;
+      }
+  }
+}
+
 bool bad_shape(int B, int L, int H, int Dh) {
   return (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) || L <= 0 || L % T64 != 0 || B <= 0 ||
          H <= 0 || (long)B * H > 65535;
 }
 
 // Dynamic shared memory of each kernel at head dim D (bytes)
+// the f32 forward: the ring of k and v tiles, or the S - 1 groups' partial
+// states if larger (24, 48, 96, 64 KB at D = 16, 32, 64, 128)
 template <int D>
-size_t smem_fwd_f32() {  // q, k and v tiles padded to D + 4 floats and the 64 x 64 score tile
-  return sizeof(float) * (3 * T64 * (D + 4) + T64 * LDS);
+size_t smem_fwd_f32() {
+  constexpr Fc F = fc<D>();
+  const size_t ring = (size_t)F.STAGES * 2 * F.TS * D;
+  const size_t states = (size_t)(F.S - 1) * (NT_F32 / F.S) * F.MR * (DL + 2);
+  return sizeof(float) * (ring > states ? ring : states);
 }
 // the f32 backward kernel W (1 dq, 2 dk+dv): the ring of two streamed
 // tiles (and dk+dv's lse and delta rows) a stage, or the S - 1 groups'
@@ -1345,10 +1470,10 @@ size_t smem_dkv_bf16() {  // k and v tiles, the q/do stages and their lse/delta 
 
 // Each kernel's launch by head dim and dtype (which: 0 forward, 1 dq, 2
 // dk+dv): its function, grid, threads and dynamic shared memory. The
-// launches and the occupancy query both read it. The float32 forward runs
-// one block per 64 rows of a head, grid (L/64, B*H); the float32
-// backward kernels (RB rows a block, `Cc<D>`) and the bfloat16 ones take
-// the head first, grid (B*H, q or k tiles).
+// launches and the occupancy query both read it. Every kernel takes the
+// head first, grid (B*H, row tiles): the float32 ones RB rows a block
+// (`fc<D>`, `cc<D, W>`; a causal block two row tiles, `row_blocks`), the
+// bfloat16 ones 64 (the forward 64 FWD_MT).
 struct Launch {
   const void* fn;
   dim3 grid;
@@ -1358,9 +1483,11 @@ struct Launch {
 
 template <int D>
 Launch launch_of(int which, int dtype, int B, int L, int H, int causal) {
-  const dim3 rows(L / T64, B * H), heads(B * H, L / T64);
+  const dim3 heads(B * H, L / T64);
   if (dtype == 0) {
-    if (which == 0) return {(const void*)fa_fwd_kernel<D>, rows, NT, smem_fwd_f32<D>()};
+    if (which == 0)
+      return {(const void*)fa_fwd_kernel<D>, dim3(B * H, row_blocks(L / fwd_rows<D>(), causal)),
+              NT_F32, smem_fwd_f32<D>()};
     if (which == 1)
       return {(const void*)fa_dq_kernel<D>,
               dim3(B * H, row_blocks(L / rows_of<D, 1>(), causal)),

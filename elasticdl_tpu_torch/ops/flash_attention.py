@@ -34,11 +34,10 @@ by dtype: for bfloat16 all three run their products on the tensor cores,
 for float32 all three stay on the CUDA cores (the tensor cores would
 round f32 to TF32), where the products bound them at 67 TFLOP/s; each
 kernel is a template on D, instantiated for every head dim. The float32
-forward tiles the scores over 256 threads; the float32 dq and dk+dv give
-each resident row (q, or k) to D / 16 lanes with its accumulators in
-registers, stream the other operand's rows through a cp.async ring as
-shared-memory broadcasts, and keep p and ds in registers, so their walk
-is mostly FMAs.
+kernels give each resident row (q in the forward and dq, k in dk+dv) to
+D / 16 lanes with its accumulators in registers, stream the other
+operand's rows through a cp.async ring as shared-memory broadcasts, and
+keep p and ds in registers, so their walk is mostly FMAs.
 """
 
 from __future__ import annotations

@@ -1,25 +1,28 @@
-"""Time the float32 dq and dk+dv attention kernels of a baseline source
-against the tree's, in turns, on one CUDA card.
+"""Time the float32 attention kernels (forward, dq, dk+dv) of a baseline
+source against the tree's, in turns, on one CUDA card.
 
     python3 scripts/torch_attention_f32_turns.py --baseline PARENT.cu [--work DIR]
-        [--head-dims 16,32] [--tiling "D,W=S,TS,STAGES,AHEAD" ...]
+        [--head-dims 16,32] [--tiling "D,W=..." ...]
 
 BASELINE is a copy of `ops/csrc/flash_attention.cu` saved outside the repo
 (the parent commit's, or a variant). Each `--tiling` adds a copy of the
-tree's source whose `cc<D, W>()` (W: 1 dq, 2 dk+dv) returns the given
-shape instead. This script builds them all and the tree's source with
-`ops/build.py`'s nvcc flags into DIR (a new temporary directory by
-default; `torch_attention_faults.build_copy`, all at once), prints
-ptxas's registers and spills of each one's `fa_dq_kernel` and
-`fa_dkv_kernel` and the blocks an SM holds, and holds each one's
-`flash_dq` and `flash_dkv` against `plain_dq` / `plain_dkv` under
-chip_smoke.py's F32_TOL at every float32 shape of chip_smoke.py's
-KERNEL_CHECKS and at SHAPES (causal; on the plain forward's lse and
-delta). Then at each shape of SHAPES (float32, causal) it times dq, dk+dv
-and the backward triple (attention_delta + dq + dk+dv) of all in turns,
-baseline, tree, tilings, then back (a, b, ..., b, a), and prints each
-time and the ratio of each one's mean to the baseline's. Exits 1 if a
-kernel disagrees with its plain version.
+tree's source with one head dim's tiling replaced: "D,0=MR,S,TS,STAGES,C"
+sets the forward's `fc<D>()`, "D,W=S,TS,STAGES,AHEAD" (W: 1 dq, 2 dk+dv)
+the backward's `cc<D, W>()`. This script builds them all and
+the tree's source with `ops/build.py`'s nvcc flags into DIR (a new
+temporary directory by default; `torch_attention_faults.build_copy`, all
+at once), prints ptxas's registers and spills of each one's f32 kernels
+and the blocks an SM holds, and holds each one's f32 kernels against
+their plain versions under chip_smoke.py's F32_TOL at every float32 shape
+of chip_smoke.py's KERNEL_CHECKS and at SHAPES (causal):
+chip_smoke.py's `kernel_checks`, `flash_forward` (o, lse) against
+`plain_forward`, then `flash_dq` and `flash_dkv` on the plain forward's
+lse and o and on the kernel's own. Then at each shape of SHAPES (float32,
+causal) it times the forward, dq, dk+dv, the backward triple
+(attention_delta + dq + dk+dv) and the whole f32 attention (forward +
+the triple) of all in turns, baseline, tree, tilings, then back (a, b,
+..., b, a), and prints each time and the ratio of each one's mean to the
+baseline's. Exits 1 if a kernel disagrees with its plain version.
 """
 
 import argparse
@@ -45,21 +48,22 @@ from torch_attention_faults import build_copy  # noqa: E402
 # (B, L, H, D) timed: the zoo default's (4 heads of 16) and, at 32, 64 and
 # 128, the bf16 rows' shapes of chip_smoke.py's kernels line
 SHAPES = ((8, 1024, 4, 16), (8, 1024, 16, 32), (8, 1024, 8, 64), (16, 1024, 8, 128))
-F32_KERNELS = ("fa_dq_kernel", "fa_dkv_kernel")
+F32_KERNELS = ("fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")
 
 
 def tiling_edit(spec):
     """(line to replace, replacement) of the tree's source for `spec`,
-    "D,W=S,TS,STAGES,AHEAD"."""
+    "D,0=MR,S,TS,STAGES,C" (the forward) or "D,W=S,TS,STAGES,AHEAD"."""
     (d, w), shape = (x.split(",") for x in spec.split("="))
     with open(os.path.join(build.CSRC_DIR, "flash_attention.cu")) as f:
         src = f.read()
-    old = re.search(rf"cc<{int(d)}, {int(w)}>\(\) {{ return {{[^}}]*}}; }}", src).group(0)
+    table = f"fc<{int(d)}>" if int(w) == 0 else f"cc<{int(d)}, {int(w)}>"
+    old = re.search(rf"{table}\(\) {{ return {{[^}}]*}}; }}", src).group(0)
     return old, re.sub(r"return \{[^}]*\}", "return {" + ", ".join(shape) + "}", old)
 
 
 def ptxas_lines(work, name):
-    """ptxas's register and spill lines of the f32 backward kernels."""
+    """ptxas's register and spill lines of the f32 kernels."""
     out, kernel = [], None
     with open(os.path.join(work, f"{name}.log")) as f:
         for line in f:
@@ -79,8 +83,8 @@ def use(lib):
 
 
 def checked(name, head_dims):
-    """The f32 dq and dk+dv against their plain versions; returns the
-    failures."""
+    """The f32 kernels against their plain versions (chip_smoke.py's
+    `kernel_checks`); returns the failures."""
     failures = []
     cases = [(shape, d, causals) for dtype, shape, d, causals, _seeds in cs.KERNEL_CHECKS
              if dtype == torch.float32 and d in head_dims]
@@ -88,30 +92,32 @@ def checked(name, head_dims):
     for shape, d, causals in cases:
         q, k, v, do = cs.attention_inputs(*shape, d, torch.float32, seed=1)
         for causal in causals:
-            o, lse = fa.plain_forward(q, k, v, causal)
-            tag = f"{name} {tuple(q.shape)} causal={causal}"
-            readings = cs.backward_errs(fa, q, k, v, do, lse, fa.attention_delta(do, o), causal,
-                                        cs.TOLS[torch.float32], tag, failures)
-            print(f"{tag}: dq {cs.reading_text(readings['flash_dq'])}; dk+dv "
-                  f"{cs.reading_text(readings['flash_dkv'])}", flush=True)
+            cs.kernel_checks(fa, q, k, v, do, causal, f"{name} {tuple(q.shape)} causal={causal}",
+                             failures)
     return failures
 
 
+WHAT = ("forward", "dq", "dk+dv", "attention_delta + dq + dk+dv",
+        "forward + attention_delta + dq + dk+dv")
+
+
 def times(shape):
-    """ms of (dq, dk+dv, attention_delta + dq + dk+dv) at `shape`, f32,
-    causal."""
+    """ms of each of WHAT at `shape`, f32, causal (the backward on the
+    plain forward's lse and o)."""
     q, k, v, do = cs.attention_inputs(*shape, torch.float32, seed=1)
     o, lse = fa.plain_forward(q, k, v, True)
     delta = fa.attention_delta(do, o)
 
-    def triple():
+    def triple(o, lse):
         dd = fa.attention_delta(do, o)
         fa.flash_dq(q, k, v, do, lse, dd, True)
         fa.flash_dkv(q, k, v, do, lse, dd, True)
 
-    return (cs.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True)),
+    return (cs.time_ms(lambda: fa.flash_forward(q, k, v, True)),
+            cs.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, True)),
             cs.time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, True)),
-            cs.time_ms(triple))
+            cs.time_ms(lambda: triple(o, lse)),
+            cs.time_ms(lambda: triple(*fa.flash_forward(q, k, v, True))))
 
 
 def main() -> int:
@@ -121,7 +127,8 @@ def main() -> int:
     parser.add_argument("--head-dims", default="16,32,64,128",
                         help="head dims to check and time (default: all)")
     parser.add_argument("--tiling", action="append", default=[],
-                        help='a variant of the tree: "D,W=S,TS,STAGES,AHEAD"')
+                        help='a variant of the tree: "D,0=MR,S,TS,STAGES,C" (forward) '
+                             'or "D,W=S,TS,STAGES,AHEAD" (W: 1 dq, 2 dk+dv)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -143,8 +150,8 @@ def main() -> int:
     for name, lib in libs.items():
         print("\n".join(ptxas_lines(work, name)))
         use(lib)
-        print(f"{name} blocks an SM (dq, dk+dv) by head dim: " + ", ".join(
-            f"{d}: {[fa.blocks_per_sm(k, d, torch.float32) for k in cs.KERNELS[1:]]}"
+        print(f"{name} blocks an SM (forward, dq, dk+dv) by head dim: " + ", ".join(
+            f"{d}: {[fa.blocks_per_sm(k, d, torch.float32) for k in cs.KERNELS]}"
             for d in head_dims), flush=True)
         if checked(name, head_dims):
             wrong.append(name)
@@ -153,7 +160,7 @@ def main() -> int:
         for name in list(libs) + list(libs)[::-1]:
             use(libs[name])
             readings[name].append(times(shape))
-        for i, what in enumerate(("dq", "dk+dv", "attention_delta + dq + dk+dv")):
+        for i, what in enumerate(WHAT):
             base = statistics.mean(r[i] for r in readings["baseline"])
             print(f"{list(shape)} f32 causal {what}: " + "; ".join(
                 f"{n} ms {[round(r[i], 4) for r in rs]}"

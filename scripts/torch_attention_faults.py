@@ -6,18 +6,21 @@ chip_smoke.py's gradient checks catch each, on one CUDA card.
 chip_smoke.py holds the bf16 dq and dk+dv kernels to BF16_TOL plus two
 bf16 rounding flips of a row's largest term (`exact_backward`), and to
 a root mean square distance from the float64 function of at most
-BF16_RMS_RATIO times the plain version's; it holds the float32 ones to
-F32_TOL (atol = rtol = 1e-5). This script measures what those checks
-catch. For each entry of FAULTS it copies `ops/csrc/flash_attention.cu`
-into DIR (a new temporary directory by default), replaces one line of it
-(the fault), builds the copy with `ops/build.py`'s nvcc flags (all
-copies at once), loads it in place of the repo's library, and runs
-chip_smoke.py's `backward_errs` on the plain forward's lse at every
-shape of `KERNEL_CHECKS` in the fault's dtype (first seed, each causal
-case). The first entry plants nothing and is checked in both dtypes. Per
-fault and shape it prints the largest share of the element limit that
-dq, dk and dv use and the checks that failed (`backward_errs` prints the
-bf16 rms ratios). Exits 1 if the copy with nothing planted fails or a
+BF16_RMS_RATIO times the plain version's; it holds the float32 kernels
+(forward, dq, dk+dv) to F32_TOL (atol = rtol = 1e-5). This script
+measures what those checks catch. For each entry of FAULTS it copies
+`ops/csrc/flash_attention.cu` into DIR (a new temporary directory by
+default), replaces one line of it (the fault), builds the copy with
+`ops/build.py`'s nvcc flags (all copies at once), loads it in place of
+the repo's library, and runs chip_smoke.py's checks at every shape of
+`KERNEL_CHECKS` in the fault's dtype (first seed, each causal case): in
+bf16 `backward_errs` on the plain forward's lse, in float32
+`kernel_checks` (the forward's o and lse, then the backward on the plain
+forward's lse and o and on the kernel's own). The first entry plants
+nothing and is checked in both dtypes. Per fault and shape it prints the
+largest share of the element limit that the forward's o and lse (float32)
+and dq, dk and dv use and the checks that failed (`backward_errs` prints
+the bf16 rms ratios). Exits 1 if the copy with nothing planted fails or a
 fault passes every check.
 """
 
@@ -92,6 +95,28 @@ FAULTS = {
         "      lse2[i] = lse[(size_t)bh * L + r] * LOG2E;\n",
         "      lse2[i] = lse[(size_t)bh * L + r];\n",
     )),
+    # f32 forward: the last group's partial (m, l, acc) is left out of the
+    # merge (every head dim's blocks split the streamed tiles)
+    "f32_fwd_group_partial_dropped": (F32, (
+        "    for (int p = 1; p < S; ++p) {\n",
+        "    for (int p = 1; p < S - 1; ++p) {\n",
+    )),
+    # f32 forward: a step's new max rescales l but not acc
+    "f32_fwd_correction_not_applied": (F32, (
+        "    for (int e = 0; e < DL; ++e) acc[i][e] *= corr;  // the step's correction\n",
+        "",
+    )),
+    # f32 forward: lse written in base 2, without the ln 2
+    "f32_fwd_lse_base2": (F32, (
+        "lse[(size_t)bh * L + r] = (m[i] + log2f(l[i])) * LN2;",
+        "lse[(size_t)bh * L + r] = m[i] + log2f(l[i]);",
+    )),
+    # f32 forward: the causal compare one column off, so the diagonal
+    # (k == q) is masked too
+    "f32_fwd_diagonal_masked": (F32, (
+        "kp + c > qp + i * (32 / R)",
+        "kp + c >= qp + i * (32 / R)",
+    )),
 }
 
 
@@ -120,26 +145,30 @@ def build_copy(work: str, name: str, fault, source=None) -> str:
 
 
 def check(name: str, dtypes) -> bool:
-    """chip_smoke.py's backward checks at every shape of KERNEL_CHECKS in
-    `dtypes`; prints the readings and returns whether any check failed."""
+    """chip_smoke.py's checks at every shape of KERNEL_CHECKS in `dtypes`
+    (bf16: the backward's; float32: the forward's and the backward's);
+    prints the readings and returns whether any check failed."""
     caught = False
     for dtype, shape, d, causals, seeds in cs.KERNEL_CHECKS:
         if dtype not in dtypes:
             continue
         q, k, v, do = cs.attention_inputs(*shape, d, dtype, seed=seeds[0])
         for causal in causals:
-            o, lse = fa.plain_forward(q, k, v, causal)
-            delta = fa.attention_delta(do, o)
             failures = []
             tag = f"{name} {tuple(q.shape)} causal={causal}"
-            readings = cs.backward_errs(fa, q, k, v, do, lse, delta, causal, cs.TOLS[dtype],
-                                        tag, failures)
-            shares = [round(s, 3) for r in (readings["flash_dq"], readings["flash_dkv"])
-                      for _err, s in r]
-            print(f"{tag}: (dq, dk, dv) shares of the element limit {shares}; "
+            if dtype == torch.float32:
+                readings = cs.kernel_checks(fa, q, k, v, do, causal, tag, failures)[2]
+                kernels, outputs = cs.KERNELS, "(o, lse, dq, dk, dv)"
+            else:
+                o, lse = fa.plain_forward(q, k, v, causal)
+                readings = cs.backward_errs(fa, q, k, v, do, lse, fa.attention_delta(do, o),
+                                            causal, cs.TOLS[dtype], tag, failures)
+                kernels, outputs = cs.KERNELS[1:], "(dq, dk, dv)"
+                del o, lse
+            shares = [round(s, 3) for n in kernels for _err, s in readings[n]]
+            print(f"{tag}: {outputs} shares of the element limit {shares}; "
                   + (f"FAILS: {'; '.join(failures)}" if failures else "passes"), flush=True)
             caught |= bool(failures)
-            del o, lse, delta
         del q, k, v, do
         torch.cuda.empty_cache()
     return caught

@@ -280,15 +280,28 @@ def test_ptxas_check_fails_on_a_spilling_float32_dkv():
         chip_smoke.check_ptxas(log)
 
 
-def test_ptxas_check_leaves_the_float32_forward_free_to_spill():
-    """`fa_fwd_kernel`, the float32 forward, is not held to no spills: its
-    spilling instantiations pass, and their registers are reported."""
+def test_ptxas_check_fails_on_a_spilling_float32_forward():
+    """`fa_fwd_kernel`, the float32 forward, is held to no spills like the
+    other kernels: a spilling instantiation at any head dim fails the
+    check."""
     import chip_smoke
 
-    assert "fa_fwd_kernel" not in chip_smoke.NO_SPILL
-    forward = [("fa_fwd_kernel", d) for d in tfa.HEAD_DIMS]
-    regs = chip_smoke.check_ptxas(_ptxas_log(_every_held()) + "\n" + _ptxas_log(forward, spill=8))
-    assert set(forward) <= set(regs)
+    assert "fa_fwd_kernel" in chip_smoke.NO_SPILL
+    for d in tfa.HEAD_DIMS:
+        log = "\n".join(
+            _ptxas_log([x], spill=8 if x == ("fa_fwd_kernel", d) else 0) for x in _every_held()
+        )
+        with pytest.raises(AssertionError, match=f"fa_fwd_kernelILi{d}E.* spills"):
+            chip_smoke.check_ptxas(log)
+
+
+def test_ptxas_check_fails_on_a_missing_float32_forward_instantiation():
+    """Without `fa_fwd_kernel` at D = 128 the check fails."""
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match=r"no registers for \[\('fa_fwd_kernel', 128\)\]"):
+        chip_smoke.check_ptxas(
+            _ptxas_log([x for x in _every_held() if x != ("fa_fwd_kernel", 128)]))
 
 
 def test_bound_counts_the_exponentials():
