@@ -33,7 +33,9 @@ its result lines only when every phase passed:
    bound is the largest of three terms (`bounds`: the products on the
    tensor cores, the bytes, the exponentials on the special-function
    units at the card's SM clock). Then checks the model's forward and
-   backward against the materializing reference;
+   backward against the materializing reference, and the MoE model's
+   (`phase_moe_reference`: dense dispatch at a capacity that drops
+   nothing) against the per-token reference loop;
 4. trains the base transformer (vocab 8192, d_model 512, 8 heads,
    d_ff 2048, 8 layers, bfloat16 compute, batch 8 x seq 1024) for 8
    per-step updates through the port's in-process master/PS loop, and
@@ -82,12 +84,27 @@ its result lines only when every phase passed:
    fallbacks and the launches (forward twice a layer a step: the remat
    recompute; dq and dk+dv once); prints steady tokens/s, the
    ReportGradient handler seconds, the window sync split, and the peak
-   device memory of one step under remat off / full / dots;
+   device memory of one step under remat off / full / dots; the
+   reference's xl config (`phase_xl`: d_model 2048, 16 heads of 128, d_ff
+   8192, 8 layers, remat "dots", bf16, b8 x s1024, 436,242,432
+   parameters), 4 per-step updates and 16 window steps with the same
+   checks and prints, and its peak memory of one step; the reference's
+   MoE config (`phase_moe`: the base width with every FFN 8 experts of
+   256, top-1 at capacity factor 2.0, bf16, b8 x s1024, 33,595,904
+   parameters), 8 per-step updates and 16 window steps with the same
+   checks, every leaf and in every layer the router and each expert's
+   weights moved; then one `_route` call on a real batch (tokens per
+   expert, dropped share, aux), the peak memory of one step and the
+   step's device time split by torch.profiler into the routing products,
+   the expert FFNs, attention and the rest;
 10. window mode in process mode (`phase_window_process_job`): master.main
    with `--local_updates 4 --sync_dtype bfloat16`, 2 workers, 32 steps;
    checks rc, versions (the `--output` version = the workers' applied
-   steps), steps computed = applied, launches; prints merged-back
-   absorbs per worker;
+   steps), steps computed = applied, finite moved parameters, each
+   worker's device, launches and no fallback; prints merged-back absorbs
+   per worker, and rpc and PS add a sync (the servicer lock included);
+   then the same of the large config (b16, tasks of one window, 16
+   steps);
 11. the drain (`phase_window_drain`): SIGTERM to worker 0 mid-window of
    the same job drains it (exit 0, its drain line, nothing requeued,
    every step applied once); SIGKILL in a second job requeues its tasks
@@ -125,10 +142,13 @@ its result lines only when every phase passed:
    per-step run at 64, the large per-step run at 128; at 32, which no
    path runs, every path's count summed), `process_launches`,
    `window_launches`, `window_process_launches`, `large_launches`,
-   `large_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
+   `large_window_launches`, `large_window_process_launches`,
+   `xl_launches`, `xl_window_launches`, `moe_launches`,
+   `moe_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
    (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows);
    and each row's bound term, `bound_term`, with all three terms), the
-   card line, and the result line.
+   card line, and the result line. Each phase prints its wall-clock
+   seconds (`timed`).
 
 Float32 products run in full float32: TF32 is switched off for matmuls
 and cuDNN.
@@ -192,6 +212,20 @@ LARGE = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=16)
 LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
                 "dtype=bfloat16,remat=True,remat_policy=dots")
 LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 16
+# the reference's xl config (bench_transformer.py:211-221): 16 heads of 128,
+# d_ff 8192, 8 layers, remat "dots", bf16 compute, b8 x s1024
+XL_PARAMS = ("vocab=8192,d_model=2048,n_heads=16,d_ff=8192,n_layers=8,n_micro=1,"
+             "dtype=bfloat16,remat=True,remat_policy=dots")
+XL_N_PARAMS = 436_242_432
+XL_BATCH, XL_STEPS, XL_WINDOW_STEPS = 8, 4, 16
+# the reference's MoE config (bench_transformer.py:245-257): the base
+# transformer's width with every FFN 8 experts of d_expert 256 (top-1,
+# capacity factor 2.0: the config's defaults), bf16 compute, b8 x s1024,
+# the zoo's clip 1.0 + Adam
+MOE_PARAMS = ("vocab=8192,d_model=512,n_heads=8,d_ff=2048,n_layers=8,n_experts=8,n_micro=1,"
+              "dtype=bfloat16")
+MOE_N_PARAMS = 33_595_904
+MOE_STEPS, MOE_WINDOW_STEPS = 8, 16
 # the zoo's default model, `custom_model()` with no --model_params (4 heads
 # of 16), over records of SEQ tokens; ZOO_HEAD_DIM8 is its width with 8
 # heads (head dim 8, which no kernel takes: the fallback on the card)
@@ -710,7 +744,7 @@ def phase_model_reference():
     for t in leaves:
         t.requires_grad_()
     results = []
-    for forward in (tlm.plain_forward, tlm.reference_forward):
+    for forward in (lambda *a: tlm.plain_forward(*a)[0], tlm.reference_forward):
         logits = forward(cfg, params, tokens[:, :-1])
         loss = tlm.token_cross_entropy(logits, tokens[:, 1:])
         results.append((logits, *torch.autograd.grad(loss, leaves)))
@@ -867,15 +901,16 @@ def zoo_model(model_params):
     return get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params).model
 
 
-def master_argv(data_dir, num_workers, output, model_params=SLICE_PARAMS):
+def master_argv(data_dir, num_workers, output, model_params=SLICE_PARAMS, batch=BATCH,
+                task_records=TASK_RECORDS):
     """The port's master command line for the zoo's transformer on the
     card (the slice's model by default; no `--model_params` flag when
     `model_params` is empty, as a user runs the zoo's default)."""
     return [
         "--model_zoo", ZOO, "--model_def", "transformer_lm_zoo.custom_model",
         *(["--model_params", model_params] if model_params else []),
-        "--minibatch_size", str(BATCH),
-        "--training_data_dir", data_dir, "--records_per_task", str(TASK_RECORDS),
+        "--minibatch_size", str(batch),
+        "--training_data_dir", data_dir, "--records_per_task", str(task_records),
         "--num_epochs", "1", "--grads_to_wait", "1", "--num_workers", str(num_workers),
         "--worker_backend", "process", "--device", "cuda", "--output", output,
     ]
@@ -995,11 +1030,11 @@ def phase_process_job(tmp, name="process", model_params=SLICE_PARAMS) -> dict:
         return summed_launches(summaries)
 
 
-def window_steady(window_log) -> float:
+def window_steady(window_log, batch=BATCH) -> float:
     """Tokens/s from the first to the last window sync that landed."""
     log = sorted(window_log)
     steps = sum(n for _t, n, _loss in log[1:])
-    return steps * BATCH * SEQ / (log[-1][0] - log[0][0])
+    return steps * batch * SEQ / (log[-1][0] - log[0][0])
 
 
 def phase_window(fa, tmp):
@@ -1304,132 +1339,354 @@ def phase_zoo_head_dim8(fa, tmp):
                              f"{fallbacks} fallbacks, launches {launches}")
 
 
-def peak_step_memory():
+def peak_step_memory(cfg, batch, settings=(("off", False, ""), ("full", True, ""),
+                                           ("dots", True, "dots"))) -> dict:
     """Peak device memory (GiB above the parameters, the gradient and the
-    batch) of one forward + backward of the large config under each remat
-    setting, from the same host init; not part of the counted paths."""
+    batch) of one forward + backward of `cfg` at `batch` x SEQ under each
+    remat setting (name, remat, policy), from the same host init; not part
+    of the counted paths."""
+    import dataclasses
+
     from elasticdl_tpu_torch.common import codec
     from elasticdl_tpu_torch.models import transformer_lm as tlm
 
     tokens = torch.from_numpy(
-        np.random.default_rng(1).integers(0, LARGE["vocab"], (LARGE_BATCH, SEQ + 1))
+        np.random.default_rng(1).integers(0, cfg.vocab, (batch, SEQ + 1))
     ).cuda()
-    cfg = tlm.TransformerConfig(**LARGE, dtype=torch.bfloat16)
     params = codec.tree_map(lambda a: torch.from_numpy(a).cuda().requires_grad_(),
                             tlm.init_params(np.random.default_rng(0), cfg))
     leaves = codec.tree_leaves(params)
     peaks = {}
-    for name, remat, policy in (("off", False, ""), ("full", True, ""), ("dots", True, "dots")):
-        run_cfg = tlm.TransformerConfig(**LARGE, dtype=torch.bfloat16, remat=remat,
-                                        remat_policy=policy)
+    for name, remat, policy in settings:
+        run_cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        logits = tlm.plain_forward(run_cfg, params, tokens[:, :-1])
-        loss = tlm.token_cross_entropy(logits, tokens[:, 1:])
-        del logits
+        logits, aux = tlm.plain_forward(run_cfg, params, tokens[:, :-1])
+        loss = tlm.token_cross_entropy(logits, tokens[:, 1:]) + cfg.aux_weight * aux.float()
+        del logits, aux
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
         grad_bytes = sum(g.numel() * g.element_size() for g in grads)
         peaks[name] = (torch.cuda.max_memory_allocated() - base - grad_bytes) / 2**30
         del grads, loss
-    print(f"large config peak device memory of one step (forward + backward, GiB beyond "
-          f"the f32 parameters, their gradient and the batch): remat off {peaks['off']:.2f}, "
-          f"full {peaks['full']:.2f}, dots {peaks['dots']:.2f}")
     return peaks
+
+
+def config_runs(fa, tmp, name, model_params, batch, steps, window_steps, n_params,
+                check=None):
+    """A config of the zoo's transformer from its `--model_params` string
+    on the card, in-process at `batch` x SEQ: `steps` per-step updates,
+    then `window_steps` window steps (`local_updates=4,
+    sync_dtype="bfloat16"`, tasks of one window). Fails unless the model
+    has `n_params` parameters; each run is held to `check_run` (the
+    forward twice a layer a step under remat) and to `check(servicer,
+    model)` when given. Prints each run's steady tokens/s, the host PS
+    apply a step (per-step) and the sync split (window). Returns
+    (per-step launches, window launches, the config)."""
+    counts = []
+    for window, n, task_records in ((0, steps, batch * steps // 2),
+                                    (WINDOW, window_steps, batch * WINDOW)):
+        mode = f"window (W {WINDOW}, bf16 EF deltas)" if window else "per-step"
+        worker_kw = dict(local_updates=WINDOW, sync_dtype="bfloat16") if window else {}
+        dispatcher, servicer, master, worker, model = spec_job(
+            os.path.join(tmp, f"{name}-{window}.rio"), model_params, batch, batch * n,
+            task_records, **worker_kw)
+        cfg = model.cfg
+        count = sum(p.numel() for p in model.parameters())
+        if count != n_params:
+            raise AssertionError(f"{name}: {count:,} parameters, {n_params:,} expected")
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        ok = worker.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = read_counts(fa)
+        worker.close()
+        windows = list(worker.window_log)
+        losses = ([round(x, 4) for _t, _n, x in windows] if window
+                  else [round(x, 4) for _t, x in worker.step_log])
+        print(f"{name} {mode} ({count:,} params, head dim {cfg.head_dim}, remat "
+              f"{cfg.remat_policy if cfg.remat else 'off'!r}, b{batch} x s{SEQ}): {n} steps, "
+              f"exactness {servicer.exactness()}, losses {losses}, launches {launches}, "
+              f"fallbacks {fallbacks}")
+        check_run(f"{name} {mode}", ok, dispatcher, servicer, worker, model, launches,
+                  fallbacks, n, forward_per_layer=2 if cfg.remat else 1)
+        if check:
+            check(servicer, model)
+        tokens = batch * SEQ
+        if window:
+            steady = window_steady(windows, batch)
+            print(f"{name} {mode}: {n * tokens / wall:.1f} tokens/s over the whole run "
+                  f"({wall:.2f} s incl. model init), {steady:.1f} tokens/s from the first to "
+                  f"the last window sync; a sync: "
+                  + ", ".join(f"{k} {v / len(windows):.4f}"
+                              for k, v in sorted(worker.sync_seconds.items()))
+                  + f" s; PS add {master.handler_seconds['ReportLocalUpdate'] / len(windows):.4f}"
+                  f" s a window; worker phases {rounded(worker.phase_seconds)}")
+        else:
+            times = [t for t, _loss in worker.step_log]
+            print(f"{name} {mode}: {n * tokens / wall:.1f} tokens/s over the whole run "
+                  f"({wall:.2f} s incl. model init), "
+                  f"{(len(times) - 1) * tokens / (times[-1] - times[0]):.1f} tokens/s over "
+                  f"steps 2-{n}; host PS apply (ReportGradient handler) "
+                  f"{master.handler_seconds['ReportGradient'] / n:.4f} s a step; worker phases "
+                  f"{rounded(worker.phase_seconds)}, wire codec {rounded(master.codec_seconds)}")
+        counts.append(launches)
+        del dispatcher, servicer, master, worker, model
+        torch.cuda.empty_cache()
+    return counts[0], counts[1], cfg
 
 
 def phase_large(fa, tmp):
     """The reference's large config (d_model 1024, 8 heads of 128, d_ff
-    4096, 16 layers, bf16, remat "dots", b16 x s1024; 218.1M parameters)
-    on the card: LARGE_STEPS per-step updates, then LARGE_WINDOW_STEPS
-    window steps (`local_updates=4, sync_dtype="bfloat16"`). Returns the
-    kernels' launches of each run."""
-    steps = LARGE_STEPS
-    dispatcher, servicer, master, worker, model = spec_job(
-        os.path.join(tmp, "large.rio"), LARGE_PARAMS, LARGE_BATCH, LARGE_BATCH * steps,
-        LARGE_BATCH * steps // 2)
-    n_params = sum(p.numel() for p in model.parameters())
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    ok = worker.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, fallbacks = read_counts(fa)
-    worker.close()
-    print(f"large config ({n_params:,} params, {model.cfg.head_dim} head dim, remat "
-          f"{model.cfg.remat_policy!r}): {steps} per-step updates, exactness "
-          f"{servicer.exactness()}, losses {[round(x, 4) for _t, x in worker.step_log]}, "
-          f"launches {launches}, fallbacks {fallbacks}")
-    check_run("large per-step", ok, dispatcher, servicer, worker, model, launches, fallbacks,
-              steps, forward_per_layer=2)
-    times = [t for t, _loss in worker.step_log]
-    tokens = LARGE_BATCH * SEQ
-    print(f"large per-step throughput: {steps * tokens / wall:.1f} tokens/s over the whole run "
-          f"({wall:.2f} s incl. model init), {(len(times) - 1) * tokens / (times[-1] - times[0]):.1f}"
-          f" tokens/s over steps 2-{steps}; host PS apply (ReportGradient handler) "
-          f"{master.handler_seconds['ReportGradient'] / steps:.4f} s a step; worker phases "
-          f"{rounded(worker.phase_seconds)}, wire codec {rounded(master.codec_seconds)}")
-    del dispatcher, servicer, master, worker, model
-
-    steps = LARGE_WINDOW_STEPS
-    dispatcher, servicer, master, worker, model = spec_job(
-        os.path.join(tmp, "large-window.rio"), LARGE_PARAMS, LARGE_BATCH, LARGE_BATCH * steps,
-        LARGE_BATCH * WINDOW, local_updates=WINDOW, sync_dtype="bfloat16")
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    ok = worker.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    window_launches, fallbacks = read_counts(fa)
-    worker.close()
-    windows = list(worker.window_log)
-    print(f"large window mode (W {WINDOW}, bf16 EF deltas): {len(windows)} syncs of "
-          f"{[n for _t, n, _l in windows]} steps, exactness {servicer.exactness()}, window "
-          f"losses {[round(loss, 4) for _t, _n, loss in windows]}, launches "
-          f"{window_launches}, fallbacks {fallbacks}")
-    check_run("large window", ok, dispatcher, servicer, worker, model, window_launches,
-              fallbacks, steps, forward_per_layer=2)
-    n_windows = len(windows)
-    steady = sum(n for _t, n, _l in windows[1:]) * LARGE_BATCH * SEQ / (
-        windows[-1][0] - windows[0][0])
-    print(f"large window throughput: {steps * LARGE_BATCH * SEQ / wall:.1f} tokens/s over the "
-          f"whole run ({wall:.2f} s incl. model init), {steady:.1f} tokens/s from the first to "
-          f"the last window sync; sync seconds per sync: "
-          + ", ".join(f"{k} {v / n_windows:.4f}" for k, v in sorted(worker.sync_seconds.items()))
-          + f"; PS add a window {master.handler_seconds['ReportLocalUpdate'] / n_windows:.4f} s"
-          f"; worker phases {rounded(worker.phase_seconds)}")
-    del dispatcher, servicer, master, worker, model
-    torch.cuda.empty_cache()
-    peak_step_memory()
+    4096, 16 layers, bf16, remat "dots", b16 x s1024; 218,137,600
+    parameters) on the card: LARGE_STEPS per-step updates, then
+    LARGE_WINDOW_STEPS window steps; then the peak memory of one step under
+    each remat setting. Returns the kernels' launches of each run."""
+    launches, window_launches, cfg = config_runs(
+        fa, tmp, "large", LARGE_PARAMS, LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS,
+        218_137_600)
+    peaks = peak_step_memory(cfg, LARGE_BATCH)
+    print(f"large config peak device memory of one step (forward + backward, GiB beyond "
+          f"the f32 parameters, their gradient and the batch): remat off {peaks['off']:.2f}, "
+          f"full {peaks['full']:.2f}, dots {peaks['dots']:.2f}")
     torch.cuda.empty_cache()
     return launches, window_launches
 
 
-def phase_window_process_job(tmp) -> dict:
+def phase_xl(fa, tmp):
+    """The reference's xl config (d_model 2048, 16 heads of 128, d_ff 8192,
+    8 layers, bf16, remat "dots", b8 x s1024; 436,242,432 parameters) on
+    the card through the D = 128 kernels: XL_STEPS per-step updates, then
+    XL_WINDOW_STEPS window steps; then the peak memory of one step under
+    its remat "dots". Returns the kernels' launches of each run."""
+    launches, window_launches, cfg = config_runs(
+        fa, tmp, "xl", XL_PARAMS, XL_BATCH, XL_STEPS, XL_WINDOW_STEPS, XL_N_PARAMS)
+    peaks = peak_step_memory(cfg, XL_BATCH, (("dots", True, "dots"),))
+    print(f"xl config peak device memory of one step (forward + backward, GiB beyond the f32 "
+          f"parameters, their gradient and the batch), remat dots: {peaks['dots']:.2f}")
+    torch.cuda.empty_cache()
+    return launches, window_launches
+
+
+def check_moe_moved(servicer, model):
+    """Every leaf of the MoE model moved, and in every layer the router
+    and each expert's ew1 and ew2 slices: at 8,192 tokens a step over 8
+    experts each expert takes tokens in every layer."""
+    final, _aux, _v = servicer.get_params_copy()
+    init = model.init_params(0)
+    layers = final["layers"]
+    for key in ("embed", "head", "ln_f"):
+        if np.array_equal(final[key], init[key]):
+            raise AssertionError(f"MoE: {key} did not move")
+    for key, leaf in layers.items():
+        for i in range(leaf.shape[0]):
+            parts = range(leaf.shape[1]) if key in ("ew1", "ew2") else (None,)
+            for e in parts:
+                at = (i,) if e is None else (i, e)
+                if np.array_equal(leaf[at], init["layers"][key][at]):
+                    raise AssertionError(f"MoE: layers.{key}{list(at)} did not move")
+
+
+def moe_route_probe(model, path, batch):
+    """One `_route` call on a real batch: the first `batch` records of
+    `path` through the model's init on the card; layer 0's routing: tokens
+    routed to each expert, tokens kept under capacity, the dropped share
+    and the aux. Not part of the counted paths."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+    from elasticdl_tpu_torch.parallel import moe
+
+    with RecordIOReader(path) as r:
+        features, _labels = zoo.dataset_fn(list(r.read_range(0, batch)), "training")
+    params = codec.tree_map(lambda a: torch.from_numpy(a).cuda(), model.init_params(0))
+    calls, real = [], moe._route
+
+    def recording(x, router_w, num_experts, capacity):
+        out = real(x, router_w, num_experts, capacity)
+        calls.append((x, router_w, capacity, out))
+        return out
+
+    moe._route = recording
+    try:
+        with torch.no_grad():
+            tlm.plain_forward(model.cfg, params, torch.from_numpy(features).long().cuda())
+    finally:
+        moe._route = real
+    x, router_w, capacity, (dispatch, _combine, aux) = calls[0]
+    routed = torch.bincount(torch.argmax((x @ router_w).float(), dim=-1),
+                            minlength=model.cfg.n_experts)
+    kept = dispatch.float().sum(dim=(0, 2))
+    t = x.shape[0]
+    dropped = 1.0 - float(kept.sum()) / t
+    print(f"MoE routing, layer 0 of the init on {batch} records ({t} tokens, capacity "
+          f"{capacity} a expert): routed {routed.tolist()}, kept {kept.int().tolist()}, "
+          f"dropped share {dropped:.4f}, aux {float(aux):.4f} (1.0 when balanced); "
+          f"{len(calls)} routing calls ({model.cfg.n_layers} layers)")
+    if len(calls) != model.cfg.n_layers or not math.isfinite(float(aux)):
+        raise AssertionError(f"MoE probe: {len(calls)} routing calls, aux {float(aux)}")
+    return dropped
+
+
+def moe_profile(model_params, path, batch, steps=3):
+    """The MoE step's device time split by torch.profiler (in-process,
+    `steps` forward + backward of the config on the card, after one
+    warm-up): the routing products (aten::mm with the experts' E*C slots
+    in a dimension: dispatch and combine, forward and backward), the
+    expert FFNs (aten::bmm), the attention kernels (fa_*) and the rest.
+    Not part of the counted paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+
+    model = zoo_model(model_params)
+    cfg = model.cfg
+    with RecordIOReader(path) as r:
+        features, labels = zoo.dataset_fn(list(r.read_range(0, batch)), "training")
+    tokens = torch.from_numpy(features).long().cuda()
+    targets = torch.from_numpy(labels).long().cuda()
+    params = codec.tree_map(lambda a: torch.from_numpy(a).cuda().requires_grad_(),
+                            model.init_params(0))
+    leaves = codec.tree_leaves(params)
+    slots = cfg.n_experts * max(1, math.ceil(batch * SEQ * cfg.capacity_factor
+                                             / cfg.n_experts))
+
+    def step():
+        logits, aux = tlm.plain_forward(cfg, params, tokens)
+        loss = tlm.token_cross_entropy(logits, targets) + cfg.aux_weight * aux.float()
+        torch.autograd.grad(loss, leaves)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if total == 0:
+        print("MoE profile: the profiler recorded no device time (not measured)")
+        return
+    parts = {"routing products": 0.0, "expert FFN": 0.0, "attention": 0.0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if re.search(r"\bfa_(fwd|dq|dkv)", e.name):
+                parts["attention"] += e.self_device_time_total
+        elif e.name == "aten::bmm":
+            parts["expert FFN"] += e.device_time_total
+        elif e.name == "aten::mm" and any(slots in shape for shape in e.input_shapes
+                                          if isinstance(shape, list)):
+            parts["routing products"] += e.device_time_total
+    parts = {k: v / 1e3 / steps for k, v in parts.items()}
+    parts["rest"] = total - sum(parts.values())
+    print(f"MoE profile (b{batch} x s{SEQ}, forward + backward, no optimizer): device time "
+          f"{total:.2f} ms a step: " + ", ".join(
+              f"{k} {v:.2f} ms ({v / total:.3f})" for k, v in parts.items()))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
+              f"{e.count // steps:4d}x  {e.key[:90]}")
+
+
+def phase_moe(fa, tmp):
+    """The reference's MoE config (the base width, every FFN 8 experts of
+    256, top-1 at capacity factor 2.0, bf16, b8 x s1024; 33,595,904
+    parameters) on the card through the D = 64 kernels: MOE_STEPS
+    per-step updates and MOE_WINDOW_STEPS window steps, each with every
+    leaf, router and expert moved; one `_route` call on a real batch; the
+    peak memory of one step; the device time split. Returns the kernels'
+    launches of each run."""
+    launches, window_launches, cfg = config_runs(
+        fa, tmp, "moe", MOE_PARAMS, BATCH, MOE_STEPS, MOE_WINDOW_STEPS, MOE_N_PARAMS,
+        check=check_moe_moved)
+    if (cfg.n_experts, cfg.d_expert, cfg.capacity_factor) != (8, 256, 2.0):
+        raise AssertionError(f"MoE config {cfg}")
+    path = os.path.join(tmp, "moe-0.rio")
+    moe_route_probe(zoo_model(MOE_PARAMS), path, BATCH)
+    peaks = peak_step_memory(cfg, BATCH, (("off", False, ""),))
+    print(f"MoE config peak device memory of one step (forward + backward, GiB beyond the f32 "
+          f"parameters, their gradient and the batch), no remat: {peaks['off']:.2f}")
+    torch.cuda.empty_cache()
+    moe_profile(MOE_PARAMS, path, BATCH)
+    torch.cuda.empty_cache()
+    return launches, window_launches
+
+
+def phase_moe_reference():
+    """The MoE model's forward and backward on the card against the
+    per-token reference loop (`reference_forward`: each token's argmax
+    expert, gate x its FFN), float32, small shape, with capacity factor E
+    (capacity = all T tokens) so nothing drops; the aux is not in the
+    reference, so both sides take the cross-entropy's gradients."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.convert import params_from_jax
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+
+    cfg = tlm.TransformerConfig(vocab=256, d_model=128, n_heads=2, d_ff=256, n_layers=2,
+                                n_experts=4, d_expert=64, capacity_factor=4.0)
+    host = tlm.init_params(np.random.default_rng(3), cfg)
+    params = codec.tree_map(lambda t: t.cuda(), params_from_jax(host))
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab, (2, 129))
+    ).cuda()
+    leaves = codec.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    results = []
+    for forward in (lambda *a: tlm.plain_forward(*a)[0], tlm.reference_forward):
+        logits = forward(cfg, params, tokens[:, :-1])
+        loss = tlm.token_cross_entropy(logits, tokens[:, 1:])
+        results.append((logits, *torch.autograd.grad(loss, leaves)))
+    failures = []
+    readings = check_close("MoE model logits and grads", results[0], results[1],
+                           (MODEL_TOL,) * len(results[0]), failures)
+    if failures:
+        raise AssertionError("\n".join(failures))
+    print(f"MoE model forward+backward (kernels, dense dispatch) vs the per-token reference, "
+          f"f32 [2, 128], 4 experts, nothing dropped: max|err| "
+          f"{max(err for err, _share in readings):.3e}")
+
+
+def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARAMS,
+                             batch=BATCH, task_records=TASK_RECORDS) -> dict:
     """`master.main ... --local_updates 4 --sync_dtype bfloat16
-    --worker_backend process` with 2 workers on the card, 4 shards of 64
-    records (32 steps). Returns the launches summed over the workers."""
+    --worker_backend process` with 2 workers on the card over 4 shards of
+    64 records (the base model by default: 32 steps; the large config at
+    b16 in tasks of one window: 16 steps). Checks rc, the `--output`
+    version = the workers' applied steps = steps computed, finite moved
+    parameters, and each worker's device, launches at the model's head
+    dim (the forward twice a layer under remat) and no fallback. Returns
+    the launches summed over the workers."""
     from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
     from elasticdl_tpu_torch.master import main as master_main
     from elasticdl_tpu_torch.master.checkpoint import load_model_file
     from elasticdl_tpu_torch.worker.main import read_summaries
 
-    data = os.path.join(tmp, "window-process-data")
-    log_dir = os.path.join(tmp, "window-process-logs")
+    cfg = zoo_model(model_params).cfg
+    tag = name.replace(" ", "-")
+    data, log_dir = os.path.join(tmp, f"{tag}-data"), os.path.join(tmp, f"{tag}-logs")
     with logs_on_failure(log_dir):
-        output = os.path.join(tmp, "window-process.ckpt")
-        write_shards(data, 4)
-        steps = 4 * SHARD_RECORDS // BATCH
+        output = os.path.join(tmp, f"{tag}.ckpt")
+        write_shards(data, 4, cfg.vocab)
+        steps = 4 * SHARD_RECORDS // batch
         os.environ[ENV_WORKER_LOG_DIR] = log_dir
         try:
             t0 = time.perf_counter()
-            rc, master = master_main.run(master_argv(data, 2, output) + WINDOW_ARGS)
+            rc, master = master_main.run(
+                master_argv(data, 2, output, model_params, batch, task_records) + WINDOW_ARGS)
             wall = time.perf_counter() - t0
         finally:
             del os.environ[ENV_WORKER_LOG_DIR]
         if rc != 0:
-            raise AssertionError(f"master.main (window mode) exited {rc}")
+            raise AssertionError(f"{name}: master.main (window mode) exited {rc}")
         model = load_model_file(output)
         summaries = read_summaries(log_dir)
         if sorted(summaries) != [0, 1]:
@@ -1438,38 +1695,48 @@ def phase_window_process_job(tmp) -> dict:
         computed = sum(s["steps_computed"] for s in summaries.values())
         exactness = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
         windows = [w for s in summaries.values() for w in s["windows"]]
-        print(f"window process job: rc {rc}, version {model.version}, {wall:.2f} s, "
-              f"{steps * BATCH * SEQ / wall:.1f} tokens/s over the whole run (worker boot "
-              f"included), {window_steady(windows):.1f} tokens/s from the first to the last "
-              f"window sync; exactness {exactness}; steps computed {computed}, accepted "
-              f"{accepted}")
+        print(f"{name} job (--model_params {model_params!r}, b{batch}): rc {rc}, version "
+              f"{model.version}, {wall:.2f} s, {steps * batch * SEQ / wall:.1f} tokens/s over "
+              f"the whole run (worker boot included), {window_steady(windows, batch):.1f} "
+              f"tokens/s from the first to the last window sync; exactness {exactness}; steps "
+              f"computed {computed}, accepted {accepted}")
         for wid, s in summaries.items():
             n = max(1, len(s["windows"]))
-            print(f"window process worker {wid}: {s['steps_accepted']} steps in "
+            print(f"{name} worker {wid} on {s['device']}: {s['steps_accepted']} steps in "
                   f"{len(s['windows'])} syncs, {s['merged_back']} merged-back absorbs, sync "
                   f"seconds per sync {rounded({k: v / n for k, v in s['sync_seconds'].items()})}, "
                   f"phase seconds {rounded(s['phase_seconds'])}, client seconds "
                   f"{rounded(s['rpc_seconds'])}, launches {s['launches']}, fallbacks "
                   f"{s['attention_fallbacks']}")
         server = master["server"]
-        print(f"window process master: server handler seconds "
-              f"{rounded(server['handler_seconds'])}, calls {server['calls']}")
+        syncs = server["calls"].get("ReportLocalUpdate", 0)
+        rpc = sum(s["sync_seconds"].get("rpc", 0.0) for s in summaries.values())
+        add = server["handler_seconds"].get("ReportLocalUpdate", 0.0)
+        print(f"{name} master: server handler seconds {rounded(server['handler_seconds'])}, "
+              f"calls {server['calls']}; a sync: rpc {rpc / max(1, syncs):.4f} s (worker side), "
+              f"PS add {add / max(1, syncs):.4f} s (ReportLocalUpdate handler, the servicer "
+              f"lock included), {syncs} syncs")
         if model.version != steps or accepted != steps or exactness["version"] != steps:
-            raise AssertionError(f"--output version {model.version}, workers' applied steps "
-                                 f"{accepted}, exactness {exactness}: {steps} expected")
+            raise AssertionError(f"{name}: --output version {model.version}, workers' applied "
+                                 f"steps {accepted}, exactness {exactness}: {steps} expected")
         if exactness["version"] != exactness["init_version"] + exactness["applied_update_steps"]:
-            raise AssertionError(f"exactness block broken: {exactness}")
+            raise AssertionError(f"{name}: exactness block broken: {exactness}")
         if computed != accepted:
-            raise AssertionError(f"{computed} steps computed for {accepted} applied")
-        check_params(model.params, "window process job")
+            raise AssertionError(f"{name}: {computed} steps computed for {accepted} applied")
+        check_params(model.params, f"{name} job", model_params)
+        card = torch.cuda.get_device_name(0)
+        forward_per_layer = 2 if cfg.remat else 1
         for wid, s in summaries.items():
-            want = want_launches(64, dict.fromkeys(KERNELS,
-                                                   SLICE["n_layers"] * s["steps_computed"]))
+            n = cfg.n_layers * s["steps_computed"]
+            want = want_launches(cfg.head_dim, {"flash_forward": forward_per_layer * n,
+                                                "flash_dq": n, "flash_dkv": n})
+            if s["device"] != card:
+                raise AssertionError(f"{name} worker {wid} ran on {s['device']!r}, not {card!r}")
             if s["launches"] != want or s["attention_fallbacks"]:
-                raise AssertionError(f"worker {wid} launches {s['launches']}, {want} expected, "
-                                     f"fallbacks {s['attention_fallbacks']}")
+                raise AssertionError(f"{name} worker {wid} launches {s['launches']}, {want} "
+                                     f"expected, fallbacks {s['attention_fallbacks']}")
             if not all(math.isfinite(loss) for _t, _n, loss in s["windows"]):
-                raise AssertionError(f"worker {wid}: window losses not finite")
+                raise AssertionError(f"{name} worker {wid}: window losses not finite")
         return summed_launches(summaries)
 
 
@@ -2075,6 +2342,14 @@ def phase_image_process_job(tmp):
               f"calls {server['calls']}")
 
 
+def timed(phase, *args):
+    """Run one phase and print its wall-clock seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2096,29 +2371,35 @@ def main() -> int:
     with open(os.path.join(build.BUILD_DIR, "flash_attention.log")) as f:
         registers = check_ptxas(f.read())
 
-    rows, pairs = phase_kernels(fa)
-    phase_model_reference()
+    rows, pairs = timed(phase_kernels, fa)
+    timed(phase_model_reference)
+    timed(phase_moe_reference)
     with tempfile.TemporaryDirectory() as tmp:
         counts = {}
-        counts["launches"] = phase_train(fa, tmp)
-        phase_profile(tmp)
-        counts["window_launches"] = phase_window(fa, tmp)
-        phase_window_profile(tmp)
-        phase_ef_card(slice_param_count())
-        counts.update(phase_zoo_default(fa, tmp))
-        phase_zoo_head_dim8(fa, tmp)
-        counts["large_launches"], counts["large_window_launches"] = phase_large(fa, tmp)
-        phase_image_models()
-        phase_image_per_step(fa, tmp)
-        phase_cifar_window(fa, tmp)
-        phase_resnet_window(fa, tmp)
+        counts["launches"] = timed(phase_train, fa, tmp)
+        timed(phase_profile, tmp)
+        counts["window_launches"] = timed(phase_window, fa, tmp)
+        timed(phase_window_profile, tmp)
+        timed(phase_ef_card, slice_param_count())
+        counts.update(timed(phase_zoo_default, fa, tmp))
+        timed(phase_zoo_head_dim8, fa, tmp)
+        counts["large_launches"], counts["large_window_launches"] = timed(phase_large, fa, tmp)
+        counts["xl_launches"], counts["xl_window_launches"] = timed(phase_xl, fa, tmp)
+        counts["moe_launches"], counts["moe_window_launches"] = timed(phase_moe, fa, tmp)
+        timed(phase_image_models)
+        timed(phase_image_per_step, fa, tmp)
+        timed(phase_cifar_window, fa, tmp)
+        timed(phase_resnet_window, fa, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
-        counts["process_launches"] = phase_process_job(tmp)
-        counts["zoo_process_launches"] = phase_process_job(tmp, "zoo-process", "")
-        phase_preemption(tmp)
-        counts["window_process_launches"] = phase_window_process_job(tmp)
-        phase_window_drain(tmp)
-        phase_image_process_job(tmp)
+        counts["process_launches"] = timed(phase_process_job, tmp)
+        counts["zoo_process_launches"] = timed(phase_process_job, tmp, "zoo-process", "")
+        timed(phase_preemption, tmp)
+        counts["window_process_launches"] = timed(phase_window_process_job, tmp)
+        counts["large_window_process_launches"] = timed(
+            phase_window_process_job, tmp, "large window process", LARGE_PARAMS, LARGE_BATCH,
+            LARGE_BATCH * WINDOW)
+        timed(phase_window_drain, tmp)
+        timed(phase_image_process_job, tmp)
     # each row's counts are its own kernel's at its own head dim, per path
     # of its dtype (the wrappers count by head dim; a path runs one dtype)
     for by_kernel in rows.values():

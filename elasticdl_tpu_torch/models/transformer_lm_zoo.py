@@ -30,8 +30,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class TransformerLM(nn.Module):
     """Parameters are registered in the reference's tree layout
-    (`layers` is a ParameterDict of stacked [n_layers, ...] tensors);
-    `forward` is `plain_forward` over them."""
+    (`layers` is a ParameterDict of stacked [n_layers, ...] tensors, the
+    expert leaves of an MoE config included); `forward` is
+    `plain_forward` over them."""
 
     def __init__(self, **cfg_kwargs):
         super().__init__()
@@ -59,8 +60,13 @@ class TransformerLM(nn.Module):
             "layers": dict(self.layers.items()),
         }
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return plain_forward(self.cfg, self.params_tree(), tokens)
+    def forward(self, tokens: torch.Tensor):
+        """Logits; an MoE config returns (logits, aux_weight * aux), so the
+        Switch load-balance term reaches `loss` (the reference's `apply`)."""
+        logits, aux = plain_forward(self.cfg, self.params_tree(), tokens)
+        if self.cfg.n_experts:
+            return logits, self.cfg.aux_weight * aux
+        return logits
 
 
 def custom_model(**model_params):
@@ -76,8 +82,16 @@ def dataset_fn(records, mode):
     return tokens[:, :-1], tokens[:, 1:].astype(np.int32)
 
 
+def _split_outputs(outputs):
+    """(logits, weighted aux) for MoE configs, (logits, 0) for dense."""
+    if isinstance(outputs, tuple):
+        return outputs
+    return outputs, torch.zeros((), dtype=torch.float32, device=outputs.device)
+
+
 def loss(outputs, labels):
-    return token_cross_entropy(outputs, labels)
+    logits, aux = _split_outputs(outputs)
+    return token_cross_entropy(logits, labels) + aux.to(torch.float32)
 
 
 def optimizer():

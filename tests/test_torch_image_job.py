@@ -104,8 +104,12 @@ def test_cifar_process_job_brings_the_batch_stats_back_through_get_model(tmp_pat
     cifar10_functional_api.custom_model --worker_backend process` (the
     port's zoo by default), 2 workers per-step on the CPU: exit 0, every
     step applied once, the final model file holds batch statistics moved
-    from flax's init, and each worker absorbed the PS's statistics from
-    its GetModel and ReportGradient responses."""
+    from flax's init, every worker that trained absorbed the PS's
+    statistics from its GetModel responses, and one worker absorbed them
+    from both its GetModel and its ReportGradient responses. A worker
+    pulls the model only when it takes a task: on a loaded machine one
+    worker can start after the other took all 4 tasks, and it then
+    trains nothing and pulls nothing."""
     from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
     from elasticdl_tpu_torch.master import main as master_main
     from elasticdl_tpu_torch.master.checkpoint import load_model_file
@@ -135,4 +139,8 @@ def test_cifar_process_job_brings_the_batch_stats_back_through_get_model(tmp_pat
     summaries = read_summaries(log_dir)
     assert sorted(summaries) == [0, 1]
     assert sum(s["steps_accepted"] for s in summaries.values()) == steps
-    assert all(s["aux_absorbed"]["GetModel"] > 0 for s in summaries.values())
+    absorbed = {wid: s["aux_absorbed"] for wid, s in summaries.items()}
+    trained = [wid for wid, s in summaries.items() if s["steps_accepted"] > 0]
+    assert trained and all(absorbed[wid].get("GetModel", 0) > 0 for wid in trained), absorbed
+    assert any(a.get("GetModel", 0) > 0 and a.get("ReportGradient", 0) > 0
+               for a in absorbed.values()), absorbed

@@ -1,11 +1,14 @@
-"""The reference's large transformer config in the port, on the CPU: head
-dim 128, per-layer rematerialization (off, full, "dots") against the
-reference's `plain_forward` / `build_loss_fn` under `jax.checkpoint`, the
-"dots" policy's saved tensors, the config's `--model_params` string, and
-in-process per-step and window jobs against the reference's jobs.
+"""The reference's large and xl transformer configs in the port, on the
+CPU: head dim 128, per-layer rematerialization (off, full, "dots")
+against the reference's `plain_forward` / `build_loss_fn` under
+`jax.checkpoint`, the "dots" policy's saved tensors, the configs'
+`--model_params` strings, and in-process per-step and window jobs
+against the reference's jobs.
 
-The config is cut in depth and width but keeps the head dim of 128:
-d_model 256, 2 heads, d_ff 512, 2 layers, vocab 256, batch 2 x L 128.
+The large config is cut in depth and width but keeps the head dim of
+128: d_model 256, 2 heads, d_ff 512, 2 layers, vocab 256, batch 2 x L
+128. The xl cut keeps its head dim of 128 and its d_ff = 4 d_model:
+d_model 256, 2 heads, d_ff 1024, 2 layers, under remat "dots".
 
 Tolerances are those of tests/test_torch_transformer_lm.py: float32
 logits and loss 1e-4, flat gradients 1e-5 absolute + 1e-3 relative;
@@ -49,16 +52,20 @@ BATCH, SEQ = 2, 128
 # --model_params string
 LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
                 "dtype=bfloat16,remat=True,remat_policy=dots")
+# the reference's xl config (bench_transformer.py:211-221)
+XL_PARAMS = ("vocab=8192,d_model=2048,n_heads=16,d_ff=8192,n_layers=8,n_micro=1,"
+             "dtype=bfloat16,remat=True,remat_policy=dots")
+XL_CUT = dict(CUT, d_ff=1024)
 REMAT = {"off": dict(remat=False), "full": dict(remat=True, remat_policy=""),
          "dots": dict(remat=True, remat_policy="dots")}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _cfgs(dtype, remat):
+def _cfgs(dtype, remat, cut=CUT):
     return (
-        jtlm.TransformerConfig(**CUT, n_micro=1, dtype=JDT[dtype], **REMAT[remat]),
-        ttlm.TransformerConfig(**CUT, n_micro=1, dtype=TDT[dtype], **REMAT[remat]),
+        jtlm.TransformerConfig(**cut, n_micro=1, dtype=JDT[dtype], **REMAT[remat]),
+        ttlm.TransformerConfig(**cut, n_micro=1, dtype=TDT[dtype], **REMAT[remat]),
     )
 
 
@@ -83,19 +90,17 @@ def _torch_step(cfg, params, tokens):
     for t in leaves:
         t.requires_grad_()
     tok = torch.from_numpy(tokens).long()
-    logits = ttlm.plain_forward(cfg, tree, tok[:, :-1])
+    logits, _aux = ttlm.plain_forward(cfg, tree, tok[:, :-1])
     loss = ttlm.token_cross_entropy(logits, tok[:, 1:])
     grads = torch.autograd.grad(loss, leaves)
     return logits, float(loss.detach()), torch.cat([g.reshape(-1) for g in grads]).numpy()
 
 
-@pytest.mark.parametrize("remat", list(REMAT))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_logits_loss_grads_match_reference_under_remat(dtype, remat):
-    jcfg, tcfg = _cfgs(dtype, remat)
+def _check_step(dtype, remat, cut=CUT, seed=1):
+    jcfg, tcfg = _cfgs(dtype, remat, cut)
     assert tcfg.head_dim == 128 and fa.kernels_take((BATCH, SEQ, 2, 128), TDT[dtype])
-    params = jtlm.init_params(np.random.default_rng(1), jcfg)
-    tokens = _tokens(seed=2)
+    params = jtlm.init_params(np.random.default_rng(seed), jcfg)
+    tokens = _tokens(seed=seed + 1)
     jl, jloss, jg = _jax_step(jcfg, params, tokens)
     tl, tloss, tg = _torch_step(tcfg, params, tokens)
     assert tl.dtype == TDT[dtype]
@@ -108,6 +113,18 @@ def test_logits_loss_grads_match_reference_under_remat(dtype, remat):
         np.testing.assert_allclose(tl, jl, atol=5e-2, rtol=5e-2)
         assert abs(tloss - jloss) < 5e-2
         np.testing.assert_allclose(tg, jg, atol=5e-2 * np.abs(jg).max())
+
+
+@pytest.mark.parametrize("remat", list(REMAT))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logits_loss_grads_match_reference_under_remat(dtype, remat):
+    _check_step(dtype, remat)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xl_cut_logits_loss_grads_match_reference_under_dots(dtype):
+    """xl's width ratio (d_ff = 4 d_model) at head dim 128, remat "dots"."""
+    _check_step(dtype, "dots", XL_CUT, seed=21)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -159,7 +176,7 @@ def _saved_bytes(cfg, params, tokens, monkeypatch):
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        logits = ttlm.plain_forward(cfg, tree, tok[:, :-1])
+        logits, _aux = ttlm.plain_forward(cfg, tree, tok[:, :-1])
         loss = ttlm.token_cross_entropy(logits, tok[:, 1:])
     ops = collections.Counter()
     for cache in caches:
@@ -216,6 +233,33 @@ def test_large_model_params_build_the_reference_large_config():
     jcfg = jzoo.custom_model(**params).cfg
     assert jcfg.remat and jcfg.remat_policy == "dots" and jcfg.head_dim == 128
     assert fa.kernels_take((16, 1024, 8, 128), torch.bfloat16)
+
+
+def test_xl_model_params_build_the_reference_xl_config():
+    """xl's `--model_params` string builds the zoo model with 436,242,432
+    parameters (on the meta device, so nothing is allocated): 16 heads of
+    128, d_ff 8192, 8 layers, remat "dots", bf16, as the reference's
+    config from the same string; its attention shape [8, 1024, 16, 128]
+    takes the D = 128 kernels."""
+    params = parse_model_params(XL_PARAMS)
+    with torch.device("meta"):
+        model = tzoo.custom_model(**params)
+    cfg = model.cfg
+    assert (cfg.vocab, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers) == (
+        8192, 2048, 16, 128, 8192, 8)
+    assert cfg.dtype == torch.bfloat16 and cfg.remat and cfg.remat_policy == "dots"
+    assert cfg.n_experts == 0 and cfg.n_micro == 1
+    shapes = ttlm.param_shapes(cfg)
+    sizes = [np.prod(shapes[k]) for k in ("embed", "head", "ln_f")]
+    sizes += [np.prod(s) for s in shapes["layers"].values()]
+    n = sum(p.numel() for p in model.parameters())
+    assert n == sum(int(x) for x in sizes) == 436_242_432
+    assert all(p.device.type == "meta" for p in model.parameters())
+    jcfg = jzoo.custom_model(**params).cfg
+    for key in ("vocab", "d_model", "n_heads", "d_ff", "n_layers", "n_experts", "remat",
+                "remat_policy"):
+        assert getattr(jcfg, key) == getattr(cfg, key), key
+    assert fa.kernels_take((8, 1024, 16, 128), torch.bfloat16)
 
 
 def test_unknown_remat_policy_raises():

@@ -48,13 +48,13 @@ def _jax_step(cfg, params, tokens):
     return np.asarray(jnp.asarray(logits, jnp.float32)), float(loss), jcodec.ravel_np(grads)
 
 
-def _torch_step(cfg, params, tokens, forward=ttlm.plain_forward):
+def _torch_step(cfg, params, tokens):
     tree = params_from_jax(params)
     leaves = tcodec.tree_leaves(tree)
     for t in leaves:
         t.requires_grad_()
     tok = torch.from_numpy(tokens).long()
-    logits = forward(cfg, tree, tok[:, :-1])
+    logits, _aux = ttlm.plain_forward(cfg, tree, tok[:, :-1])
     loss = ttlm.token_cross_entropy(logits, tok[:, 1:])
     grads = torch.autograd.grad(loss, leaves)
     flat = torch.cat([g.reshape(-1) for g in grads]).numpy()
@@ -130,13 +130,14 @@ def test_hazard_all_params_cast_before_the_forward():
     _jcfg, tcfg = _cfgs("bfloat16")
     params = params_from_jax(ttlm.init_params(np.random.default_rng(4), tcfg))
     tok = torch.from_numpy(_tokens(128, seed=4)).long()
-    logits = ttlm.plain_forward(tcfg, params, tok[:, :-1])
+    logits, aux = ttlm.plain_forward(tcfg, params, tok[:, :-1])
     assert logits.dtype == torch.bfloat16
+    assert aux.dtype == torch.bfloat16 and float(aux) == 0.0  # dense: no aux
     assert ttlm.token_cross_entropy(logits, tok[:, 1:]).dtype == torch.float32
     # the same forward from bf16-rounded master weights is identical:
     # nothing reads the f32 masters past the cast
     rounded = tcodec.tree_map(lambda t: t.to(torch.bfloat16).float(), params)
-    assert torch.equal(logits, ttlm.plain_forward(tcfg, rounded, tok[:, :-1]))
+    assert torch.equal(logits, ttlm.plain_forward(tcfg, rounded, tok[:, :-1])[0])
 
 
 def test_hazard_rope_positions_round_in_bf16():
@@ -156,6 +157,17 @@ def test_hazard_rope_positions_round_in_bf16():
 
 
 def test_moe_configs_raise_until_ported():
-    cfg = ttlm.TransformerConfig(**{**SMALL, "n_experts": 2})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttlm.init_params(np.random.default_rng(0), cfg)
+    """MoE configs raised NotImplementedError until the port had MoE; now
+    they build the reference's expert leaves in place of w1 and w2, and
+    the forward runs (tests/test_torch_moe.py holds it to the reference)."""
+    cfg = ttlm.TransformerConfig(**{**SMALL, "n_experts": 2, "d_expert": 32})
+    params = ttlm.init_params(np.random.default_rng(0), cfg)
+    layers = params["layers"]
+    assert "w1" not in layers and "w2" not in layers
+    L, d = SMALL["n_layers"], SMALL["d_model"]
+    assert layers["router"].shape == (L, d, 2)
+    assert layers["ew1"].shape == (L, 2, d, 32) and layers["ew2"].shape == (L, 2, 32, d)
+    tok = torch.from_numpy(_tokens(64, seed=5)).long()
+    logits, aux = ttlm.plain_forward(cfg, params_from_jax(params), tok[:, :-1])
+    assert logits.shape == (2, 64, SMALL["vocab"]) and torch.isfinite(logits).all()
+    assert aux.shape == () and 0.0 < float(aux) < L * 2  # E * sum(frac * prob) <= E a layer
