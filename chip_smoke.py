@@ -130,7 +130,44 @@ its result lines only when every phase passed:
    cifar10_functional_api.custom_model`, 2 workers per-step: the
    exactness block and the batch stats back through each worker's
    GetModel frames;
-13. prints the kernels' JSON line (one row per kernel and head dim in
+13. evaluation during training on the kernels' path
+   (`phase_eval_kernels`): the base transformer at full width in bf16
+   and the zoo's default in float32, in-process per-step, 8 updates in 2
+   epochs with an evaluation job every 4 versions over 2 tasks of 8
+   records: jobs at versions 4 and 8; each evaluation minibatch
+   (`torch.inference_mode()`) adds exactly n_layers flash_forward
+   launches at the model's head dim and no dq or dk+dv launch, with 0
+   fallbacks; each minibatch's perplexity = exp(cross entropy); the
+   training report after an evaluation is accepted at the version the
+   worker left; the v8 job's cross entropy equals the plain model's (the
+   PS's v8 snapshot, `reference_attention` materialized on the card)
+   within the bf16 output limit (float32: MODEL_TOL); the peak memory of
+   an evaluation minibatch beside a training step's;
+14. exact resume on the card (`phase_resume`, the reference's protocol):
+   the zoo's default in float32, one worker, one task an epoch: 2 epochs
+   uninterrupted (twice, for the card's run-to-run spread), 1 epoch +
+   `save_latest_checkpoint` + 1 resumed epoch, and a control resumed with
+   `opt_state` stripped; the resume lands at the uninterrupted version,
+   bit-equal when the card repeats itself (else within 1e-6), the control
+   at least 100 times farther;
+15. `BASELINE.json`'s "cifar10_subclass, 4 async workers + 1 PS"
+   (`phase_async_process_job`): master.main with 4 worker processes on
+   the card, `--use_async --lr_staleness_modulation`, minibatch 128,
+   16,384 records in tasks of 1,024 (128 updates), evaluation every 32
+   versions over 2,048 records, checkpoints every 32 kept to 2, the JSONL
+   metrics sink: rc 0, `--output` at v128 = the workers' accepted steps,
+   the exactness block, 0 attention launches, parameters and batch stats
+   moved, each evaluation job over all 2,048 records, events.jsonl's
+   eval and train-loss rows, exactly model_v96 and model_v128 with the
+   optimizer's state, no eval snapshot left; prints images/s, the
+   ReportGradient handler a step and the seconds per evaluation job;
+   then (`phase_standalone_eval_predict`) master.main evaluating
+   model_v128.ckpt with 2 workers (one job at v128, within 2/2,048 of the
+   checkpoint's CPU forward and of the async job's own v128 evaluation
+   when it made one), and an in-process prediction run of
+   mnist_functional_api from a checkpoint (the processor's classes equal
+   the CPU's away from near-ties);
+16. prints the kernels' JSON line (one row per kernel and head dim in
    bf16, 12 rows, plus the float32 kernels' own rows at the zoo
    default's [8, 1024, 4, 16], `{kernel}_d16_f32`, bound by products at
    the CUDA cores' float32 peak; the backward pair's yardstick once per
@@ -145,7 +182,10 @@ its result lines only when every phase passed:
    `large_window_launches`, `large_window_process_launches`,
    `xl_launches`, `xl_window_launches`, `moe_launches`,
    `moe_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
-   (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows);
+   (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows),
+   and `eval_launches` on every row (phase 13's evaluation forward:
+   n_layers x evaluation minibatches on the forward rows at the run's
+   head dim and dtype, 0 elsewhere);
    and each row's bound term, `bound_term`, with all three terms), the
    card line, and the result line. Each phase prints its wall-clock
    seconds (`timed`).
@@ -773,7 +813,7 @@ def slice_job(path, n_records, task_records=None, **worker_kw):
                                 shuffle_seed=0)
     model = zoo.custom_model(**SLICE, dtype=torch.bfloat16)
     spec = spec_from_module(zoo, model=model)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
     worker = Worker(0, master, spec, minibatch_size=BATCH, device="cuda", seed=0, **worker_kw)
     return dispatcher, servicer, master, worker, model
@@ -1222,7 +1262,7 @@ def spec_job(path, model_params, batch, n_records, task_records, **worker_kw):
     spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params)
     write_learnable_token_records(path, n_records, SEQ, spec.model.cfg.vocab, seed=0)
     dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
     worker = Worker(0, master, spec, minibatch_size=batch, device="cuda", seed=0, **worker_kw)
     return dispatcher, servicer, master, worker, spec.model
@@ -1753,7 +1793,7 @@ def job_parts(tmp, name, extra_argv=()):
     data, log_dir = os.path.join(tmp, f"{name}-data"), os.path.join(tmp, f"{name}-logs")
     write_shards(data, 4)
     args = master_parser().parse_args(master_argv(data, 2, "") + list(extra_argv))
-    _spec, dispatcher, servicer = build_master(args)
+    _spec, dispatcher, servicer, _eval, _ckpt = build_master(args)
     requeued = []
     recover = dispatcher.recover_tasks
 
@@ -1951,7 +1991,7 @@ def image_job(path, model_def, batch, n_records, task_records, model_params="", 
         write_synthetic_image_records(path, n_records, spec.module.IMAGE_SHAPE,
                                       spec.module.NUM_CLASSES, seed=0)
     dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
     worker = Worker(0, master, spec, minibatch_size=batch, device="cuda", seed=0, **worker_kw)
     return dispatcher, servicer, master, worker, spec.model
@@ -2342,6 +2382,547 @@ def phase_image_process_job(tmp):
               f"calls {server['calls']}")
 
 
+# BASELINE.json's "cifar10_subclass -- 4 async workers + 1 PS": 16,384
+# synthetic training records (the reference's writer) in tasks of 1,024,
+# 128 updates at minibatch 128, 2,048 evaluation records, an evaluation
+# job every 32 versions, a checkpoint every 32 versions kept to 2
+ASYNC_TRAIN, ASYNC_EVAL, ASYNC_TASK, ASYNC_BATCH = 16384, 2048, 1024, 128
+ASYNC_WORKERS, ASYNC_EVAL_STEPS = 4, 32
+ASYNC_STEPS = ASYNC_TRAIN // ASYNC_BATCH
+CIFAR_SHAPE = (32, 32, 3)
+
+
+def async_argv(data, evald, num_workers, **flags):
+    """master.main's command line for cifar10_subclass at minibatch 128 on
+    the card: `flags` name further flags (True: a bare switch)."""
+    argv = ["--model_def", "cifar10_subclass.custom_model",
+            "--minibatch_size", str(ASYNC_BATCH), "--records_per_task", str(ASYNC_TASK),
+            "--num_workers", str(num_workers), "--worker_backend", "process",
+            "--device", "cuda"]
+    if data:
+        argv += ["--training_data_dir", data]
+    if evald:
+        argv += ["--evaluation_data_dir", evald]
+    for flag, value in flags.items():
+        argv += [f"--{flag}"] if value is True else [f"--{flag}", str(value)]
+    return argv
+
+
+def run_master(argv, log_dir, env=()):
+    """master.main's `run(argv)` in this process with the worker logs in
+    `log_dir` and `env` set for the run: (rc, summary, wall seconds)."""
+    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
+    from elasticdl_tpu_torch.master import main as master_main
+
+    env = dict(env, **{ENV_WORKER_LOG_DIR: log_dir})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        rc, summary = master_main.run(argv)
+        return rc, summary, time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def phase_async_process_job(tmp) -> dict:
+    """`python -m elasticdl_tpu_torch.master.main --model_def
+    cifar10_subclass.custom_model --worker_backend process --num_workers 4
+    --use_async --lr_staleness_modulation --minibatch_size 128` with
+    evaluation (`--evaluation_data_dir`, `--eval_steps 32`), checkpoints
+    (`--checkpoint_steps 32 --keep_checkpoint_max 2`), the metrics sink
+    (`--tensorboard_log_dir`, JSONL) and `--output`. Checks: rc 0; the
+    `--output` version 128 = the workers' accepted steps (async accepts
+    every report) and the exactness block; each worker on the card with 0
+    attention launches and fallbacks; parameters finite and moved, batch
+    statistics moved; every evaluation job over all 2,048 records (16
+    minibatches of each job among the workers) at a version past its
+    cadence point, accuracy in [0, 1]; the eval/accuracy rows of
+    events.jsonl are those jobs', and train/loss has one row a version;
+    the checkpoint directory holds exactly model_v96 and model_v128, each
+    loading at its version with the SGD momentum traces as `opt_state`;
+    no eval snapshot left behind. Returns what the standalone phase
+    needs."""
+    import glob
+    import tempfile
+
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.common.constants import ENV_TB_BACKEND
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_image_records
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "async-cifar"
+    root = os.path.join(tmp, name)
+    data, evald, log_dir, ckpt_dir, tb, snaps = (
+        os.path.join(root, d) for d in ("train", "eval", "logs", "ckpt", "tb", "snapshots"))
+    with logs_on_failure(log_dir):
+        for d in (data, evald, snaps):
+            os.makedirs(d)
+        for i in range(4):
+            write_synthetic_image_records(os.path.join(data, f"shard-{i}.rio"), ASYNC_TRAIN // 4,
+                                          CIFAR_SHAPE, 10, seed=i)
+        write_synthetic_image_records(os.path.join(evald, "eval.rio"), ASYNC_EVAL, CIFAR_SHAPE,
+                                      10, seed=100)
+        output = os.path.join(root, "final.ckpt")
+        # the evaluation snapshots' temporary directory lands in `snaps`
+        saved_tmp, tempfile.tempdir = tempfile.tempdir, snaps
+        try:
+            rc, master, wall = run_master(async_argv(
+                data, evald, ASYNC_WORKERS, use_async=True, lr_staleness_modulation=True,
+                eval_steps=ASYNC_EVAL_STEPS, checkpoint_dir=ckpt_dir, checkpoint_steps=32,
+                keep_checkpoint_max=2, tensorboard_log_dir=tb, output=output,
+            ), log_dir, {ENV_TB_BACKEND: "jsonl"})
+        finally:
+            tempfile.tempdir = saved_tmp
+        if rc != 0:
+            raise AssertionError(f"master.main exited {rc}")
+        model = load_model_file(output)
+        ex = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
+        if model.version != ASYNC_STEPS or ex != {"version": ASYNC_STEPS, "init_version": 0,
+                                                  "applied_update_steps": ASYNC_STEPS}:
+            raise AssertionError(f"--output version {model.version}, exactness {ex}, "
+                                 f"{ASYNC_STEPS} steps expected")
+        summaries = read_summaries(log_dir)
+        card = torch.cuda.get_device_name(0)
+        if sorted(summaries) != list(range(ASYNC_WORKERS)):
+            raise AssertionError(f"worker summaries of {sorted(summaries)}")
+        accepted = sum(s["steps_accepted"] for s in summaries.values())
+        if accepted != ASYNC_STEPS:
+            raise AssertionError(f"the workers' accepted steps sum to {accepted}")
+        for wid, s in summaries.items():
+            if s["device"] != card or any(s["launches"].values()) or s["attention_fallbacks"]:
+                raise AssertionError(f"worker {wid} on {s['device']!r}, launches "
+                                     f"{s['launches']}, fallbacks {s['attention_fallbacks']}")
+        spec = image_spec("cifar10_subclass.custom_model")
+        flat = codec.ravel_np(model.params)
+        if not np.isfinite(flat).all():
+            raise AssertionError(f"{name}: the parameters are not finite")
+        for seed in range(ASYNC_WORKERS):
+            if np.array_equal(flat, codec.ravel_np(spec.model.init_params(seed))):
+                raise AssertionError(f"{name}: the parameters did not move from init {seed}")
+        check_aux(model.aux, spec.model, name)
+
+        evaluations = master["evaluations"]
+        versions = [v for v, _m in evaluations]
+        per_job = ASYNC_EVAL // ASYNC_BATCH
+        eval_minibatches = sum(s["eval_minibatches"] for s in summaries.values())
+        if (not evaluations or versions != sorted(set(versions)) or versions[0] < ASYNC_EVAL_STEPS
+                or versions[-1] > ASYNC_STEPS):
+            raise AssertionError(f"evaluation jobs at versions {versions}")
+        if eval_minibatches != per_job * len(evaluations) or sum(
+                s["eval_tasks"] for s in summaries.values()) != 2 * len(evaluations):
+            raise AssertionError(f"{eval_minibatches} eval minibatches for {len(evaluations)} "
+                                 f"jobs of {per_job}")
+        for v, m in evaluations:
+            if not 0.0 <= m["accuracy"] <= 1.0:
+                raise AssertionError(f"evaluation at v{v}: accuracy {m['accuracy']}")
+        with open(os.path.join(tb, "events.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        acc_rows = [(r["step"], r["value"]) for r in rows if r["tag"] == "eval/accuracy"]
+        loss_steps = sorted(r["step"] for r in rows if r["tag"] == "train/loss")
+        if acc_rows != [(v, m["accuracy"]) for v, m in evaluations]:
+            raise AssertionError(f"events.jsonl eval rows {acc_rows} != the jobs' {evaluations}")
+        if loss_steps != list(range(1, ASYNC_STEPS + 1)):
+            raise AssertionError(f"events.jsonl train/loss at steps {loss_steps}")
+        files = sorted(os.listdir(ckpt_dir))
+        if files != ["model_v128.ckpt", "model_v96.ckpt"]:
+            raise AssertionError(f"checkpoint directory holds {files}")
+        n_leaves = len(codec.tree_leaves(model.params))
+        for v in (96, 128):
+            ck = load_model_file(os.path.join(ckpt_dir, f"model_v{v}.ckpt"))
+            leaves = (ck.opt_state or {}).get("leaves") or []
+            if ck.version != v or ck.opt_state.get("kind") != "single" or len(leaves) != n_leaves:
+                raise AssertionError(f"model_v{v}.ckpt: version {ck.version}, opt_state "
+                                     f"{ck.opt_state and ck.opt_state.get('kind')} with "
+                                     f"{len(leaves)} leaves, {n_leaves} traces expected")
+        snap_dirs = glob.glob(os.path.join(snaps, "edl_torch_evalckpt_*"))
+        left = glob.glob(os.path.join(snaps, "edl_torch_evalckpt_*", "*"))
+        if not snap_dirs or left:
+            raise AssertionError(f"eval snapshots: directories {snap_dirs}, left behind {left}")
+
+        times = sorted(t for s in summaries.values() for t in s["accepted_at"])
+        eval_worker_s = sum(s["phase_seconds"].get("eval", 0.0) for s in summaries.values())
+        server = master["server"]
+        print(f"{name} job (master.main --model_def cifar10_subclass.custom_model, "
+              f"{ASYNC_WORKERS} async workers, --lr_staleness_modulation, minibatch "
+              f"{ASYNC_BATCH}): rc {rc}, {wall:.2f} s, {ASYNC_STEPS * ASYNC_BATCH / wall:.1f} "
+              f"images/s over the whole run (worker boot included), "
+              f"{images_per_s(times, ASYNC_BATCH):.1f} images/s between the first and last "
+              f"accepted steps; exactness {ex}; ReportGradient handler "
+              f"{server['handler_seconds']['ReportGradient'] / ASYNC_STEPS:.4f} s a step "
+              f"(calls {server['calls']})")
+        print(f"{name} evaluations (version, accuracy): "
+              f"{[(v, round(m['accuracy'], 4)) for v, m in evaluations]}; seconds per job from "
+              f"its creation to its last task {[round(x, 2) for x in master['evaluation_seconds']]}"
+              f", workers' eval-task seconds {eval_worker_s / len(evaluations):.3f} a job; "
+              f"checkpoints {files}")
+        for wid, s in summaries.items():
+            print(f"{name} worker {wid}: {s['steps_accepted']} accepted, {s['steps_computed']} "
+                  f"computed, {s['eval_tasks']} eval tasks, phase seconds "
+                  f"{rounded(s['phase_seconds'])}")
+        v128 = dict(evaluations).get(ASYNC_STEPS)
+        return {"ckpt": os.path.join(ckpt_dir, f"model_v{ASYNC_STEPS}.ckpt"),
+                "eval_dir": evald, "v128": v128}
+
+
+def phase_standalone_eval_predict(fa, tmp, async_job):
+    """Evaluation: `master.main --evaluation_data_dir <the async job's
+    2,048 records> --checkpoint_filename_for_init <its model_v128.ckpt>`
+    with 2 workers on the card: rc 0, one evaluation job at version 128,
+    its accuracy within 2/2,048 (an argmax near-tie can move a count) of
+    the same checkpoint's plain forward on the CPU over the same records,
+    and of the async job's own evaluation at v128 when it made one.
+    Prediction: mnist_functional_api from a checkpoint this phase writes,
+    in-process on the card through the worker's PREDICTION path: the
+    PredictionOutputsProcessor gets one class per record, equal to the CPU
+    forward's wherever the CPU's top two logits are further apart than
+    IMAGE_TOL's float32 logit limit times the largest |logit|."""
+    from elasticdl_tpu_torch.convert import load_variables
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file, save_model_file
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_image_records
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.main import read_summaries
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    log_dir = os.path.join(tmp, "standalone-eval-logs")
+    with logs_on_failure(log_dir):
+        rc, master, wall = run_master(async_argv(
+            "", async_job["eval_dir"], 2,
+            checkpoint_filename_for_init=async_job["ckpt"]), log_dir)
+        if rc != 0 or master["job_type"] != "evaluation":
+            raise AssertionError(f"the evaluation job exited {rc} ({master and master['job_type']})")
+        if [v for v, _m in master["evaluations"]] != [ASYNC_STEPS]:
+            raise AssertionError(f"standalone evaluations {master['evaluations']}")
+        acc = master["evaluations"][0][1]["accuracy"]
+        summaries = read_summaries(log_dir)
+    ck = load_model_file(async_job["ckpt"])
+    cpu_model = image_spec("cifar10_subclass.custom_model").model
+    load_variables(cpu_model, ck.params, ck.aux)
+    with RecordIOReader(os.path.join(async_job["eval_dir"], "eval.rio")) as r:
+        x, y = image_spec("cifar10_subclass.custom_model").dataset_fn(
+            list(r.read_range(0, ASYNC_EVAL)), "evaluation")
+    with torch.no_grad():
+        hits = sum(int((cpu_model(torch.from_numpy(x[i:i + 256]), train=False).argmax(-1)
+                        == torch.from_numpy(np.asarray(y[i:i + 256], np.int64))).sum())
+                   for i in range(0, ASYNC_EVAL, 256))
+    cpu_acc = hits / ASYNC_EVAL
+    limit = 2 / ASYNC_EVAL + 1e-12
+    own = async_job["v128"]
+    print(f"standalone evaluation (master.main --evaluation_data_dir, 2 workers, "
+          f"model_v{ASYNC_STEPS}.ckpt): rc {rc}, {wall:.2f} s, accuracy {acc:.6f}; the same "
+          f"checkpoint on the CPU {cpu_acc:.6f}; the async job's own evaluation at "
+          f"v{ASYNC_STEPS}: {own['accuracy'] if own else 'none (its v128 trigger came while an earlier job was pending)'}"
+          f"; eval tasks per worker {[s['eval_tasks'] for s in summaries.values()]}")
+    if abs(acc - cpu_acc) > limit or (own and abs(acc - own["accuracy"]) > limit):
+        raise AssertionError(f"standalone accuracy {acc} vs CPU {cpu_acc} / async {own}: more "
+                             f"than 2/{ASYNC_EVAL} apart")
+
+    spec = image_spec("mnist_functional_api.custom_model")
+    n = 1024
+    path = os.path.join(tmp, "predict.rio")
+    write_synthetic_image_records(path, n, spec.module.IMAGE_SHAPE, spec.module.NUM_CLASSES,
+                                  seed=7)
+    params = spec.model.init_params(0)
+    ckpt = os.path.join(tmp, "predict.ckpt")
+    save_model_file(ckpt, params, 5)
+    dispatcher = TaskDispatcher({}, {}, {path: n}, 256, 1)
+    servicer, _e, _c = build_job(spec, dispatcher, checkpoint_filename_for_init=ckpt)
+    worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=64, device="cuda")
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    outputs = spec.prediction_outputs_processor.outputs
+    classes = np.concatenate([c for _w, c in outputs]) if outputs else np.zeros(0)
+    if not ok or not dispatcher.finished() or classes.shape != (n,) or worker.prediction_tasks != 4:
+        raise AssertionError(f"prediction: ok {ok}, {classes.shape} classes for {n} records, "
+                             f"{worker.prediction_tasks} tasks")
+    if any(launches.values()) or fallbacks:
+        raise AssertionError(f"prediction: attention launches {launches}, fallbacks {fallbacks}")
+    cpu = image_spec("mnist_functional_api.custom_model").model
+    load_variables(cpu, params)
+    with RecordIOReader(path) as r:
+        x, _y = spec.dataset_fn(list(r.read_range(0, n)), "prediction")
+    with torch.no_grad():
+        logits = cpu(torch.from_numpy(x)).numpy()
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > IMAGE_TOL["float32"]["logits"] * np.abs(logits).max()
+    differ = int(np.sum(classes[clear] != logits.argmax(-1)[clear]))
+    print(f"prediction (mnist_functional_api from a v5 checkpoint, in-process on the card, "
+          f"minibatch 64): {n} classes in {wall:.2f} s; {differ} differ from the CPU forward "
+          f"among the {int(clear.sum())} records whose top two logits are apart by more than "
+          f"the limit ({n - int(clear.sum())} near-ties left out)")
+    if differ:
+        raise AssertionError(f"prediction: {differ} classes differ from the CPU forward")
+
+
+# evaluation during training on the kernels' path: 8 per-step updates in
+# 2 epochs of 4 tasks of one minibatch, an evaluation job every 4
+# versions over 2 tasks of 8 records (one minibatch each)
+EVAL_EVERY, EVAL_RECORDS = 4, 16
+
+
+def eval_memory(model, x) -> float:
+    """Peak device memory (GiB above what was allocated before) of one
+    inference-mode forward of `model` on `x`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def eval_run(fa, tmp, name, model_params, tol) -> dict:
+    """One in-process job of the zoo's transformer (`model_params`) on the
+    card with evaluation during training. Each evaluation minibatch adds
+    exactly n_layers flash_forward launches at the model's head dim and
+    no dq or dk+dv launch (`torch.inference_mode()`, no autograd graph),
+    and no fallback; the evaluation jobs complete at versions 4 and 8,
+    each minibatch's perplexity = exp(its cross entropy); the training
+    report after the v4 job is accepted at the version the worker left;
+    the v8 job's cross entropy equals the plain model's (the PS's v8
+    snapshot with `reference_attention` materialized on the card) over
+    the same records within `tol`. Returns the evaluation's launches."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.convert import load_variables
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params)
+    cfg = spec.model.cfg
+    train, evals = os.path.join(tmp, f"{name}-train.rio"), os.path.join(tmp, f"{name}-eval.rio")
+    write_learnable_token_records(train, BATCH * EVAL_EVERY, SEQ, cfg.vocab, seed=0)
+    write_learnable_token_records(evals, EVAL_RECORDS, SEQ, cfg.vocab, seed=5)
+    dispatcher = TaskDispatcher({train: BATCH * EVAL_EVERY}, {evals: EVAL_RECORDS}, {}, BATCH,
+                                2, shuffle_seed=0)
+    servicer, evs, _ckpt = build_job(spec, dispatcher, eval_steps=EVAL_EVERY)
+    steps = 2 * EVAL_EVERY
+    # (what, its fields, the launch counts just after it): each training
+    # report's version sent, version back and acceptance, each evaluation
+    # minibatch's metrics, and the start of each evaluation task
+    log = []
+
+    class RecordingMaster(InProcessMaster):
+        def call(self, method, request=None):
+            resp = super().call(method, request)
+            if method == "ReportGradient":
+                log.append((method, {"sent": request["version"], "back": resp["version"],
+                                     "accepted": resp["accepted"]}, fa.launch_counts()))
+            elif method == "ReportEvaluationMetrics":
+                log.append((method, request["metrics"], fa.launch_counts()))
+            return resp
+
+    worker = Worker(0, RecordingMaster(servicer), spec, minibatch_size=BATCH, device="cuda",
+                    seed=0)
+    evaluate = worker._process_evaluation_task
+
+    def marked(task):
+        log.append(("eval task", None, fa.launch_counts()))
+        evaluate(task)
+
+    worker._process_evaluation_task = marked
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    n_eval = worker.eval_minibatches
+    d, L = cfg.head_dim, cfg.n_layers
+    per_minibatch = want_launches(d, {"flash_forward": L, "flash_dq": 0, "flash_dkv": 0})
+    eval_launches = want_launches(d, {"flash_forward": L * n_eval, "flash_dq": 0, "flash_dkv": 0})
+    want = want_launches(d, {"flash_forward": L * (steps + n_eval), "flash_dq": L * steps,
+                             "flash_dkv": L * steps})
+    failures = []
+    if not ok or not dispatcher.finished() or servicer.exactness() != {
+            "version": steps, "init_version": 0, "applied_update_steps": steps}:
+        failures.append(f"the job did not finish cleanly: {servicer.exactness()}")
+    if [v for v, _m in evs.completed_metrics] != [EVAL_EVERY, 2 * EVAL_EVERY] or n_eval != 4:
+        failures.append(f"evaluation jobs {evs.completed_metrics}, {n_eval} minibatches")
+    if launches != want or fallbacks:
+        failures.append(f"launches {launches}, {want} expected; fallbacks {fallbacks}")
+    prev, last_version, left_at, next_report = None, None, None, []
+    for what, fields, counts in log:
+        if what == "eval task":
+            left_at = last_version
+        elif what == "ReportEvaluationMetrics":
+            got = {k: counts[k] - prev[k] for k in counts}
+            m = fields
+            if got != per_minibatch:
+                failures.append(f"an eval minibatch launched {got}, {per_minibatch} expected")
+            if not (math.isfinite(m["cross_entropy"]) and math.isclose(
+                    m["perplexity"], math.exp(m["cross_entropy"]), rel_tol=1e-6)):
+                failures.append(f"eval minibatch metrics {m}")
+        else:
+            if left_at is not None:
+                next_report.append((left_at, fields["sent"], fields["accepted"]))
+                left_at = None
+            last_version = fields["back"]
+        prev = counts
+    if not next_report or any(left != v or not acc for left, v, acc in next_report):
+        failures.append(f"training reports after an eval (left at, sent at, accepted): "
+                        f"{next_report}")
+    params, _aux, _v = servicer.get_params_copy()
+    plain = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", model_params).model.cuda()
+    load_variables(plain, params)
+    with RecordIOReader(evals) as r:
+        records = list(r.read_range(0, EVAL_RECORDS))
+    ce_sum, kernel_attention = 0.0, tlm.attention
+    tlm.attention = fa.reference_attention
+    try:
+        with torch.inference_mode():
+            for i in range(0, EVAL_RECORDS, BATCH):
+                x, y = spec.dataset_fn(records[i:i + BATCH], "evaluation")
+                logits = plain(torch.from_numpy(np.asarray(x, np.int64)).cuda())
+                ce_sum += float(tlm.token_cross_entropy(
+                    logits, torch.from_numpy(np.asarray(y, np.int64)).cuda())) * len(x)
+    finally:
+        tlm.attention = kernel_attention
+    plain_ce = ce_sum / EVAL_RECORDS
+    job_ce = evs.completed_metrics[-1][1]["cross_entropy"] if evs.completed_metrics else math.nan
+    if not abs(job_ce - plain_ce) <= tol["atol"] + tol["rtol"] * abs(plain_ce):
+        failures.append(f"v8 eval cross entropy {job_ce} vs the plain model's {plain_ce}")
+    x = torch.from_numpy(np.asarray(spec.dataset_fn(records[:BATCH], "evaluation")[0],
+                                    np.int64)).cuda()
+    eval_gib = eval_memory(plain, x)
+    train_gib = peak_step_memory(cfg, BATCH, (("off", False, ""),))["off"]
+    print(f"eval during training ({name}, --model_params {model_params!r}: {cfg.dtype}, head "
+          f"dim {d}, {L} layers): {steps} steps and {n_eval} eval minibatches in {wall:.2f} s; "
+          f"jobs {[(v, {k: round(x, 4) for k, x in m.items()}) for v, m in evs.completed_metrics]}"
+          f"; v8 cross entropy {job_ce:.6f} against the plain model's {plain_ce:.6f} (|diff| "
+          f"{abs(job_ce - plain_ce):.2e}); eval launches {eval_launches}; after-eval reports "
+          f"(left at, sent at, accepted) {next_report}; peak memory beyond the model: an eval "
+          f"minibatch {eval_gib:.3f} GiB, a training step {train_gib:.3f} GiB (params, grads "
+          f"and batch excluded); worker phases {rounded(worker.phase_seconds)}")
+    if failures:
+        raise AssertionError(f"eval during training ({name}):\n" + "\n".join(failures))
+    return eval_launches
+
+
+def phase_eval_kernels(fa, tmp) -> dict:
+    """Evaluation during training through the kernels' forward alone:
+    the base transformer at full width in bf16 (head dim 64, held to the
+    bf16 output limit) and the zoo's default in float32 (head dim 16, the
+    CUDA-core forward, held to MODEL_TOL). Returns each dtype's
+    evaluation launches."""
+    return {
+        "bfloat16": eval_run(fa, tmp, "base", SLICE_PARAMS, BF16_TOL["o"]),
+        "float32": eval_run(fa, tmp, "zoo", "", MODEL_TOL),
+    }
+
+
+RESUME_EPOCH = BATCH * 4  # one task an epoch, 4 updates
+
+
+def resume_run(path, epochs, ckpt_init=""):
+    """The zoo's default (float32) on the card, one worker, grads_to_wait
+    1, one task an epoch, booted from `ckpt_init` when given: (servicer,
+    final flat params, version)."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    spec = get_model_spec(ZOO, "transformer_lm_zoo.custom_model", "")
+    dispatcher = TaskDispatcher({path: RESUME_EPOCH}, {}, {}, RESUME_EPOCH, epochs)
+    servicer, _e, _c = build_job(spec, dispatcher, checkpoint_filename_for_init=ckpt_init)
+    worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cuda",
+                    seed=0)
+    if not worker.run() or not dispatcher.finished():
+        raise AssertionError(f"resume run ({epochs} epochs, {ckpt_init!r}) did not finish")
+    worker.close()
+    params, _aux, version = servicer.get_params_copy()
+    return servicer, codec.ravel_np(params), version
+
+
+def gradient_spread(path) -> dict:
+    """{leaf: max |difference|} of the zoo default's gradient between two
+    identical forward + backward passes on the card (the leaves that
+    differ: the card's run-to-run spread, by where it arises)."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+    from elasticdl_tpu_torch.models import transformer_lm as tlm
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+
+    cfg = zoo.custom_model().cfg
+    host = tlm.init_params(np.random.default_rng(0), cfg)
+    params = codec.tree_map(lambda a: torch.from_numpy(a).cuda().requires_grad_(), host)
+    with RecordIOReader(path) as r:
+        x, y = zoo.dataset_fn(list(r.read_range(0, BATCH)), "training")
+    x, y = (torch.from_numpy(np.asarray(a, np.int64)).cuda() for a in (x, y))
+    leaves = codec.tree_leaves(params)
+    grads = [torch.autograd.grad(tlm.token_cross_entropy(tlm.plain_forward(cfg, params, x)[0], y),
+                                 leaves) for _ in range(2)]
+    return {"/".join(p): float((a - b).abs().max()) for p, a, b in
+            zip(codec.tree_paths(host), *grads) if not torch.equal(a, b)}
+
+
+def phase_resume(tmp):
+    """Exact resume on the card (the reference's protocol,
+    `tests/test_exact_resume.py`): the zoo's default in float32 (its
+    kernels have no atomics), 2 epochs uninterrupted (twice: the second
+    run shows whether the card repeats itself bit for bit), 1 epoch then
+    `save_latest_checkpoint` then 1 resumed epoch, and a control resumed
+    from the same file with `opt_state` stripped. The resumed run lands at
+    the uninterrupted version, bit-equal when the two uninterrupted runs
+    are (else within 1e-6, the card's own run-to-run spread), and the
+    control at least 100 times farther."""
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file, save_model_file
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+
+    path = os.path.join(tmp, "resume.rio")
+    write_learnable_token_records(path, RESUME_EPOCH, SEQ, ZOO_DEFAULT["vocab"], seed=0)
+    _s, full, full_v = resume_run(path, 2)
+    _s, again, _v = resume_run(path, 2)
+    first, _vec, v1 = resume_run(path, 1)
+    ckpt = os.path.join(tmp, "resume-mid.ckpt")
+    first.save_latest_checkpoint(ckpt)
+    resumed_s, resumed, resumed_v = resume_run(path, 1, ckpt)
+    m = load_model_file(ckpt)
+    stripped = os.path.join(tmp, "resume-stripped.ckpt")
+    save_model_file(stripped, m.params, m.version, aux=m.aux)
+    _s, control, _cv = resume_run(path, 1, stripped)
+    spread = float(np.max(np.abs(again - full)))
+    resumed_d = float(np.max(np.abs(resumed - full)))
+    control_d = float(np.max(np.abs(control - full)))
+    bit_equal = resumed.tobytes() == full.tobytes()
+    spread_by_leaf = gradient_spread(path)
+    print(f"resume on the card (zoo default, f32, {RESUME_EPOCH // BATCH} steps an epoch): "
+          f"uninterrupted v{full_v}, resumed v{resumed_v} (exactness "
+          f"{resumed_s.exactness()}); max|resumed - uninterrupted| {resumed_d:.3e} "
+          f"(bit-equal: {bit_equal}), max|control - uninterrupted| {control_d:.3e}; two "
+          f"uninterrupted runs differ by {spread:.3e}; the gradient leaves that differ between "
+          f"two identical steps (max |diff|): {spread_by_leaf}")
+    if resumed_v != full_v or resumed_s.exactness() != {
+            "version": full_v, "init_version": v1, "applied_update_steps": full_v - v1}:
+        raise AssertionError(f"resumed at v{resumed_v} ({resumed_s.exactness()}), not v{full_v}")
+    if spread == 0.0 and not bit_equal:
+        raise AssertionError(f"the card repeats itself bit for bit, but the resume is "
+                             f"{resumed_d:.3e} away")
+    if resumed_d > 1e-6 or not control_d >= 100 * resumed_d or control_d == 0.0:
+        raise AssertionError(f"resumed {resumed_d:.3e}, control {control_d:.3e} from the "
+                             f"uninterrupted run")
+
+
 def timed(phase, *args):
     """Run one phase and print its wall-clock seconds."""
     t0 = time.perf_counter()
@@ -2390,6 +2971,8 @@ def main() -> int:
         timed(phase_image_per_step, fa, tmp)
         timed(phase_cifar_window, fa, tmp)
         timed(phase_resnet_window, fa, tmp)
+        eval_counts = timed(phase_eval_kernels, fa, tmp)
+        timed(phase_resume, tmp)
         torch.cuda.empty_cache()  # leave the card's memory to the workers
         counts["process_launches"] = timed(phase_process_job, tmp)
         counts["zoo_process_launches"] = timed(phase_process_job, tmp, "zoo-process", "")
@@ -2400,6 +2983,8 @@ def main() -> int:
             LARGE_BATCH * WINDOW)
         timed(phase_window_drain, tmp)
         timed(phase_image_process_job, tmp)
+        async_job = timed(phase_async_process_job, tmp)
+        timed(phase_standalone_eval_predict, fa, tmp, async_job)
     # each row's counts are its own kernel's at its own head dim, per path
     # of its dtype (the wrappers count by head dim; a path runs one dtype)
     for by_kernel in rows.values():
@@ -2411,6 +2996,8 @@ def main() -> int:
             # repo runs, every path's count summed (0)
             main_path = MAIN_PATH.get((row["dtype"], row["head_dim"]))
             row["launches"] = row[main_path] if main_path else sum(row[p] for p in paths)
+            # the evaluation forward's launches, by the row's dtype
+            row["eval_launches"] = eval_counts[row["dtype"]][f"{kernel}_d{row['head_dim']}"]
     print(json.dumps({
         "kernels": [row for by_kernel in rows.values() for row in by_kernel.values()],
         "backward_pair": {f"d{d}": pair for d, pair in pairs.items()},

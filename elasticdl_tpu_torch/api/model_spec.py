@@ -19,7 +19,12 @@ A model-zoo module exports:
   parsed from a list of raw record payloads;
 - ``loss(outputs, labels)`` -> scalar torch tensor;
 - ``optimizer()`` -> the PS optimizer's factory: a zero-argument
-  callable returning a ``master.ps_optimizer.PSOptimizer``.
+  callable returning a ``master.ps_optimizer.PSOptimizer``;
+- optionally ``eval_metrics_fn(outputs, labels)`` -> ``{name: scalar
+  tensor or mergeable state}`` (``api/metrics.py``) for evaluation
+  tasks, and a ``PredictionOutputsProcessor`` class whose instance's
+  ``process(outputs, worker_id)`` takes each prediction minibatch's
+  outputs (numpy).
 
 Module-level names are the reference's, so ``--model_def`` strings
 carry over unchanged.
@@ -42,6 +47,7 @@ class ModelSpec:
     loss: Callable
     optimizer: Callable
     eval_metrics_fn: Optional[Callable] = None
+    prediction_outputs_processor: Any = None
     module: Any = None
 
 
@@ -103,6 +109,7 @@ def get_model_spec(
     loss: str = "loss",
     optimizer: str = "optimizer",
     eval_metrics_fn: str = "eval_metrics_fn",
+    prediction_outputs_processor: str = "PredictionOutputsProcessor",
 ) -> ModelSpec:
     """Resolve the named spec functions from a model-zoo module.
     ``model_def`` is ``"pkg.file.symbol"`` relative to ``model_zoo``."""
@@ -122,11 +129,13 @@ def get_model_spec(
             raise ValueError(f"model module must define {name!r}")
         return fn
 
+    processor_cls = getattr(module, prediction_outputs_processor, None)
     return ModelSpec(
         model=model,
         dataset_fn=resolve(dataset_fn),
         loss=resolve(loss),
         optimizer=resolve(optimizer),
         eval_metrics_fn=resolve(eval_metrics_fn, required=False),
+        prediction_outputs_processor=processor_cls() if processor_cls else None,
         module=module,
     )

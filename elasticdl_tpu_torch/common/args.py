@@ -13,13 +13,17 @@ its own.
 
 Window mode and its sync plane are carried (`--local_updates`,
 `--transport_dtype`, `--sync_dtype`, `--sync_compress`,
-`--overlap_sync`). Not carried, so argparse rejects them: the sync
-plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
-`--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, async and
-staleness, evaluation and prediction data,
-checkpoints and resume, the sharded PS, KV shards and aggregators,
-standby workers, the policy plane, the k8s pod settings, TensorBoard,
-profiling and master failover candidates.
+`--overlap_sync`), and so are the master's job services: async and
+staleness (`--use_async`, `--lr_staleness_modulation`,
+`--staleness_window`), evaluation and prediction data and the
+evaluation cadence, checkpoints and resume
+(`--checkpoint_filename_for_init`), and the metrics sink
+(`--tensorboard_log_dir`). Not carried, so argparse rejects them: the
+sync plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
+`--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, the
+sharded PS, KV shards and aggregators, standby workers, the policy
+plane, the k8s pod settings, `--keep_tensorboard_running`, profiling
+and master failover candidates.
 """
 
 from __future__ import annotations
@@ -76,6 +80,10 @@ def add_model_spec_args(parser: argparse.ArgumentParser):
     parser.add_argument("--dataset_fn", default="dataset_fn")
     parser.add_argument("--loss", default="loss")
     parser.add_argument("--optimizer", default="optimizer")
+    parser.add_argument("--eval_metrics_fn", default="eval_metrics_fn")
+    parser.add_argument(
+        "--prediction_outputs_processor", default="PredictionOutputsProcessor"
+    )
     parser.add_argument("--minibatch_size", type=pos_int, required=True)
     parser.add_argument(
         "--local_updates", type=non_neg_int, default=0,
@@ -122,12 +130,33 @@ def add_master_args(parser: argparse.ArgumentParser):
         "--training_data_dir", default="",
         help="RecordIO file or directory of shards for training",
     )
+    parser.add_argument("--evaluation_data_dir", default="")
+    parser.add_argument("--prediction_data_dir", default="")
     parser.add_argument("--records_per_task", type=pos_int, default=4096)
     parser.add_argument("--num_epochs", type=pos_int, default=1)
     parser.add_argument("--grads_to_wait", type=pos_int, default=2)
+    parser.add_argument("--use_async", action="store_true")
+    parser.add_argument("--lr_staleness_modulation", action="store_true")
+    parser.add_argument("--staleness_window", type=non_neg_int, default=0)
+    parser.add_argument("--eval_steps", type=non_neg_int, default=0)
+    parser.add_argument("--eval_start_delay_secs", type=float, default=0.0)
+    parser.add_argument("--eval_throttle_secs", type=float, default=0.0)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=non_neg_int, default=0)
+    parser.add_argument("--keep_checkpoint_max", type=non_neg_int, default=0)
+    parser.add_argument(
+        "--checkpoint_filename_for_init", default="",
+        help="boot the PS from this checkpoint (required for "
+        "evaluate/predict jobs)",
+    )
     parser.add_argument(
         "--output", default="",
         help="save the final model here when the job finishes",
+    )
+    parser.add_argument(
+        "--tensorboard_log_dir", default="",
+        help="write train-loss + eval-metric summaries here "
+        "(torch SummaryWriter when available, JSONL fallback)",
     )
     parser.add_argument("--num_workers", type=pos_int, default=1)
     parser.add_argument(
@@ -166,12 +195,30 @@ def worker_parser() -> argparse.ArgumentParser:
 
 
 def validate_master_args(args) -> str:
-    """The job type; raises ValueError without training data (the only
-    job type ported)."""
+    """Job-type inference and the combination checks; returns the job
+    type, raises ValueError for a combination the reference refuses."""
     from elasticdl_tpu_torch.common.constants import JobType
 
+    if args.prediction_data_dir:
+        if args.training_data_dir or args.evaluation_data_dir:
+            raise ValueError(
+                "prediction_data_dir is exclusive of training/evaluation dirs"
+            )
+        if not args.checkpoint_filename_for_init:
+            raise ValueError(
+                "prediction jobs require --checkpoint_filename_for_init"
+            )
+        return JobType.PREDICTION_ONLY
+    if args.training_data_dir and args.evaluation_data_dir:
+        return JobType.TRAINING_WITH_EVALUATION
     if args.training_data_dir:
         return JobType.TRAINING_ONLY
+    if args.evaluation_data_dir:
+        if not args.checkpoint_filename_for_init:
+            raise ValueError(
+                "evaluation jobs require --checkpoint_filename_for_init"
+            )
+        return JobType.EVALUATION_ONLY
     raise ValueError("one of training/evaluation/prediction data dirs required")
 
 
@@ -192,7 +239,8 @@ def worker_forward_args(args, worker_id: int, master_addr: str) -> List[str]:
         value = getattr(args, flag)
         if value:
             argv += [f"--{flag}", value]
-    for flag in ("model_params", "dataset_fn", "loss", "optimizer"):
+    for flag in ("model_params", "dataset_fn", "loss", "optimizer", "eval_metrics_fn",
+                 "prediction_outputs_processor"):
         value = getattr(args, flag)
         if value:
             argv += [f"--{flag}", value]

@@ -31,6 +31,13 @@ Two jobs, both host-side numpy:
    place of msgpack; the bytes are not compatible with the reference's.
    Decoding returns `np.frombuffer` views into the frame.
 
+   Files that both packages read (checkpoints) are written as the
+   reference's own v2 frame, `dumps_v2`: the same layout with the
+   version byte 0x02 and the header in msgpack (a subset written out
+   here: maps, arrays, strings, ints, floats, bools, nil),
+   arrays as `{"__nd__": True, ...}` descriptors and tuples as
+   `{"__tp__": [...]}`. `loads` reads either version.
+
 bfloat16 has no numpy dtype without `ml_dtypes`, so a bf16 array travels
 as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
 `BF16Bits`; `as_f32` widens it. The compressed window deltas
@@ -50,6 +57,8 @@ import numpy as np
 
 FRAME_MAGIC = 0xC1
 CODEC_VERSION = 1
+#: the reference's frame version: the same layout, a msgpack header
+REFERENCE_CODEC_VERSION = 2
 #: magic, version, u32 header length, u16 header pad
 _FRAME_PREFIX = struct.Struct("<BBIH")
 _SEGMENT_ALIGN = 64
@@ -414,9 +423,35 @@ def dumps(obj: Any) -> bytes:
     header = json.dumps(
         _build_header_tree(obj, builder), separators=(",", ":")
     ).encode()
+    return _join_frame(CODEC_VERSION, header, builder)
+
+
+def _reference_header_tree(tree: Any) -> Any:
+    """The port's header tree in the reference's v2 terms: array
+    descriptors flagged True, no compressed deltas."""
+    if isinstance(tree, dict):
+        if _QD_KEY in tree or _SD_KEY in tree:
+            raise TypeError("compressed deltas have no reference-frame form here")
+        if _ND_KEY in tree:
+            return {**tree, _ND_KEY: True}
+        return {k: _reference_header_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_reference_header_tree(v) for v in tree]
+    return tree
+
+
+def dumps_v2(obj: Any) -> bytes:
+    """Serialize a pytree of arrays, containers and scalars as the
+    reference's v2 frame (its `codec.dumps`): checkpoint files."""
+    builder = _FrameBuilder()
+    header = _mp_pack(_reference_header_tree(_build_header_tree(obj, builder)))
+    return _join_frame(REFERENCE_CODEC_VERSION, header, builder)
+
+
+def _join_frame(version: int, header: bytes, builder: _FrameBuilder) -> bytes:
     head_pad = (-(_FRAME_PREFIX.size + len(header))) % _SEGMENT_ALIGN
     parts = [
-        _FRAME_PREFIX.pack(FRAME_MAGIC, CODEC_VERSION, len(header), head_pad),
+        _FRAME_PREFIX.pack(FRAME_MAGIC, version, len(header), head_pad),
         header,
         b"\x00" * head_pad,
     ]
@@ -443,11 +478,12 @@ def _read_descriptor(m: dict, frame, payload_start: int) -> Any:
 
 
 def loads(data) -> Any:
-    """Deserialize a frame; arrays are read-only views into `data`."""
+    """Deserialize a frame, the port's or the reference's v2; arrays
+    are read-only views into `data`."""
     if len(data) < _FRAME_PREFIX.size or data[0] != FRAME_MAGIC:
         raise ValueError("not a codec frame (bad magic)")
     _magic, version, hlen, pad = _FRAME_PREFIX.unpack_from(data, 0)
-    if version != CODEC_VERSION:
+    if version not in (CODEC_VERSION, REFERENCE_CODEC_VERSION):
         raise ValueError(f"unsupported codec frame version {version}")
     header_end = _FRAME_PREFIX.size + hlen
     payload_start = header_end + pad
@@ -463,6 +499,133 @@ def loads(data) -> Any:
             return SparseDelta(**m[_SD_KEY])
         return m
 
-    return json.loads(
-        bytes(data[_FRAME_PREFIX.size:header_end]), object_hook=hook
-    )
+    header = bytes(data[_FRAME_PREFIX.size:header_end])
+    if version == REFERENCE_CODEC_VERSION:
+        return _mp_unpack(header, hook)
+    return json.loads(header, object_hook=hook)
+
+
+# --------------------------------------------------------------------------
+# the msgpack subset of the reference frame's header
+
+
+# (code, struct format, smallest value, bound) of msgpack's sized ints,
+# in the order the reference's encoder tries them
+_MP_INTS = (
+    (0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16),
+    (0xCE, ">I", 0, 1 << 32), (0xCF, ">Q", 0, 1 << 64),
+    (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+    (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0),
+)
+
+
+def _mp_pack(obj: Any) -> bytes:
+    out = bytearray()
+
+    def head(n: int, fix: int, fix_max: int, c8, c16: int, c32: int):
+        """A sized type's header: fixed form, then 8-, 16-, 32-bit."""
+        if n <= fix_max:
+            out.append(fix | n)
+        elif c8 is not None and n < 1 << 8:
+            out.extend(struct.pack(">BB", c8, n))
+        elif n < 1 << 16:
+            out.extend(struct.pack(">BH", c16, n))
+        else:
+            out.extend(struct.pack(">BI", c32, n))
+
+    def walk(o):
+        if o is None:
+            out.append(0xC0)
+        elif o is True or o is False:
+            out.append(0xC3 if o else 0xC2)
+        elif isinstance(o, int):
+            if -32 <= o < 128:
+                out.extend(struct.pack(">b", o) if o < 0 else bytes([o]))
+                return
+            for code, fmt, low, top in _MP_INTS:
+                if low <= o < top:
+                    out.append(code)
+                    out.extend(struct.pack(fmt, o))
+                    return
+            raise OverflowError(f"int {o} out of msgpack range")
+        elif isinstance(o, float):
+            out.extend(struct.pack(">Bd", 0xCB, o))
+        elif isinstance(o, str):
+            b = o.encode()
+            head(len(b), 0xA0, 31, 0xD9, 0xDA, 0xDB)
+            out.extend(b)
+        elif isinstance(o, list):
+            head(len(o), 0x90, 15, None, 0xDC, 0xDD)
+            for v in o:
+                walk(v)
+        elif isinstance(o, dict):
+            head(len(o), 0x80, 15, None, 0xDE, 0xDF)
+            for k, v in o.items():
+                walk(k)
+                walk(v)
+        else:
+            raise TypeError(f"cannot msgpack {type(o)!r}")
+
+    walk(obj)
+    return bytes(out)
+
+
+def _mp_unpack(data: bytes, hook: Callable[[dict], Any]) -> Any:
+    """Decode one msgpack object; `hook` maps each decoded map, inner
+    maps first (msgpack's `object_hook`)."""
+    pos = 0
+
+    def take(fmt: str):
+        nonlocal pos
+        vals = struct.unpack_from(fmt, data, pos)
+        pos += struct.calcsize(fmt)
+        return vals[0]
+
+    def raw(n: int) -> bytes:
+        nonlocal pos
+        pos += n
+        return data[pos - n:pos]
+
+    def container(n: int, is_map: bool):
+        if is_map:
+            m = {}
+            for _ in range(n):
+                k = walk()
+                m[k] = walk()
+            return hook(m)
+        return [walk() for _ in range(n)]
+
+    fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+    ints = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+            0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q", 0xCA: ">f", 0xCB: ">d"}
+
+    def walk():
+        code = take(">B")
+        if code < 0x80:
+            return code
+        if code >= 0xE0:
+            return code - 0x100
+        if 0x80 <= code <= 0x8F:
+            return container(code & 0x0F, True)
+        if 0x90 <= code <= 0x9F:
+            return container(code & 0x0F, False)
+        if 0xA0 <= code <= 0xBF:
+            return raw(code & 0x1F).decode()
+        if code in fixed:
+            return fixed[code]
+        if code in ints:
+            return take(ints[code])
+        if code in (0xD9, 0xDA, 0xDB):
+            return raw(take({0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[code])).decode()
+        if code in (0xC4, 0xC5, 0xC6):
+            return bytes(raw(take({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[code])))
+        if code in (0xDC, 0xDD):
+            return container(take(">H" if code == 0xDC else ">I"), False)
+        if code in (0xDE, 0xDF):
+            return container(take(">H" if code == 0xDE else ">I"), True)
+        raise ValueError(f"unsupported msgpack type byte 0x{code:02x}")
+
+    obj = walk()
+    if pos != len(data):
+        raise ValueError("trailing bytes after the msgpack header")
+    return obj

@@ -12,9 +12,10 @@ EXIT_CODE_MASTER_UNREACHABLE = 3
 
 
 class JobType(object):
-    """The one job type ported."""
-
     TRAINING_ONLY = "training"
+    EVALUATION_ONLY = "evaluation"
+    PREDICTION_ONLY = "prediction"
+    TRAINING_WITH_EVALUATION = "training_with_evaluation"
 
 
 class Mode(object):
@@ -28,6 +29,11 @@ MAX_MINIBATCH_RETRY_NUM = 64
 
 # Directory the process backend writes worker-<id>.log files into
 ENV_WORKER_LOG_DIR = "EDL_WORKER_LOG_DIR"
+
+# The metrics sink's writer backend (master/tensorboard_service.py):
+# "torch" (tfevents through torch's SummaryWriter) or "jsonl"; unset,
+# the service's own default ("auto": torch where it imports, else jsonl)
+ENV_TB_BACKEND = "EDL_TPU_TB_BACKEND"
 
 # Window mode's sync plane (worker/worker.py), the reference's names and
 # defaults: how many window syncs may be in flight per worker (0: each

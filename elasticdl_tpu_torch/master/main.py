@@ -7,33 +7,45 @@ worker manager.
         --training_data_dir <shards> --minibatch_size 8 \\
         --num_workers 2 --worker_backend process
 
-The reference's master main (`elasticdl_tpu/master/main.py`) for a
-training job on the single PS:
+The reference's master main (`elasticdl_tpu/master/main.py`) on the
+single PS, for training, training with evaluation, evaluation and
+prediction jobs:
 
-1. count the RecordIO shards -> TaskDispatcher;
+1. count the RecordIO shards of each data dir -> TaskDispatcher;
 2. load the model spec (the model is built on the CPU, for the
    optimizer factory only: the PS is numpy on the host, and the master
    never initializes CUDA, whose context every worker would then share
    the card with);
-3. start the RPC server, before the workers;
-4. launch workers through the WorkerManager over the process backend
+3. boot from `--checkpoint_filename_for_init` when given: params, aux
+   and version, and the optimizer's state from the file's `opt_state`
+   (exact resume); evaluation and prediction jobs need it;
+4. wire the job services: the checkpoint service (`--checkpoint_dir`,
+   `--checkpoint_steps`, `--keep_checkpoint_max`), the evaluation
+   service (`--evaluation_data_dir`: every `--eval_steps` versions or,
+   with `--eval_throttle_secs`, on a timer; an evaluation-only job is
+   one job pinned to the booted version) and the metrics sink
+   (`--tensorboard_log_dir`: train loss and evaluation metrics);
+5. start the RPC server, before the workers;
+6. launch workers through the WorkerManager over the process backend
    (`python -m elasticdl_tpu_torch.worker.main` subprocesses, logs in
    `$EDL_WORKER_LOG_DIR/worker-<id>.log` when it is set);
-5. poll until the job finishes, save `--output`, tear down: manager,
-   backend, server.
+7. poll until the job finishes and no evaluation job is pending, flush
+   the checkpoint writer, save `--output`, tear down: manager, backend,
+   server, checkpoint writer, metrics sink.
 
 Exit codes: 0 success; 1 boot or config error; 2 the job completed with
 dropped (poison) tasks, or every worker exited with tasks outstanding.
 
 At exit the master logs one line, `master summary: {json}`, with the
-server's seconds per method (handler and codec), the job's exactness
-block and the relaunches; `run(argv)` returns the same summary to an
+job type, the server's seconds per method (handler and codec), the
+job's exactness block, the relaunches and the completed evaluation
+jobs (`[version, metrics]`, and each one's seconds from its creation to
+its last task); `run(argv)` returns the same summary to an
 in-process caller.
 
-Not ported yet: evaluation and prediction jobs, boot from a checkpoint,
-the checkpoint and evaluation services, the sharded PS, KV shards and
-aggregators, standby workers, the policy and observability planes,
-TensorBoard, speculation, master migration and the k8s backend.
+Not ported yet: the sharded PS, KV shards and aggregators, standby
+workers, the policy and observability planes, the tensorboard process,
+speculation, master migration and the k8s backend.
 """
 
 from __future__ import annotations
@@ -82,14 +94,21 @@ def collect_shards(path: str) -> dict:
     return shards
 
 
-def build_master(args):
-    """(spec, dispatcher, servicer) for a training job on the single PS,
-    shared by main() and tests."""
+def build_master(args, job_type=None):
+    """(spec, dispatcher, servicer, evaluation service or None,
+    checkpoint service) on the single PS, shared by run() and tests; the
+    metrics sink, when there is one, is `servicer.tb_service` (its owner
+    tears it down). `job_type` defaults to the one the flags give."""
     from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
     from elasticdl_tpu_torch.master.servicer import MasterServicer
     from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
+    if job_type is None:
+        job_type = validate_master_args(args)
     spec = get_model_spec(
         model_zoo=args.model_zoo,
         model_def=args.model_def,
@@ -97,20 +116,65 @@ def build_master(args):
         dataset_fn=args.dataset_fn,
         loss=args.loss,
         optimizer=args.optimizer,
+        eval_metrics_fn=args.eval_metrics_fn,
+        prediction_outputs_processor=args.prediction_outputs_processor,
     )
+    ps_opt = PSOptimizer(spec.optimizer())
+    init_params = init_aux = None
+    init_version = 0
+    if args.checkpoint_filename_for_init:
+        init_params, init_aux, init_version = restore_for_init(
+            args.checkpoint_filename_for_init, ps_opt
+        )
     dispatcher = TaskDispatcher(
         collect_shards(args.training_data_dir),
-        {},
-        {},
+        collect_shards(args.evaluation_data_dir),
+        collect_shards(args.prediction_data_dir),
         args.records_per_task,
         args.num_epochs,
+        eval_model_version=init_version,
+    )
+    ckpt = CheckpointService(
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_steps=args.checkpoint_steps,
+        keep_checkpoint_max=args.keep_checkpoint_max,
     )
     servicer = MasterServicer(
         grads_to_wait=args.grads_to_wait,
-        optimizer=PSOptimizer(spec.optimizer()),
+        optimizer=ps_opt,
         task_dispatcher=dispatcher,
+        checkpoint_service=ckpt,
+        init_params=init_params,
+        init_aux=init_aux,
+        init_version=init_version,
+        use_async=args.use_async,
+        lr_staleness_modulation=args.lr_staleness_modulation,
+        staleness_window=args.staleness_window,
     )
-    return spec, dispatcher, servicer
+    tb_service = None
+    if args.tensorboard_log_dir:
+        from elasticdl_tpu_torch.master.tensorboard_service import TensorBoardService
+
+        tb_service = TensorBoardService(args.tensorboard_log_dir)
+        servicer.set_train_loss_hook(tb_service.write_train_loss)
+    eval_service = None
+    if job_type in (JobType.TRAINING_WITH_EVALUATION, JobType.EVALUATION_ONLY):
+        eval_service = EvaluationService(
+            ckpt,
+            dispatcher,
+            eval_steps=args.eval_steps,
+            start_delay_secs=args.eval_start_delay_secs,
+            throttle_secs=args.eval_throttle_secs,
+            # a throttle means the time trigger's thread
+            time_based=args.eval_throttle_secs > 0
+            and job_type == JobType.TRAINING_WITH_EVALUATION,
+            current_model_fn=servicer.get_params_copy,
+            metrics_writer=tb_service.write_eval_metrics if tb_service else None,
+        )
+        dispatcher.set_evaluation_service(eval_service)
+        servicer.set_evaluation_service(eval_service)
+    servicer.tb_service = tb_service
+    return spec, dispatcher, servicer, eval_service, ckpt
 
 
 def make_backend(args):
@@ -138,16 +202,23 @@ def run(argv=None):
 
     logging.getLogger().setLevel(args.log_level.upper())
 
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.common.messages import TaskType
     from elasticdl_tpu_torch.master.worker_manager import WorkerManager
     from elasticdl_tpu_torch.rpc.server import RpcServer
 
     try:
-        _spec, dispatcher, servicer = build_master(args)
+        _spec, dispatcher, servicer, eval_service, ckpt = build_master(args, job_type)
     except (ValueError, OSError) as e:
-        # a bad data dir or unreadable shards are config errors
+        # a bad data dir, unreadable shards or a bad checkpoint are
+        # config errors
         logger.error("master boot failed: %s", e)
         backend.stop()
         return 1, None
+    if job_type == JobType.EVALUATION_ONLY:
+        eval_service.start_standalone_job(
+            servicer.version, dispatcher.pending_count(TaskType.EVALUATION)
+        )
 
     server = RpcServer(servicer.handlers(), port=args.port)
     server.start()
@@ -166,7 +237,9 @@ def run(argv=None):
 
     exit_code = 0
     try:
-        while not dispatcher.finished():
+        while not dispatcher.finished() or (
+            eval_service is not None and eval_service.has_pending()
+        ):
             if manager.all_exited():
                 logger.error(
                     "all workers exited (relaunch budget spent) with "
@@ -174,10 +247,12 @@ def run(argv=None):
                 )
                 exit_code = 2
                 break
-            time.sleep(0.5)
+            time.sleep(0.2)
         if exit_code == 0 and dispatcher.has_failed_tasks():
             logger.error("job completed with dropped (poison) tasks")
             exit_code = 2
+        # the last cadence files may still be in the writer's queue
+        ckpt.flush()
         if exit_code == 0 and args.output and servicer.model_initialized():
             servicer.save_latest_checkpoint(args.output)
             logger.info("Final model saved to %s", args.output)
@@ -188,11 +263,21 @@ def run(argv=None):
         manager.stop_relaunch_and_remove_workers()
         backend.stop()
         server.stop()
+        ckpt.close()
+        if eval_service is not None:
+            eval_service.stop()
+        if servicer.tb_service is not None:
+            servicer.tb_service.close()
     summary = {
         "exit_code": exit_code,
+        "job_type": job_type,
         "seconds": time.perf_counter() - t0,
         **servicer.exactness(),
         "relaunches": manager.relaunches(),
+        "evaluations": [
+            [v, m] for v, m in (eval_service.completed_metrics if eval_service else [])
+        ],
+        "evaluation_seconds": eval_service.job_seconds if eval_service else [],
         "server": server.stats(),
     }
     logger.info("%s%s", SUMMARY_TAG, json.dumps(summary))

@@ -1,20 +1,31 @@
 """The master servicer: task front-end + parameter server.
 
-The reference's `MasterServicer` on the slice's paths: the master holds
-the model as a numpy tree + version counter, serves tasks and model
-pulls, and takes two kinds of update.
+The reference's `MasterServicer` on the single PS: the master holds the
+model as a numpy tree + version counter, serves tasks and model pulls,
+and takes two kinds of update.
 
-- Per-step sync (ReportGradient): only flat gradients computed at the
-  current version are accepted; on the `grads_to_wait`-th report they
-  are averaged in float32 numpy, the optimizer runs and the version
-  bumps. A rejected report, and an accepted one that saw the version
-  move, carry the fresh model back (`return_model`), so a steady-state
-  step is one RPC.
+- Per-step (ReportGradient): one flat gradient per report.
+  - Sync (the default): a report is accepted when its version is at
+    most `staleness_window` behind the PS's (0: only the current
+    version); on the `grads_to_wait`-th accepted report the gradients
+    are averaged in float32 numpy, the optimizer runs and the version
+    bumps.
+  - Async (`use_async`): every report is applied at once, whatever its
+    staleness; under `lr_staleness_modulation` a report `s > 1` versions
+    behind has its *gradient* scaled by 1/s (the reference's rule: the
+    scale is on the gradient, not the learning rate, so an adaptive
+    optimizer such as Adam mostly cancels it).
+  A rejected report, and an accepted one that saw the version move,
+  carry the fresh model back (`return_model`), so a steady-state step is
+  one RPC.
 - Window mode (ReportLocalUpdate): the worker ran `steps` optimizer
   updates on its device and sends one cumulative delta, in any wire
-  form (`codec.delta_to_f32`). The PS adds it in float32, the version
-  advances by `steps`, and the merged model goes back when another
-  worker synced in between. A repeated `report_key` is absorbed.
+  form (`codec.delta_to_f32`). The PS adds it in float32, down-weighted
+  by `staleness_window / staleness` when its base is more than
+  `staleness_window` versions behind (0: always full weight), the
+  version advances by `steps`, and the merged model goes back when
+  another worker synced in between. A repeated `report_key` is
+  absorbed.
 
 Either response piggybacks the model in the worker's `model_dtype`
 (bfloat16 halves the bytes).
@@ -26,8 +37,15 @@ ReportVariable's `aux` (or `init_aux`) seeds it; every report's
 the latest pending one lands with the step); GetModel, GetAux and every
 response that carries a model carry a copy of it.
 
-The staleness down-weighting of deltas (`--staleness_window`) is not
-ported: every delta applies at full weight.
+Job services: each applied version is snapshotted under the lock when
+it crosses the checkpoint cadence (params, aux and the optimizer's
+state), and `_on_version_bump` then fires outside the lock (the
+evaluation service calls back into `get_params_copy`): the checkpoint
+save and the evaluation step trigger. GetModel(FIXED) serves an exact
+version: the live model while it still is that version, else the
+evaluation snapshot or a durable checkpoint. ReportEvaluationMetrics
+feeds the evaluation service; the train-loss hook gets each report's
+loss. GetTask keeps workers waiting while an evaluation job is pending.
 
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
@@ -74,18 +92,33 @@ class MasterServicer:
         grads_to_wait: int,
         optimizer: Optional[PSOptimizer] = None,
         task_dispatcher=None,
+        evaluation_service=None,
+        checkpoint_service=None,
         init_params: Any = None,
         init_aux: Any = None,
+        init_version: int = 0,
+        use_async: bool = False,
+        lr_staleness_modulation: bool = False,
+        staleness_window: int = 0,
     ):
         self._lock = threading.Lock()
         self._grads_to_wait = grads_to_wait
         self._opt = optimizer
         self._task_d = task_dispatcher
+        self._evaluation_service = evaluation_service
+        self._checkpoint_service = checkpoint_service
+        self._use_async = use_async
+        self._lr_staleness_modulation = lr_staleness_modulation
+        self._staleness_window = staleness_window
+        self._train_loss_hook = None
+        # the metrics sink whose hooks are wired here (master main sets
+        # it; its owner tears it down)
+        self.tb_service = None
         self._params = _to_f32(init_params) if init_params is not None else None
         self._aux = init_aux
         self._pending_aux = None  # latest aux_state of the pending reports
-        self._version = 0
-        self._init_version = 0
+        self._version = init_version
+        self._init_version = init_version
         self._applied_update_steps = 0
         self._grad_sum = None  # flat f32 accumulator
         self._grad_n = 0
@@ -103,6 +136,7 @@ class MasterServicer:
             "ReportVariable": self.report_variable,
             "ReportGradient": self.report_gradient,
             "ReportLocalUpdate": self.report_local_update,
+            "ReportEvaluationMetrics": self.report_evaluation_metrics,
             "GetPSConfig": self.get_ps_config,
         }
 
@@ -135,19 +169,34 @@ class MasterServicer:
             )
 
     def save_latest_checkpoint(self, output_path: str):
-        """The final model, as `--output` (single PS)."""
+        """The model now, with the optimizer's state, as `--output`."""
         from elasticdl_tpu_torch.master.checkpoint import save_model_file
 
         with self._lock:
-            save_model_file(output_path, self._params, self._version, aux=self._aux)
+            save_model_file(output_path, self._params, self._version, aux=self._aux,
+                            opt_state=self._opt_state_snapshot())
+
+    def set_evaluation_service(self, evaluation_service):
+        """Late wiring: the evaluation service needs `get_params_copy`
+        and the servicer needs the service's hooks."""
+        self._evaluation_service = evaluation_service
+
+    def set_train_loss_hook(self, hook):
+        """hook(version, loss), fed each applied report's loss (the
+        metrics sink's `write_train_loss`)."""
+        self._train_loss_hook = hook
 
     # -- RPC: tasks ---------------------------------------------------------
 
     def get_task(self, req: dict) -> dict:
-        """The next shard, or WAIT; `finished` tells workers to exit."""
+        """The next shard, or WAIT; `finished` tells workers to exit (not
+        while an evaluation job is pending: its tasks may not exist
+        yet)."""
         task = self._task_d.get(req["worker_id"])
         if task is None:
             finished = self._task_d.finished()
+            if finished and self._evaluation_service is not None:
+                finished = not self._evaluation_service.has_pending()
             resp = {"task": Task(type=TaskType.WAIT).to_wire(), "finished": finished}
             if finished:
                 resp["failed"] = self._task_d.has_failed_tasks()
@@ -169,9 +218,11 @@ class MasterServicer:
     # -- RPC: model ---------------------------------------------------------
 
     def get_model(self, req: dict) -> dict:
-        """MINIMUM pull of the latest model (tree or flat form)."""
-        if req.get("method", MethodType.MINIMUM) != MethodType.MINIMUM:
-            raise ValueError("only MINIMUM model pulls are ported")
+        """MINIMUM: the latest model. FIXED: exactly `version`, from the
+        live model while it still is that version, else the evaluation
+        snapshot or a durable checkpoint. Tree form, or flat on `flat`."""
+        if req.get("method", MethodType.MINIMUM) == MethodType.FIXED:
+            return self._get_fixed_model(int(req.get("version", 0)), req.get("flat"))
         with self._lock:
             if self._params is None:
                 return {"version": -1, "params": None, "aux": None}
@@ -188,6 +239,25 @@ class MasterServicer:
                 "params": _copy(self._params),
                 "aux": _copy(self._aux),
             }
+
+    def _get_fixed_model(self, version: int, flat) -> dict:
+        with self._lock:
+            if version == self._version and self._params is not None:
+                params, aux = _copy(self._params), _copy(self._aux)
+            else:
+                params = None
+        if params is None:
+            if self._checkpoint_service is None:
+                raise ValueError("FIXED model pull requires a checkpoint service")
+            model = self._checkpoint_service.get_eval_model(version)
+            if model is None:
+                model = self._checkpoint_service.load_version(version)
+            if model is None:
+                raise ValueError(f"no snapshot for model version {version}")
+            params, aux = model.params, model.aux
+        if flat:
+            return {"version": version, "params_flat": codec.ravel_np(params), "aux": aux}
+        return {"version": version, "params": params, "aux": aux}
 
     def get_aux(self, req: dict) -> dict:
         """The non-trainable state and its version."""
@@ -209,6 +279,8 @@ class MasterServicer:
         """Returns {accepted, version[, params_flat, aux]}."""
         report_version = req.get("version", -1)
         aux_state = req.get("aux_state")
+        applied_version = -1
+        ckpt_snapshot = None
         with self._lock:
             if self._params is None:
                 raise ValueError("gradient reported before model init")
@@ -218,7 +290,8 @@ class MasterServicer:
                 int(np.asarray(p).size) for p in codec.tree_leaves(self._params)
             )
             grad = codec.delta_to_f32(req["gradient_flat"], n_params)
-            if report_version < self._version:
+            staleness = self._version - report_version
+            if not self._use_async and staleness > self._staleness_window:
                 # stale: reject AND piggyback the fresh model so the
                 # worker's retry needs no separate pull
                 resp = {"accepted": False, "version": self._version}
@@ -230,26 +303,39 @@ class MasterServicer:
                 raise ValueError(
                     f"future gradient version {report_version} > {self._version}"
                 )
-            if self._grad_sum is None:
-                self._grad_sum = np.array(grad, dtype=np.float32)
+            if self._use_async:
+                scale = 1.0
+                if self._lr_staleness_modulation and staleness > 1:
+                    scale = 1.0 / float(staleness)
+                self._apply(grad, dense_scale=scale, aux_state=aux_state)
+                applied_version = self._version
             else:
-                self._grad_sum += grad
-            if aux_state is not None:
-                self._pending_aux = aux_state
-            self._grad_n += 1
-            if self._grad_n >= self._grads_to_wait:
-                avg = self._grad_sum / np.float32(self._grad_n)
-                # clear BEFORE apply: a failed apply raises to the
-                # reporter, and leftovers would double-count its retry
-                aux_pending, self._pending_aux = self._pending_aux, None
-                self._grad_sum = None
-                self._grad_n = 0
-                self._apply(avg, aux_pending)
+                if self._grad_sum is None:
+                    self._grad_sum = np.array(grad, dtype=np.float32)
+                else:
+                    self._grad_sum += grad
+                if aux_state is not None:
+                    self._pending_aux = aux_state
+                self._grad_n += 1
+                if self._grad_n >= self._grads_to_wait:
+                    avg = self._grad_sum / np.float32(self._grad_n)
+                    # clear BEFORE apply: a failed apply raises to the
+                    # reporter, and leftovers would double-count its retry
+                    aux_pending, self._pending_aux = self._pending_aux, None
+                    self._grad_sum = None
+                    self._grad_n = 0
+                    self._apply(avg, aux_state=aux_pending)
+                    applied_version = self._version
             resp = {"accepted": True, "version": self._version}
             if req.get("return_model") and self._version != report_version:
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = _copy(self._aux)
-            return resp
+            if applied_version >= 0:
+                ckpt_snapshot = self._checkpoint_snapshot(applied_version - 1, applied_version)
+        if applied_version >= 0:
+            self._on_version_bump(applied_version, ckpt_snapshot, applied_version - 1)
+            self._report_train_loss(applied_version, req.get("loss"))
+        return resp
 
     def report_local_update(self, req: dict) -> dict:
         """Window mode: add one cumulative delta in float32, advance the
@@ -272,14 +358,27 @@ class MasterServicer:
                     "aux": _copy(self._aux),
                     "duplicate": True,
                 }
+            prev_version = self._version
+            # a base more than the window behind is down-weighted, never
+            # rejected (deltas have no reject-and-retry protocol)
+            scale = 1.0
+            if self._staleness_window:
+                staleness = self._version - base_version
+                if staleness > self._staleness_window:
+                    scale = self._staleness_window / float(staleness)
             if self._unraveler is None:
                 self._unraveler = codec.make_unraveler(self._params)
             delta = self._unraveler(codec.delta_to_f32(req["delta_flat"]))
-            self._params = codec.tree_map(lambda p, d: p + d, self._params, delta)
+            if scale == 1.0:
+                self._params = codec.tree_map(lambda p, d: p + d, self._params, delta)
+            else:
+                self._params = codec.tree_map(lambda p, d: p + scale * d, self._params, delta)
             if req.get("aux_state") is not None:
                 self._aux = req["aux_state"]
             self._version += steps
             self._applied_update_steps += steps
+            applied_version = self._version
+            ckpt_snapshot = self._checkpoint_snapshot(prev_version, applied_version)
             if report_key:
                 # registered only after the apply succeeded
                 self._seen_local_updates[report_key] = True
@@ -289,7 +388,19 @@ class MasterServicer:
             if base_version + steps != self._version or req.get("want_model"):
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = _copy(self._aux)
-            return resp
+        self._on_version_bump(applied_version, ckpt_snapshot, prev_version)
+        self._report_train_loss(applied_version, req.get("loss"))
+        return resp
+
+    def report_evaluation_metrics(self, req: dict) -> dict:
+        """One evaluation minibatch's metrics."""
+        if self._evaluation_service is not None:
+            self._evaluation_service.report_metrics(
+                req.get("model_version", -1),
+                req.get("metrics", {}),
+                req.get("num_examples", 1),
+            )
+        return {}
 
     def _flat_model(self, model_dtype=None):  # caller holds self._lock
         """The raveled params, narrowed to the worker's wire dtype when
@@ -301,12 +412,51 @@ class MasterServicer:
             raise ValueError(f"unsupported model_dtype {model_dtype!r}")
         return vec
 
-    def _apply(self, flat_grad: np.ndarray, aux_state=None):  # caller holds self._lock
+    def _apply(self, flat_grad: np.ndarray, dense_scale: float = 1.0, aux_state=None):  # caller holds self._lock
         if aux_state is not None:
             self._aux = aux_state
         if self._unraveler is None:
             self._unraveler = codec.make_unraveler(self._params)
         if self._opt is not None:
+            if dense_scale != 1.0:
+                flat_grad = flat_grad * dense_scale
             self._params = self._opt.step(self._params, self._unraveler(flat_grad))
         self._version += 1
         self._applied_update_steps += 1
+
+    # -- job-service hooks --------------------------------------------------
+
+    def _opt_state_snapshot(self):  # caller holds self._lock
+        """The dense optimizer's state leaves for exact resume (None
+        before the first apply)."""
+        if self._opt is None or not self._opt.initialized:
+            return None
+        return {"kind": "single", "leaves": self._opt.state_snapshot()}
+
+    def _checkpoint_snapshot(self, prev_version: int, version: int):  # caller holds self._lock
+        """(params, aux, opt_state) copied at exactly `version` when the
+        bump from `prev_version` crossed the checkpoint cadence, else
+        None: a concurrent report cannot skip a cadence point."""
+        ckpt = self._checkpoint_service
+        if ckpt is None or not ckpt.crossed(prev_version, version):
+            return None
+        return _copy(self._params), _copy(self._aux), self._opt_state_snapshot()
+
+    def _on_version_bump(self, version: int, ckpt_snapshot=None, prev_version=None):
+        """The checkpoint save and the evaluation step trigger for an
+        applied version. Called without the lock: the evaluation service
+        calls back into get_params_copy."""
+        if ckpt_snapshot is not None:
+            params, aux, opt_state = ckpt_snapshot
+            self._checkpoint_service.save(params, version, aux=aux, opt_state=opt_state)
+        if self._evaluation_service is not None:
+            self._evaluation_service.add_evaluation_task_if_needed(version, prev_version)
+
+    def _report_train_loss(self, version: int, loss):
+        hook = self._train_loss_hook
+        if hook is not None and loss is not None:
+            try:
+                hook(version, float(loss))
+            except Exception:
+                # a metrics sink must never fail training
+                logger.exception("train-loss hook failed")

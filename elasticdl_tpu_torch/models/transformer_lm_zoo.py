@@ -4,7 +4,8 @@ The reference's `transformer_lm_zoo` contract in PyTorch: the worker
 builds the model with `custom_model(**model_params)`, initializes it on
 the host with `init_params(seed)` (the reference's draws for the same
 seed), and trains it through the elastic PS loop on token RecordIO
-shards.
+shards; `eval_metrics_fn` scores its evaluation tasks (cross entropy,
+accuracy, perplexity = exp(cross entropy)).
 """
 
 from __future__ import annotations
@@ -96,3 +97,11 @@ def loss(outputs, labels):
 
 def optimizer():
     return ClipAdam(max_norm=1.0, learning_rate=1e-3)
+
+
+def eval_metrics_fn(predictions, labels):
+    logits, _aux = _split_outputs(predictions)
+    labels = torch.as_tensor(labels, device=logits.device)
+    ce = token_cross_entropy(logits, labels)
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return {"cross_entropy": ce, "accuracy": acc, "perplexity": torch.exp(ce)}

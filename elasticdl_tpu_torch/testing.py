@@ -51,20 +51,63 @@ class InProcessMaster:
         return out
 
 
-def build_job(spec, dispatcher, grads_to_wait: int = 1, init_params=None, init_aux=None):
-    """Wire a MasterServicer with the spec's PS optimizer over
-    `dispatcher`, as the master's boot does; `init_params` and `init_aux`
-    (the non-trainable collections) seed the PS, else the first worker
-    does. Returns the servicer. The same servicer takes per-step and
-    window-mode workers: window mode's settings are the Worker's
-    (`local_updates`, `sync_dtype`, ...)."""
+def build_job(
+    spec,
+    dispatcher,
+    grads_to_wait: int = 1,
+    eval_steps: int = 0,
+    checkpoint_dir: str = "",
+    checkpoint_steps: int = 0,
+    keep_checkpoint_max: int = 0,
+    use_async: bool = False,
+    lr_staleness_modulation: bool = False,
+    staleness_window: int = 0,
+    checkpoint_filename_for_init: str = "",
+    init_params=None,
+    init_aux=None,
+):
+    """Wire a MasterServicer and its services from a ModelSpec over
+    `dispatcher`, as the master's boot does, the boot from a checkpoint
+    included (its params, aux, version and optimizer state). Returns
+    (servicer, evaluation service or None, checkpoint service); the
+    evaluation service runs when `eval_steps` is set. `init_params` and
+    `init_aux` seed the PS at version 0 without a file, else the
+    checkpoint or the first worker does. The same servicer takes
+    per-step and window-mode workers: window mode's settings are the
+    Worker's (`local_updates`, `sync_dtype`, ...)."""
+    from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
     from elasticdl_tpu_torch.master.servicer import MasterServicer
 
-    return MasterServicer(
+    ps_opt = PSOptimizer(spec.optimizer())
+    init_version = 0
+    if checkpoint_filename_for_init:
+        init_params, init_aux, init_version = restore_for_init(
+            checkpoint_filename_for_init, ps_opt
+        )
+    ckpt = CheckpointService(
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_steps=checkpoint_steps,
+        keep_checkpoint_max=keep_checkpoint_max,
+    )
+    servicer = MasterServicer(
         grads_to_wait=grads_to_wait,
-        optimizer=PSOptimizer(spec.optimizer()),
+        optimizer=ps_opt,
         task_dispatcher=dispatcher,
+        checkpoint_service=ckpt,
         init_params=init_params,
         init_aux=init_aux,
+        init_version=init_version,
+        use_async=use_async,
+        lr_staleness_modulation=lr_staleness_modulation,
+        staleness_window=staleness_window,
     )
+    eval_service = None
+    if eval_steps:
+        eval_service = EvaluationService(
+            ckpt, dispatcher, eval_steps=eval_steps, current_model_fn=servicer.get_params_copy
+        )
+        dispatcher.set_evaluation_service(eval_service)
+        servicer.set_evaluation_service(eval_service)
+    return servicer, eval_service, ckpt

@@ -25,7 +25,8 @@ requeued.
 
 At exit the worker logs one line, `worker summary: {json}`: its device,
 steps accepted and computed (in per-step mode the difference is stale
-recomputes; window mode computes each step once), phase seconds, window
+recomputes; window mode computes each step once), the evaluation tasks
+(and their minibatches) and prediction tasks done, phase seconds, window
 mode's sync seconds and merged-back absorbs, whether it drained, the
 client's seconds per method, the three attention kernels' launches by
 head dim (`launch_counts`) and the dispatcher's attention fallbacks,
@@ -96,6 +97,9 @@ def _summary(worker_id, worker, client, device) -> dict:
         "merged_back": worker.merged_back,
         "deduped_windows": worker.deduped_windows,
         "drained": worker.drained,
+        "eval_tasks": worker.eval_tasks,
+        "eval_minibatches": worker.eval_minibatches,
+        "prediction_tasks": worker.prediction_tasks,
         # aux trees (BatchNorm statistics) taken from the PS, by RPC
         "aux_absorbed": dict(worker.aux_absorbed),
         "rpc_seconds": dict(client.seconds),
@@ -141,6 +145,8 @@ def main(argv=None) -> int:
         dataset_fn=args.dataset_fn,
         loss=args.loss,
         optimizer=args.optimizer,
+        eval_metrics_fn=args.eval_metrics_fn,
+        prediction_outputs_processor=args.prediction_outputs_processor,
     )
     client = RpcClient(args.master_addr)
     try:

@@ -37,6 +37,20 @@ The reference worker's two dense training paths on PyTorch:
   died derives the same keys, and the PS absorbs the windows that had
   already landed.
 
+Evaluation and prediction tasks (the reference's
+`_process_evaluation_task` and `_process_prediction_task`): an
+EVALUATION task pulls its pinned version FIXED into the model's buffers,
+runs the forward under `torch.inference_mode()` with `train=False`
+(BatchNorm normalizes with the running statistics in aux), and reports
+each minibatch's `eval_metrics_fn` (scalars, or mergeable states,
+`validate_eval_metrics`) with ReportEvaluationMetrics; then the
+buffers get the training model back. The eval pull leaves the training
+counters and lineage as they were, and window mode's base, on-card
+optimizer state and error-feedback residuals are not touched, so the
+next training report goes out at the version and base it would have had
+without the eval. A PREDICTION task pulls the latest model and hands
+each minibatch's outputs to the spec's `PredictionOutputsProcessor`.
+
 Lazy PS init: the first worker initializes the model on the host,
 offers it with ReportVariable (first writer wins) and pulls whatever
 won.
@@ -83,6 +97,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from elasticdl_tpu_torch.api.metrics import is_mergeable_state
 from elasticdl_tpu_torch.api.model_spec import (
     ModelSpec,
     aux_buffer,
@@ -129,6 +144,31 @@ def _wire_array(t: torch.Tensor):
     if t.dtype == torch.bfloat16:
         return codec.BF16Bits(t.view(torch.int16).numpy().view(np.uint16))
     return t.numpy()
+
+
+def validate_eval_metrics(raw: dict):
+    """Only dicts that are mergeable states (`api/metrics.py`) may ride
+    the eval wire as states: the evaluation service would sum any other
+    dict key by key into garbage, so it is refused here, by name."""
+    for k, v in raw.items():
+        if isinstance(v, dict) and not is_mergeable_state(v):
+            raise TypeError(
+                f"eval metric {k!r} returned a dict that is not a mergeable "
+                "metric state (missing the 'kind' field, see api/metrics.py): "
+                "return a scalar or a metrics-API state"
+            )
+
+
+def _host_value(v):
+    """A tensor (float32 for bf16, which numpy lacks) or array-like as
+    a host numpy array; a tuple (an MoE model's (logits, aux)) as a tuple
+    of them."""
+    if isinstance(v, tuple):
+        return tuple(_host_value(x) for x in v)
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+    return np.asarray(v)
 
 
 def _parse_sync_compress(spec) -> float:
@@ -206,7 +246,8 @@ class Worker:
         # (per-step: forward + backward and the gradient's trip to the
         # host; window mode: enqueueing the steps), "report" (the
         # ReportGradient round and the model absorb), "sync_wait" (window
-        # mode: joins of the sync chain and its backpressure)
+        # mode: joins of the sync chain and its backpressure), "eval" and
+        # "predict" (whole evaluation and prediction tasks)
         self.phase_seconds: Counter = Counter()
         # window mode's sync seconds: "quantize" (main thread, enqueueing
         # the delta and its compression), "encode" (sync thread: the wait
@@ -217,6 +258,11 @@ class Worker:
         self.merged_back = 0  # merged models absorbed
         self.deduped_windows = 0  # window syncs the PS had already applied
         self.drained = False  # the run loop exited on request_drain
+        # evaluation and prediction tasks done, and the minibatches of
+        # the evaluation ones
+        self.eval_tasks = 0
+        self.eval_minibatches = 0
+        self.prediction_tasks = 0
         # aux trees taken from the PS, by the RPC whose response carried them
         self.aux_absorbed: Counter = Counter()
         # non-trainable state: host template, leaf paths, device buffer
@@ -327,9 +373,23 @@ class Worker:
         self._job_failed = resp.get("failed", False)
         return Task.from_wire(resp["task"]), resp.get("finished", False)
 
-    def pull_model(self) -> bool:
-        """MINIMUM pull of anything newer than the local model; False if
-        the PS holds no model yet."""
+    def pull_model(self, version: int = -1, method: str = MethodType.MINIMUM) -> bool:
+        """MINIMUM: pull anything newer than the local model (`version`
+        is not read); False if the PS holds no model yet. FIXED: load
+        exactly `version` (an evaluation task's pinned model) into the
+        model's buffers, leaving the training counters and lineage as
+        they are."""
+        if method == MethodType.FIXED:
+            resp = self._master.call("GetModel", {
+                "version": version, "method": MethodType.FIXED,
+                "flat": self._template is not None,
+            })
+            if resp.get("params_flat") is not None:
+                self._set_flat(resp["params_flat"])
+            else:
+                self._init_flat_from_tree(resp["params"])
+            self._set_aux(resp.get("aux"), "GetModelFixed")
+            return True
         with self._report_lock:
             version = self._version
         req = {
@@ -994,15 +1054,74 @@ class Worker:
 
     # ------------------------------------------------------------- the loop
 
+    def _eval_forward(self, features):
+        """The model's outputs in inference mode (the caller holds
+        `torch.inference_mode()`): no autograd graph, and `train=False`
+        for a model that takes it."""
+        x = self._to_device(features)
+        return self._model(x, train=False) if self._takes_train else self._model(x)
+
+    def _task_batches(self, task: Task, mode: str):
+        reader = self._readers.get(task.shard_file_name)
+        records = list(reader.read_range(task.start, task.end))
+        for chunk in iter_minibatches(records, self._minibatch_size):
+            yield self._spec.dataset_fn(chunk, mode)
+
+    def _process_evaluation_task(self, task: Task):
+        """Evaluate the task's records at its pinned version and report
+        each minibatch's metrics; the model's buffers get the training
+        model back afterwards."""
+        if self._spec.eval_metrics_fn is None:
+            raise ValueError("an evaluation task needs the spec's eval_metrics_fn")
+        saved = None
+        if self._flat is not None:
+            saved = (
+                self._flat.clone(),
+                self._aux_flat.clone() if self._aux_flat is not None else None,
+            )
+        try:
+            self.pull_model(task.model_version, MethodType.FIXED)
+            for features, labels in self._task_batches(task, Mode.EVALUATION):
+                with torch.inference_mode():
+                    outputs = self._eval_forward(features)
+                    raw = self._spec.eval_metrics_fn(outputs, self._to_device(labels))
+                    validate_eval_metrics(raw)
+                    metrics = {
+                        k: {sk: sv if isinstance(sv, str) else _host_value(sv)
+                            for sk, sv in v.items()}
+                        if isinstance(v, dict) else float(v)
+                        for k, v in raw.items()
+                    }
+                self._master.call("ReportEvaluationMetrics", {
+                    "model_version": task.model_version,
+                    "metrics": metrics,
+                    "num_examples": int(codec.tree_leaves(features)[0].shape[0]),
+                })
+                self.eval_minibatches += 1
+            self.eval_tasks += 1
+        finally:
+            if saved is not None:
+                self._flat.copy_(saved[0])
+                if saved[1] is not None:
+                    self._aux_flat.copy_(saved[1])
+
+    def _process_prediction_task(self, task: Task):
+        """Run the latest model over the task's records; each
+        minibatch's outputs go to the spec's PredictionOutputsProcessor."""
+        if not self.pull_model():
+            raise RuntimeError("a prediction task needs an initialized model")
+        proc = self._spec.prediction_outputs_processor
+        for features, _labels in self._task_batches(task, Mode.PREDICTION):
+            with torch.inference_mode():
+                outputs = self._eval_forward(features)
+            if proc is not None:
+                proc.process(_host_value(outputs), self._id)
+        self.prediction_tasks += 1
+
     def _process_training_task(self, task: Task) -> bool:
         """Train on the task's records. Returns True when its result
         report was deferred behind the covering sync (window mode)."""
-        reader = self._readers.get(task.shard_file_name)
-        records = list(reader.read_range(task.start, task.end))
-        batches = (
-            self._spec.dataset_fn(chunk, Mode.TRAINING)
-            for chunk in iter_minibatches(records, self._minibatch_size)
-        )
+        batches = self._task_batches(task, Mode.TRAINING)
         # window report keys derive from this dispatch of the task
         self._cur_spec_key = task.spec_key
         self._cur_window_idx = 0
@@ -1034,8 +1153,8 @@ class Worker:
         return False
 
     def run(self) -> bool:
-        """Task loop over TRAINING tasks (the port's dispatcher makes no
-        other kind yet). Returns True on clean completion or a drain,
+        """Task loop over TRAINING, EVALUATION and PREDICTION tasks.
+        Returns True on clean completion or a drain,
         False when the master reported the job finished with dropped
         tasks. A failure inside a task is reported to the master, which
         requeues the task (and drops it after its retry budget), and the
@@ -1068,7 +1187,16 @@ class Worker:
             with self._report_lock:
                 self._flushed_report_ids.clear()
             try:
-                reported = self._process_training_task(task)
+                if task.type == TaskType.TRAINING:
+                    reported = self._process_training_task(task)
+                elif task.type == TaskType.EVALUATION:
+                    with self._phase("eval"):
+                        self._process_evaluation_task(task)
+                elif task.type == TaskType.PREDICTION:
+                    with self._phase("predict"):
+                        self._process_prediction_task(task)
+                else:
+                    err = f"unknown task type {task.type}"
             except Exception as e:
                 logger.exception("Worker %d task %d failed", self._id, task.task_id)
                 err = f"{type(e).__name__}: {e}"

@@ -76,7 +76,7 @@ def test_image_job_matches_the_reference_job(tmp_path, name, mode):
 
     dispatcher = TaskDispatcher({path: RECORDS}, {}, {}, PER_TASK, 1, shuffle_seed=3)
     spec = spec_from_module(tmod)
-    servicer = build_job(spec, dispatcher, 1, init_params=params, init_aux=init_aux)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, 1, init_params=params, init_aux=init_aux)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cpu",
                     **MODES[mode])
     assert worker.run()

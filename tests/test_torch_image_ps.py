@@ -302,7 +302,7 @@ def test_images_reach_the_model_as_uint8_and_tokens_as_int64(tmp_path):
                                (tok, tzoo, tzoo.custom_model(vocab=64))):
         dispatcher = TaskDispatcher({rec: 8}, {}, {}, 8, 1, shuffle_seed=0)
         spec = spec_from_module(module, model=spy(model))
-        servicer = build_job(spec, dispatcher, 1)
+        servicer, _eval, _ckpt = build_job(spec, dispatcher, 1)
         worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=4, device="cpu")
         assert worker.run()
         worker.close()
@@ -318,7 +318,7 @@ def test_lazy_init_offers_the_models_aux_and_every_step_reports_its_new_stats(tm
     trc.write_synthetic_image_records(path, 16, tcifar.IMAGE_SHAPE, 10, seed=1)
     dispatcher = TaskDispatcher({path: 16}, {}, {}, 8, 1, shuffle_seed=0)
     spec = spec_from_module(tcifar)
-    servicer = build_job(spec, dispatcher, 1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, 1)
     record = lambda req: reqs.append(req) or req  # noqa: E731
     master = InProcessMaster(servicer, intercept={"ReportVariable": record,
                                                   "ReportGradient": record})

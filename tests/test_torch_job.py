@@ -50,7 +50,7 @@ def records(tmp_path):
 def _port_job(path, init_params=None, intercept=None):
     dispatcher = TaskDispatcher({path: RECORDS}, {}, {}, PER_TASK, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init_params)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init_params)
     master = InProcessMaster(servicer, intercept=intercept)
     worker = Worker(0, master, spec, minibatch_size=BATCH, device="cpu")
     assert worker.run()

@@ -294,7 +294,7 @@ def test_large_cut_job_matches_the_reference_job(records, window):
 
     dispatcher = TaskDispatcher({records: 16}, {}, {}, 8, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(**model_kw))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cpu",
                     **worker_kw)
     assert worker.run()

@@ -402,7 +402,7 @@ def test_moe_zoo_job_trains(tmp_path):
     model = tzoo.custom_model(vocab=VOCAB, n_experts=2)
     assert model.cfg.n_experts == 2
     spec = spec_from_module(tzoo, model=model)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=32, device="cpu")
     assert worker.run()
     worker.close()
@@ -435,7 +435,7 @@ def test_moe_job_matches_the_reference_job(tmp_path, window):
 
     dispatcher = TaskDispatcher({path: 16}, {}, {}, 8, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(**MOE))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=2, device="cpu",
                     **worker_kw)
     assert worker.run()

@@ -113,7 +113,7 @@ def test_one_worker_job_equals_the_in_process_job_bit_for_bit(tmp_path, monkeypa
     path = os.path.join(data, "shard-0.rio")
     dispatcher = TaskDispatcher({path: 64}, {}, {}, 64, 2, shuffle_seed=0)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cpu")
     assert worker.run()
     worker.close()
@@ -159,7 +159,7 @@ def test_sigkilled_worker_is_recovered_and_relaunched(tmp_path):
     # enough tasks (8) that worker 0 holds one even if it boots last
     _shards(data, 4, 64)
     args = master_parser().parse_args(_argv(data, "", 2))
-    _spec, dispatcher, servicer = master_main.build_master(args)
+    _spec, dispatcher, servicer, _eval, _ckpt = master_main.build_master(args)
     server = RpcServer(servicer.handlers(), port=0)
     server.start()
     addr = f"localhost:{server.port}"

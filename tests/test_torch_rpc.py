@@ -75,6 +75,10 @@ def _calls():
                             "gradient_flat": BF16Bits.from_f32(grad * 3),
                             "loss": 1.0, "return_model": True}),
         ("GetModel", {"version": 1, "method": "minimum", "only_if_newer": True}),
+        # the exact live version, and one evaluation minibatch's metrics
+        ("GetModel", {"version": 2, "method": "fixed", "flat": True}),
+        ("ReportEvaluationMetrics", {"model_version": 2, "metrics": {"accuracy": 0.5},
+                                     "num_examples": 4}),
         # window syncs: an int8 delta that lands unmerged, a top-k delta
         # whose base fell behind (merged model back in bf16), its resend
         ("ReportLocalUpdate", {"delta_flat": quantize_int8(grad * 1e-3), "steps": 2,

@@ -259,7 +259,7 @@ def test_task_reports_wait_for_their_covering_sync(records):
 
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 64, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(
         servicer, intercept={"ReportLocalUpdate": slow_sync, "ReportTaskResult": report}
     )
@@ -291,7 +291,7 @@ def test_failed_last_sync_requeues_its_task_and_the_job_finishes(records):
 
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 64, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer, intercept={"ReportLocalUpdate": fail_second_sync})
     worker = Worker(0, master, spec, minibatch_size=BATCH, device="cpu", local_updates=4)
     done = []
@@ -462,7 +462,7 @@ def records(tmp_path):
 def _port_job(path, init=None, **worker_kw):
     dispatcher = TaskDispatcher({path: 128}, {}, {}, 64, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
     worker = Worker(0, InProcessMaster(servicer), spec, minibatch_size=BATCH, device="cpu",
                     **worker_kw)
     assert worker.run()
@@ -542,7 +542,7 @@ def test_per_step_wire_forms_match_the_reference(records, wire):
     seen = []
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 64, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
     master = InProcessMaster(servicer, intercept={
         "ReportGradient": lambda req: seen.append(
             (type(req["gradient_flat"]).__name__, req.get("model_dtype"))) or req
@@ -566,7 +566,7 @@ def test_two_in_process_workers_with_bf16_ef(records, tmp_path):
     and the loss falls over 2 epochs."""
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 32, 2, shuffle_seed=3)
     spec0 = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec0, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec0, dispatcher, grads_to_wait=1)
     master = InProcessMaster(servicer)
     workers = [
         Worker(i, master, spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB)),
@@ -623,7 +623,7 @@ def test_window_report_keys_are_the_reference_workers(records):
 
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 48, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1, init_params=init)
     worker = Worker(0, InProcessMaster(servicer, intercept=_keys_of(calls)), spec,
                     minibatch_size=BATCH, device="cpu", local_updates=2, sync_dtype="float32")
     assert worker.run()
@@ -665,7 +665,7 @@ def test_replayed_windows_are_deduped_by_their_spec_key(records):
     applied, and each record's step is applied exactly once."""
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 64, 1, shuffle_seed=3)
     spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     calls = []
     master = InProcessMaster(servicer, intercept=_keys_of(calls))
     dying = _DyingMaster(master)
@@ -714,7 +714,7 @@ def test_failed_window_task_leaves_no_step_to_the_next_task(records):
 
     spec.dataset_fn = dataset_fn
     dispatcher = TaskDispatcher({records: 128}, {}, {}, 48, 1, shuffle_seed=3)
-    servicer = build_job(spec, dispatcher, grads_to_wait=1)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
     calls = []
     worker = Worker(0, InProcessMaster(servicer, intercept=_keys_of(calls)), spec,
                     minibatch_size=BATCH, device="cpu", local_updates=2, sync_dtype="float32")
@@ -781,7 +781,7 @@ def _window_job(tmp_path, n_shards):
     data = str(tmp_path / "data")
     _shards(data, n_shards)
     args = master_parser().parse_args(_argv(data, "", 2))
-    _spec, dispatcher, servicer = master_main.build_master(args)
+    _spec, dispatcher, servicer, _eval, _ckpt = master_main.build_master(args)
     server = RpcServer(servicer.handlers(), port=0)
     server.start()
     addr = f"localhost:{server.port}"
