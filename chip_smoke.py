@@ -167,7 +167,40 @@ its result lines only when every phase passed:
    when it made one), and an in-process prediction run of
    mnist_functional_api from a checkpoint (the processor's classes equal
    the CPU's away from near-ties);
-16. prints the kernels' JSON line (one row per kernel and head dim in
+16. the transport tiers (`phase_transport_probe`): one ResNet-50-sized
+   ReportGradient (23.5M float32, 94.1 MB) and a model-sized response
+   round trip between this process and a server process, 10 times after
+   a warm-up, over tcp, uds, shm at the default 4 MiB ring (chunked) and
+   shm with a whole-frame ring: median ms and GB/s, each link on the tier
+   asked for, nothing left in /dev/shm or the socket directory. Phases
+   16-18 share one short socket directory straight under the temp dir,
+   since an AF_UNIX path holds at most 107 bytes;
+17. `BASELINE.json`'s "imagenet_resnet50 -- 8 TPU workers, async PS"
+   (`phase_imagenet_async`): 8 tars of 2,048 `<label>/<n>.npy` 64x64x3
+   images converted by `data/recordio_gen/parallel_convert` with
+   `models/imagenet_resnet50.py` into 8 shards (16,384 records), then
+   master.main with 8 async worker processes on the card
+   (`--use_async --lr_staleness_modulation`, b128, tasks of 512: 128
+   updates) over EDL_TRANSPORT=shm with a whole-frame ring: rc 0, the
+   exactness block at v128 = the accepted steps, finite losses, moved
+   parameters and batch statistics, every link on shm, 0 attention
+   launches, no segment left; prints steady images/s, the
+   ReportGradient handler a step, each worker's client seconds by
+   method (codec, the rest), the peak memory of one worker, the CPUs;
+18. `BASELINE.json`'s "resnet50_subclass elastic -- 50% worker churn" on
+   `bench_elastic.py`'s protocol (`phase_resnet_churn`): 4 active worker
+   processes and 1 warm standby, window mode (W 2, b64, tasks of 128),
+   8,192 records x 2 epochs over shm; a stable run, then a churn run
+   SIGKILLing half of the live active workers at 25%, 50% and 75% of the
+   records; images/s of each from the first completed task, retention,
+   relaunches, promotions, the warm ones among them, and each kill's
+   seconds to the promoted standby's (and the other replacements') first
+   accepted step; each run with no failed task, every minibatch applied
+   once, no segment left after the workers (the killed ones' too), and
+   in the churn run 3 waves, a promotion, at least one warm promotion
+   and no more than the promotions, and every promoted standby that
+   stood by pre-warmed;
+19. prints the kernels' JSON line (one row per kernel and head dim in
    bf16, 12 rows, plus the float32 kernels' own rows at the zoo
    default's [8, 1024, 4, 16], `{kernel}_d16_f32`, bound by products at
    the CUDA cores' float32 peak; the backward pair's yardstick once per
@@ -2408,25 +2441,32 @@ def async_argv(data, evald, num_workers, **flags):
     return argv
 
 
-def run_master(argv, log_dir, env=()):
-    """master.main's `run(argv)` in this process with the worker logs in
-    `log_dir` and `env` set for the run: (rc, summary, wall seconds)."""
-    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
-    from elasticdl_tpu_torch.master import main as master_main
-
-    env = dict(env, **{ENV_WORKER_LOG_DIR: log_dir})
+@contextlib.contextmanager
+def environ(env):
+    """`env` set in os.environ for the block (worker processes inherit
+    it), the previous values back after."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        t0 = time.perf_counter()
-        rc, summary = master_main.run(argv)
-        return rc, summary, time.perf_counter() - t0
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 del os.environ[k]
             else:
                 os.environ[k] = v
+
+
+def run_master(argv, log_dir, env=()):
+    """master.main's `run(argv)` in this process with the worker logs in
+    `log_dir` and `env` set for the run: (rc, summary, wall seconds)."""
+    from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
+    from elasticdl_tpu_torch.master import main as master_main
+
+    with environ(dict(env, **{ENV_WORKER_LOG_DIR: log_dir})):
+        t0 = time.perf_counter()
+        rc, summary = master_main.run(argv)
+        return rc, summary, time.perf_counter() - t0
 
 
 def phase_async_process_job(tmp) -> dict:
@@ -2923,6 +2963,494 @@ def phase_resume(tmp):
                              f"uninterrupted run")
 
 
+# -- ResNet-50 across worker processes: the transport tiers, the async PS
+# with 8 workers, warm standbys under churn
+
+# ResNet-50's gradient and model travel as one float32 vector each
+RESNET_DEF = "resnet50_subclass.custom_model"
+PROBE_ROUNDS = 10
+PROBE_SERVER = r"""
+import os, sys
+import numpy as np
+from elasticdl_tpu_torch.rpc.server import RpcServer
+n = int(sys.argv[1])
+model = np.arange(n, dtype=np.float32)
+srv = RpcServer({"ReportGradient": lambda req: {"accepted": True, "version": 1,
+                                                 "params_flat": model}}, port=0)
+srv.start()
+print(srv.port, flush=True)
+sys.stdin.read()  # until the client closes the pipe
+srv.stop()
+"""
+
+
+def resnet_param_count() -> int:
+    from elasticdl_tpu_torch.models import resnet50_subclass
+
+    return sum(p.numel() for p in resnet50_subclass.custom_model().parameters())
+
+
+def shm_ring_for(n_params: int) -> int:
+    """A ring that holds one frame of `n_params` float32 and its header."""
+    return 4 * n_params + (1 << 20)
+
+
+def port_segments(pid=None) -> list:
+    """/dev/shm segments of the port's shm servers in process `pid`
+    (this one by default)."""
+    from elasticdl_tpu_torch.rpc import transport
+
+    mark = f".{os.getpid() if pid is None else pid}."
+    return sorted(n for n in os.listdir("/dev/shm")
+                  if n.startswith(transport.SHM_SEGMENT_PREFIX) and mark in n)
+
+
+@contextlib.contextmanager
+def tier_dir():
+    """One short EDL_UDS_DIR straight under the temp dir for the fast
+    tiers' sockets and rendezvous files: an AF_UNIX path holds at most
+    107 bytes, and a deep TMPDIR would push a socket past it (the server
+    would then serve TCP only). Fails up front when even this one is too
+    long, and at the end when a file was left in it."""
+    import shutil
+
+    from elasticdl_tpu_torch.rpc import transport
+
+    uds = tempfile.mkdtemp(prefix="edlt")
+    try:
+        with environ({"EDL_UDS_DIR": uds}):
+            longest = max(len(transport.uds_path_for(65535)),
+                          len(transport.shm_doorbell_path(65535)))
+        if longest >= 108:
+            raise AssertionError(f"a socket under {uds!r} takes {longest} bytes, over "
+                                 f"AF_UNIX's 107: set TMPDIR to a shorter directory")
+        yield uds
+        left = os.listdir(uds)
+        if left:
+            raise AssertionError(f"the fast tiers left {left} in {uds}")
+    finally:
+        shutil.rmtree(uds, ignore_errors=True)
+
+
+def phase_transport_probe(uds):
+    """One ResNet-50-sized ReportGradient (23.5M float32 gradients, about
+    94 MB) and a model-sized response round trip between this process
+    and a server process on the host, over tcp, uds, shm at the default
+    4 MiB ring (the chunked path) and shm with a ring that holds the
+    whole frame: 10 round trips each after one warm-up, median ms and
+    GB/s (both frames' bytes over the median). Each client's link takes
+    its tier from EDL_TRANSPORT as the client is built; the server's
+    sockets and rendezvous files go in `uds`. No tier is required to
+    win; each link must run on the tier asked for, every response must
+    carry the model, and no segment or file may be left."""
+    from elasticdl_tpu_torch.common import messages
+    from elasticdl_tpu_torch.rpc.client import RpcClient
+
+    n = resnet_param_count()
+    grad = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    req = {"worker_id": 0, "version": 0, "gradient_flat": grad, "loss": 1.0, "return_model": True}
+    req_bytes = len(messages.pack(req))
+    resp_bytes = len(messages.pack({"accepted": True, "version": 1,
+                                    "params_flat": np.zeros(n, np.float32)}))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    configs = (("auto", None, (("grpc", "tcp"), ("uds", "uds"), ("shm", "shm 4 MiB ring"))),
+               ("shm", shm_ring_for(n), (("shm", "shm whole-frame ring"),)))
+    rows = []
+    for mode, ring, tiers in configs:
+        env = {"EDL_UDS_DIR": uds, "EDL_TRANSPORT": mode}
+        if ring:
+            env["EDL_TRANSPORT_SHM_RING_BYTES"] = str(ring)
+        with environ(env):
+            server = subprocess.Popen(
+                [sys.executable, "-c", PROBE_SERVER, str(n)],
+                env=dict(os.environ, PYTHONPATH=repo), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, text=True)
+            try:
+                port = int(server.stdout.readline())
+                for tier, label in tiers:
+                    with environ({"EDL_TRANSPORT": tier}):
+                        client = RpcClient(f"localhost:{port}")
+                    want = "tcp" if tier == "grpc" else tier
+                    if client.tier != want:
+                        raise AssertionError(f"probe: {label} link on {client.tier}")
+                    walls = []
+                    for i in range(PROBE_ROUNDS + 1):
+                        t0 = time.perf_counter()
+                        resp = client.call("ReportGradient", req)
+                        walls.append(time.perf_counter() - t0)
+                        if i == 0 and not (resp["params_flat"][:1000] == np.arange(1000)).all():
+                            raise AssertionError(f"probe: {label} response lost the model")
+                    codec_s = client.codec_seconds["ReportGradient"] / (PROBE_ROUNDS + 1)
+                    client.close()
+                    med = statistics.median(walls[1:])
+                    rows.append((label, med, codec_s))
+                    print(f"transport probe {label}: median {med * 1e3:.2f} ms a round trip "
+                          f"({req_bytes / 1e6:.1f} MB up, {resp_bytes / 1e6:.1f} MB down; "
+                          f"{(req_bytes + resp_bytes) / med / 1e9:.2f} GB/s), min "
+                          f"{min(walls[1:]) * 1e3:.2f}, codec {codec_s * 1e3:.2f} ms a call; "
+                          f"{os.cpu_count()} CPUs")
+            finally:
+                server.stdin.close()
+                server.wait(timeout=60)
+            left = port_segments(server.pid)
+            if left:
+                raise AssertionError(f"probe server left {left}")
+    left = [f for f in os.listdir(uds) if f.startswith("edlt")]
+    if left:
+        raise AssertionError(f"probe left {left}")
+    return rows
+
+
+# BASELINE.json's "imagenet_resnet50 -- 8 TPU workers, async PS": the zoo's
+# ResNet-50 (64x64x3, 10 classes) on 8 worker processes on one card,
+# 16,384 records converted from tars of .npy images in 8 shards, tasks of
+# 512, minibatch 128: 32 tasks, 4 a worker, 128 updates
+IMAGENET_RECORDS, IMAGENET_SHARDS, IMAGENET_WORKERS = 16384, 8, 8
+IMAGENET_BATCH, IMAGENET_TASK = 128, 512
+IMAGENET_STEPS = IMAGENET_RECORDS // IMAGENET_BATCH
+IMAGENET_SHAPE = (64, 64, 3)
+
+
+def write_image_tars(raw, n_tars, per_tar, shape, seed=0) -> list:
+    """Tars of `<label>/<n>.npy` uint8 images (labels 0-9) from `seed`."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for t in range(n_tars):
+        images = rng.integers(0, 256, (per_tar,) + shape, dtype=np.uint8)
+        labels = rng.integers(0, 10, per_tar)
+        path = os.path.join(raw, f"part-{t:02d}.tar")
+        with tarfile.open(path, "w") as tar:
+            for i in range(per_tar):
+                buf = io.BytesIO()
+                np.save(buf, images[i])
+                info = tarfile.TarInfo(f"{labels[i]}/{t * per_tar + i}.npy")
+                info.size = buf.tell()
+                buf.seek(0)
+                tar.addfile(info, buf)
+        paths.append(path)
+    return paths
+
+
+def rpc_split(s) -> dict:
+    """A worker summary's client seconds by method: [codec, the rest]."""
+    return {m: [round(s["rpc_codec_seconds"].get(m, 0.0), 3),
+                round(v - s["rpc_codec_seconds"].get(m, 0.0), 3)]
+            for m, v in s["rpc_seconds"].items()}
+
+
+def phase_imagenet_async(tmp, uds):
+    """`BASELINE.json`'s third config: tars of 16,384 64x64x3 uint8 images
+    (labels 0-9) converted by `data/recordio_gen/parallel_convert` with
+    `models/imagenet_resnet50.py` as the prep module into 8 shards, then
+    `master.main --model_def imagenet_resnet50.custom_model --use_async
+    --lr_staleness_modulation --worker_backend process --num_workers 8
+    --minibatch_size 128 --records_per_task 512` (one epoch, 128 updates)
+    over EDL_TRANSPORT=shm with a ring that holds a whole frame. Checks: rc
+    0; version = init + 128 = the workers' accepted steps; finite losses;
+    parameters and batch statistics moved; every worker's link on shm; no
+    failed task; no segment of the port's prefix left after the master
+    exits. Prints steady images/s, the ReportGradient handler a step,
+    each worker's client seconds by method (codec, the rest), the tiers,
+    one worker's peak device memory and the CPU count. The tier's
+    sockets and rendezvous files go in `uds`."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.data.recordio import count_records
+    from elasticdl_tpu_torch.data.recordio_gen import parallel_convert
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "imagenet-async"
+    root = os.path.join(tmp, name)
+    raw, data, log_dir = (os.path.join(root, d) for d in ("raw", "data", "logs"))
+    os.makedirs(raw)
+    with logs_on_failure(log_dir):
+        t0 = time.perf_counter()
+        tars = write_image_tars(raw, IMAGENET_SHARDS, IMAGENET_RECORDS // IMAGENET_SHARDS,
+                                IMAGENET_SHAPE)
+        t1 = time.perf_counter()
+        prep = os.path.join(ZOO, "imagenet_resnet50.py")
+        shards = parallel_convert.convert_files(tars, prep, data, records_per_shard=1,
+                                                num_workers=IMAGENET_SHARDS)
+        counts = [count_records(p) for p in shards]
+        t2 = time.perf_counter()
+        if counts != [IMAGENET_RECORDS // IMAGENET_SHARDS] * IMAGENET_SHARDS:
+            raise AssertionError(f"{name}: shards of {counts} records")
+        print(f"{name} data: {len(tars)} tars written in {t1 - t0:.2f} s, converted by "
+              f"parallel_convert into {len(shards)} shards of {counts[0]} records in "
+              f"{t2 - t1:.2f} s")
+        n = resnet_param_count()
+        output = os.path.join(root, "final.ckpt")
+        argv = ["--model_def", "imagenet_resnet50.custom_model", "--use_async",
+                "--lr_staleness_modulation", "--worker_backend", "process",
+                "--num_workers", str(IMAGENET_WORKERS), "--minibatch_size", str(IMAGENET_BATCH),
+                "--records_per_task", str(IMAGENET_TASK), "--training_data_dir", data,
+                "--device", "cuda", "--envs", "OMP_NUM_THREADS=1", "--output", output]
+        env = {"EDL_TRANSPORT": "shm", "EDL_TRANSPORT_SHM_RING_BYTES": str(shm_ring_for(n)),
+               "EDL_UDS_DIR": uds}
+        rc, master, wall = run_master(argv, log_dir, env)
+        left = port_segments()
+        if rc != 0 or left:
+            raise AssertionError(f"{name}: master.main exited {rc}; segments left {left}")
+        model = load_model_file(output)
+        ex = {k: master[k] for k in ("version", "init_version", "applied_update_steps")}
+        if model.version != IMAGENET_STEPS or ex != {
+                "version": IMAGENET_STEPS, "init_version": 0,
+                "applied_update_steps": IMAGENET_STEPS}:
+            raise AssertionError(f"{name}: --output v{model.version}, exactness {ex}")
+        summaries = read_summaries(log_dir)
+        if sorted(summaries) != list(range(IMAGENET_WORKERS)):
+            raise AssertionError(f"{name}: worker summaries of {sorted(summaries)}")
+        accepted = sum(s["steps_accepted"] for s in summaries.values())
+        losses = [x for s in summaries.values() for x in s["losses"]]
+        tiers = {wid: s["tier"] for wid, s in summaries.items()}
+        card = torch.cuda.get_device_name(0)
+        if accepted != IMAGENET_STEPS or set(tiers.values()) != {"shm"}:
+            raise AssertionError(f"{name}: {accepted} accepted steps, tiers {tiers}")
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        for wid, s in summaries.items():
+            if s["device"] != card or any(s["launches"].values()) or s["attention_fallbacks"]:
+                raise AssertionError(f"{name} worker {wid} on {s['device']!r}, launches "
+                                     f"{s['launches']}, fallbacks {s['attention_fallbacks']}")
+        spec = image_spec("imagenet_resnet50.custom_model")
+        flat = codec.ravel_np(model.params)
+        if not np.isfinite(flat).all():
+            raise AssertionError(f"{name}: the parameters are not finite")
+        for seed in range(IMAGENET_WORKERS):
+            if np.array_equal(flat, codec.ravel_np(spec.model.init_params(seed))):
+                raise AssertionError(f"{name}: the parameters did not move from init {seed}")
+        check_aux(model.aux, spec.model, name)
+        times = sorted(t for s in summaries.values() for t in s["accepted_at"])
+        server = master["server"]
+        peak = max(s["peak_memory_bytes"] for s in summaries.values())
+        print(f"{name} job (master.main --model_def imagenet_resnet50.custom_model, "
+              f"{IMAGENET_WORKERS} async worker processes over shm, minibatch "
+              f"{IMAGENET_BATCH}, {n} parameters): rc {rc}, {wall:.2f} s, "
+              f"{images_per_s(times, IMAGENET_BATCH):.1f} steady images/s (first to last "
+              f"accepted step), {IMAGENET_STEPS * IMAGENET_BATCH / wall:.1f} over the run; "
+              f"exactness {ex}; ReportGradient handler "
+              f"{server['handler_seconds']['ReportGradient'] / IMAGENET_STEPS:.4f} s a step, "
+              f"server codec {server['codec_seconds']['ReportGradient'] / IMAGENET_STEPS:.4f} "
+              f"s a step; tiers {tiers}; peak device memory of one worker "
+              f"{peak / 2**30:.3f} GiB; {os.cpu_count()} CPUs")
+        for wid, s in summaries.items():
+            print(f"{name} worker {wid}: {s['steps_accepted']} accepted, {s['steps_computed']} "
+                  f"computed, phase seconds {rounded(s['phase_seconds'])}, client seconds by "
+                  f"method [codec, rest] {rpc_split(s)}")
+
+
+# BASELINE.json's "resnet50_subclass elastic -- preemptible pool, 50% worker
+# churn" on bench_elastic.py's protocol: 4 active workers and 1 standby,
+# window mode (W 2, minibatch 64, tasks of 128: one window a task), 8,192
+# synthetic records in 4 shards, 2 epochs, over shm
+CHURN_RECORDS, CHURN_EPOCHS, CHURN_WORKERS, CHURN_STANDBY = 8192, 2, 4, 1
+CHURN_BATCH, CHURN_TASK, CHURN_WINDOW = 64, 128, 2
+CHURN_STEPS = CHURN_RECORDS * CHURN_EPOCHS // CHURN_BATCH
+CHURN_WAVES = (0.25, 0.5, 0.75)  # of the records, half the live active pool each
+CHURN_LIMIT_S = 420.0
+WORKER_LOG_EVENTS = {
+    "standby": "held as a standby",
+    "warm": "standby pre-warm complete",
+    "warm_failed": "standby pre-warm failed",
+    "promoted": "promoted from standby at ",
+    "first_step": "first step accepted at ",
+}
+
+
+def worker_log_events(log_dir) -> dict:
+    """{worker id: {event: perf_counter time or True}} from the worker
+    logs (a SIGKILLed worker logs no summary, but these lines)."""
+    out = {}
+    for name in sorted(os.listdir(log_dir)):
+        wid = int(name.split("-")[1].split(".")[0])
+        ev = out.setdefault(wid, {})
+        with open(os.path.join(log_dir, name)) as f:
+            for line in f:
+                for key, text in WORKER_LOG_EVENTS.items():
+                    if text in line:
+                        tail = line.split(text, 1)[1].split()
+                        ev[key] = float(tail[0]) if text.endswith("at ") else True
+    return out
+
+
+def churn_run(tmp, uds, data, name, churn):
+    """One run of the protocol: the master's parts as master.main wires
+    them, the clock from the first completed task; with `churn`, half of
+    the live active workers SIGKILLed at each of CHURN_WAVES. Returns the
+    run's numbers; raises on a broken condition."""
+    from elasticdl_tpu_torch.cluster.pod_backend import PodPhase, ProcessBackend
+    from elasticdl_tpu_torch.common.args import master_parser, parse_envs, worker_forward_args
+    from elasticdl_tpu_torch.master.main import build_master, make_sample_batch_fn
+    from elasticdl_tpu_torch.master.worker_manager import WorkerManager
+    from elasticdl_tpu_torch.rpc.server import RpcServer
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    log_dir = os.path.join(tmp, f"{name}-logs")
+    args = master_parser().parse_args([
+        "--model_def", RESNET_DEF, "--minibatch_size", str(CHURN_BATCH),
+        "--training_data_dir", data, "--records_per_task", str(CHURN_TASK),
+        "--num_epochs", str(CHURN_EPOCHS), "--local_updates", str(CHURN_WINDOW),
+        "--num_workers", str(CHURN_WORKERS), "--num_standby_workers", str(CHURN_STANDBY),
+        "--worker_backend", "process", "--device", "cuda", "--envs", "OMP_NUM_THREADS=1"])
+    env = {"EDL_TRANSPORT": "shm",
+           "EDL_TRANSPORT_SHM_RING_BYTES": str(shm_ring_for(resnet_param_count())),
+           "EDL_UDS_DIR": uds}
+    total = CHURN_RECORDS * CHURN_EPOCHS
+    kill_points = [int(total * f) for f in CHURN_WAVES] if churn else []
+    kills = []  # (perf_counter, victims, live active)
+    with environ(env), logs_on_failure(log_dir):
+        _spec, dispatcher, servicer, _eval, _ckpt = build_master(args)
+        server = RpcServer(servicer.handlers(), port=0)
+        server.start()
+        addr = f"localhost:{server.port}"
+        backend = ProcessBackend(log_dir=log_dir)
+        manager = WorkerManager(backend, dispatcher, num_workers=CHURN_WORKERS,
+                                worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
+                                envs=parse_envs(args.envs), max_relaunches=2 * CHURN_WORKERS,
+                                num_standby=CHURN_STANDBY)
+        servicer.set_standby_fn(manager.is_standby)
+        servicer.set_sample_batch_fn(make_sample_batch_fn(data))
+        try:
+            manager.start_workers()
+            t0 = c0 = None
+            deadline = time.monotonic() + CHURN_LIMIT_S
+            while not dispatcher.finished():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{name}: not finished in {CHURN_LIMIT_S:.0f} s")
+                if manager.all_exited():
+                    raise AssertionError(f"{name}: every worker exited with tasks left")
+                done = dispatcher.completed_records()
+                if t0 is None and done > 0:
+                    t0, c0 = time.perf_counter(), done
+                if len(kills) < len(kill_points) and done >= kill_points[len(kills)]:
+                    alive = [wid for wid, ph in manager.phases().items()
+                             if ph in (PodPhase.PENDING, PodPhase.RUNNING)
+                             and not manager.is_standby(wid) and backend.pid_of(wid)]
+                    victims = sorted(alive)[: max(1, len(alive) // 2)]
+                    at = time.perf_counter()
+                    for wid in victims:
+                        pid = backend.pid_of(wid)
+                        if pid:
+                            os.kill(pid, signal.SIGKILL)
+                    kills.append((at, victims, len(alive), done))
+                time.sleep(0.02)
+            elapsed = time.perf_counter() - t0
+            processed = dispatcher.completed_records() - c0
+            deadline = time.monotonic() + 120
+            while not manager.all_exited() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            # every client is gone: each connection's segment, the killed
+            # workers' too, was unlinked when its doorbell read EOF
+            deadline = time.monotonic() + 10
+            while port_segments() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            leaked = port_segments()
+        finally:
+            manager.stop_relaunch_and_remove_workers()
+            backend.stop()
+            server.stop()
+        ex = servicer.exactness()
+        failed = dispatcher.has_failed_tasks()
+        summaries = read_summaries(log_dir)
+        events = worker_log_events(log_dir)
+        out = {"rate": processed / elapsed, "elapsed": elapsed, "kills": kills,
+               "relaunches": manager.relaunches(), "promotions": manager.promotions(),
+               "exactness": ex, "summaries": summaries, "events": events}
+        if leaked or failed or ex != {"version": CHURN_STEPS, "init_version": 0,
+                                      "applied_update_steps": CHURN_STEPS}:
+            raise AssertionError(f"{name}: leaked segments {leaked}, failed tasks {failed}, "
+                                 f"exactness {ex} ({CHURN_STEPS} minibatches)")
+        for wid, s in summaries.items():
+            if s["tier"] != "shm" or s["steps_computed"] != (
+                    s["steps_accepted"] + CHURN_WINDOW * s["deduped_windows"]) or any(
+                    s["launches"].values()) or s["attention_fallbacks"]:
+                raise AssertionError(f"{name} worker {wid}: tier {s['tier']}, "
+                                     f"{s['steps_computed']} computed, {s['steps_accepted']} "
+                                     f"accepted, {s['deduped_windows']} deduped windows, "
+                                     f"launches {s['launches']}")
+        losses = [w[2] for s in summaries.values() for w in s["windows"]]
+        if not losses or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: window losses {losses}")
+        return out
+
+
+def phase_resnet_churn(tmp, uds):
+    """`BASELINE.json`'s fifth config on bench_elastic.py's retention
+    protocol (`bench_elastic.py:1-31`, `:161-250`), in the port's process
+    mode on the card: resnet50_subclass in float32 as 4 active worker
+    processes and 1 warm standby (`--num_standby_workers 1`), window mode
+    (`--local_updates 2`, minibatch 64, tasks of 128), 8,192 synthetic
+    records in 4 shards, 2 epochs, over shm. A stable run, then a churn
+    run that SIGKILLs half of the live active workers at 25%, 50% and 75%
+    of the records; images/s of each from its first completed task,
+    retention = churn / stable. Checks, in each run: no failed task, every
+    minibatch applied once (version = init + 256 = applied steps; a
+    replayed window is deduped), each surviving worker's steps computed =
+    accepted + its deduped windows' steps, every link on shm, finite
+    losses, and no segment left once the workers are gone (the killed
+    ones' too), before the server closes; in the churn run, all three
+    waves fired, at least one promotion, every standby that stood by and
+    was promoted had pre-warmed and none failed to. Prints the rates,
+    relaunches, promotions and for each kill the seconds to the promoted
+    standby's (or a replacement's) first accepted step. No retention
+    figure is a target."""
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_image_records
+
+    data = os.path.join(tmp, "churn-data")
+    os.makedirs(data)
+    for i in range(4):
+        write_synthetic_image_records(os.path.join(data, f"shard-{i}.rio"), CHURN_RECORDS // 4,
+                                      IMAGENET_SHAPE, 10, seed=i)
+    stable = churn_run(tmp, uds, data, "churn-stable", churn=False)
+    if stable["promotions"] or stable["relaunches"]:
+        raise AssertionError(f"stable run: {stable['promotions']} promotions, "
+                             f"{stable['relaunches']} relaunches")
+    run = churn_run(tmp, uds, data, "churn", churn=True)
+    events = run["events"]
+    warm = sorted(w for w, e in events.items() if e.get("standby") and e.get("promoted"))
+    bad = [w for w in warm if not events[w].get("warm")]
+    failed_warm = [w for w, e in events.items() if e.get("warm_failed")]
+    if len(run["kills"]) != len(CHURN_WAVES) or run["promotions"] < 1 or not warm \
+            or len(warm) > run["promotions"] or bad or failed_warm:
+        raise AssertionError(f"churn: waves {len(run['kills'])}, promotions "
+                             f"{run['promotions']}, promoted standbys {warm}, not pre-warmed "
+                             f"{bad}, pre-warms failed {failed_warm}")
+    retention = run["rate"] / stable["rate"]
+    print(f"resnet churn (resnet50_subclass f32, {CHURN_WORKERS} active + {CHURN_STANDBY} "
+          f"standby worker processes, W {CHURN_WINDOW}, minibatch {CHURN_BATCH}, "
+          f"{CHURN_RECORDS} records x {CHURN_EPOCHS} epochs, shm): stable "
+          f"{stable['rate']:.1f} images/s over {stable['elapsed']:.2f} s, churn "
+          f"{run['rate']:.1f} images/s over {run['elapsed']:.2f} s, retention "
+          f"{retention:.4f}; churn relaunches {run['relaunches']}, promotions "
+          f"{run['promotions']}, warm promotions {len(warm)} of {run['promotions']} "
+          f"(standbys that stood by and pre-warmed: {warm}, the rest promoted while still "
+          f"booting); {os.cpu_count()} CPUs")
+    for at, victims, alive, done in run["kills"]:
+        nxt = [k[0] for k in run["kills"] if k[0] > at]
+        until = nxt[0] if nxt else float("inf")
+        # the workers whose first step landed between this kill and the
+        # next: the promoted standbys (warm or still booting) and the
+        # relaunched ones
+        first = sorted((round(e["first_step"] - at, 3), w, "warm standby" if w in warm else
+                        "cold") for w, e in events.items()
+                       if at <= e.get("first_step", -1.0) < until)
+        print(f"resnet churn kill at {done} records: SIGKILLed {victims} of {alive} live active "
+              f"workers; first accepted steps after it (s from the kill, worker, how it "
+              f"joined): {first}")
+    for wid in sorted(events):
+        e = events[wid]
+        s = run["summaries"].get(wid)
+        print(f"resnet churn worker {wid}: " + (
+            f"{s['steps_accepted']} accepted, {s['steps_computed']} computed, "
+            f"{s['deduped_windows']} deduped windows, pre-warm {s['standby_prewarm_seconds']:.2f} s"
+            if s else "SIGKILLed (no summary)") + f"; log events {sorted(e)}")
+    return {"stable": stable["rate"], "churn": run["rate"], "retention": retention,
+            "warm_promotions": len(warm), "promotions": run["promotions"]}
+
+
 def timed(phase, *args):
     """Run one phase and print its wall-clock seconds."""
     t0 = time.perf_counter()
@@ -2985,6 +3513,10 @@ def main() -> int:
         timed(phase_image_process_job, tmp)
         async_job = timed(phase_async_process_job, tmp)
         timed(phase_standalone_eval_predict, fa, tmp, async_job)
+        with tier_dir() as uds:
+            timed(phase_transport_probe, uds)
+            timed(phase_imagenet_async, tmp, uds)
+            timed(phase_resnet_churn, tmp, uds)
     # each row's counts are its own kernel's at its own head dim, per path
     # of its dtype (the wrappers count by head dim; a path runs one dtype)
     for by_kernel in rows.values():

@@ -17,13 +17,15 @@ Window mode and its sync plane are carried (`--local_updates`,
 staleness (`--use_async`, `--lr_staleness_modulation`,
 `--staleness_window`), evaluation and prediction data and the
 evaluation cadence, checkpoints and resume
-(`--checkpoint_filename_for_init`), and the metrics sink
-(`--tensorboard_log_dir`). Not carried, so argparse rejects them: the
+(`--checkpoint_filename_for_init`), the metrics sink
+(`--tensorboard_log_dir`), and warm standby workers
+(`--num_standby_workers`: a master flag, not forwarded; the master tells
+a standby through GetTask). Not carried, so argparse rejects them: the
 sync plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
 `--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, the
-sharded PS, KV shards and aggregators, standby workers, the policy
-plane, the k8s pod settings, `--keep_tensorboard_running`, profiling
-and master failover candidates.
+sharded PS, KV shards and aggregators, the policy plane, the k8s pod
+settings, `--keep_tensorboard_running`, profiling and master failover
+candidates.
 """
 
 from __future__ import annotations
@@ -166,6 +168,13 @@ def add_master_args(parser: argparse.ArgumentParser):
     parser.add_argument(
         "--max_worker_relaunches", type=non_neg_int, default=10,
         help="total replacement workers to launch before giving up",
+    )
+    parser.add_argument(
+        "--num_standby_workers", type=non_neg_int, default=0,
+        help="warm standby workers held in reserve (pre-booted and "
+        "pre-warmed); a standby is promoted instantly when an active "
+        "worker dies, removing the boot transient from preemption "
+        "recovery",
     )
     parser.add_argument("--envs", default="", help='extra worker env "k=v,..."')
 

@@ -38,6 +38,9 @@ Two jobs, both host-side numpy:
    arrays as `{"__nd__": True, ...}` descriptors and tuples as
    `{"__tp__": [...]}`. `loads` reads either version.
 
+A `bytes` leaf (a raw record: GetSampleBatch) travels as a uint8 payload
+segment under the dtype tag "bytes" and decodes to a `bytes` copy.
+
 bfloat16 has no numpy dtype without `ml_dtypes`, so a bf16 array travels
 as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
 `BF16Bits`; `as_f32` widens it. The compressed window deltas
@@ -68,6 +71,7 @@ _TUPLE_KEY = "__tp__"
 _QD_KEY = "__qd__"
 _SD_KEY = "__sd__"
 _BF16_TAG = "bfloat16"
+_BYTES_TAG = "bytes"
 
 
 # --------------------------------------------------------------------------
@@ -395,6 +399,8 @@ def _build_header_tree(obj: Any, builder: _FrameBuilder) -> Any:
             "values": _build_header_tree(obj.values, builder),
             "n": obj.n,
         }}
+    if isinstance(obj, (bytes, bytearray)):
+        return _descriptor(np.frombuffer(obj, np.uint8), _BYTES_TAG, builder)
     if isinstance(obj, np.ndarray):
         if obj.dtype.kind not in "biuf":
             raise TypeError(f"cannot encode array of dtype {obj.dtype}")
@@ -433,6 +439,8 @@ def _reference_header_tree(tree: Any) -> Any:
         if _QD_KEY in tree or _SD_KEY in tree:
             raise TypeError("compressed deltas have no reference-frame form here")
         if _ND_KEY in tree:
+            if tree["d"] == _BYTES_TAG:
+                raise TypeError("bytes leaves have no reference-frame form here")
             return {**tree, _ND_KEY: True}
         return {k: _reference_header_tree(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -463,7 +471,8 @@ def _join_frame(version: int, header: bytes, builder: _FrameBuilder) -> bytes:
 
 def _read_descriptor(m: dict, frame, payload_start: int) -> Any:
     tag = m["d"]
-    dt = np.dtype(np.uint16) if tag == _BF16_TAG else np.dtype(tag)
+    dt = (np.dtype(np.uint16) if tag == _BF16_TAG
+          else np.dtype(np.uint8) if tag == _BYTES_TAG else np.dtype(tag))
     shape = [int(s) for s in m["s"]]
     count = int(np.prod(shape, dtype=np.int64))
     if m["n"] != count * dt.itemsize:
@@ -474,6 +483,8 @@ def _read_descriptor(m: dict, frame, payload_start: int) -> Any:
     arr = np.frombuffer(
         frame, dtype=dt, count=count, offset=payload_start + int(m["o"])
     ).reshape(shape)
+    if tag == _BYTES_TAG:
+        return arr.tobytes()
     return BF16Bits(arr) if tag == _BF16_TAG else arr
 
 

@@ -42,3 +42,42 @@ ENV_TB_BACKEND = "EDL_TPU_TB_BACKEND"
 ENV_SYNC_DEPTH = "EDL_SYNC_DEPTH"
 DEFAULT_SYNC_DEPTH = 2
 ENV_OVERLAP_SYNC = "EDL_OVERLAP_SYNC"
+
+# The RPC plane's transport tiers (rpc/transport.py), the reference's
+# names and defaults; `ENV_REGISTRY` carries the reference's help text
+# (its "grpc" is the port's TCP tier, and the port's socket, rendezvous
+# and segment names start with "edlt", so that they never collide with
+# the reference's on one host)
+ENV_TRANSPORT = "EDL_TRANSPORT"
+ENV_UDS_DIR = "EDL_UDS_DIR"
+ENV_TRANSPORT_SHM_RING = "EDL_TRANSPORT_SHM_RING_BYTES"
+ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT = "EDL_TRANSPORT_SHM_DOORBELL_TIMEOUT"
+
+ENV_REGISTRY = {
+    ENV_TRANSPORT: (
+        "RPC transport tier: grpc (default), uds (Unix-domain-socket "
+        "fast path to co-located shards), shm (shared-memory rings "
+        "with a UDS doorbell — codec frames never cross a socket), "
+        "inproc (same-interpreter direct dispatch), or auto (prefer "
+        "inproc, then shm, then uds, then grpc); non-grpc tiers apply "
+        "when the endpoint resolves local, else fall back to grpc "
+        "(rpc/transport.py)"
+    ),
+    ENV_UDS_DIR: (
+        "directory for the UDS fast-path sockets (edlt-uds-<port>.sock) "
+        "and the shm tier's doorbell sockets + rendezvous files "
+        "(edlt-shm-<port>.{sock,json}); default: the system temp dir — "
+        "must be shared by co-located processes"
+    ),
+    ENV_TRANSPORT_SHM_RING: (
+        "shm tier: per-direction ring capacity in bytes for each "
+        "connection's shared-memory segment (default 4194304 = 4 MiB, "
+        "rounded up to the 64-byte codec segment alignment); frames "
+        "larger than the ring fall back to a chunked copy path"
+    ),
+    ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT: (
+        "shm tier: seconds for doorbell handshake and chunk-ack socket "
+        "operations (default 5.0); per-call deadlines still come from "
+        "the caller's RPC timeout budget"
+    ),
+}

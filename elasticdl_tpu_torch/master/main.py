@@ -28,7 +28,10 @@ prediction jobs:
 5. start the RPC server, before the workers;
 6. launch workers through the WorkerManager over the process backend
    (`python -m elasticdl_tpu_torch.worker.main` subprocesses, logs in
-   `$EDL_WORKER_LOG_DIR/worker-<id>.log` when it is set);
+   `$EDL_WORKER_LOG_DIR/worker-<id>.log` when it is set), with
+   `--num_standby_workers` warm standbys beside them, which GetTask holds
+   in reserve and GetSampleBatch feeds the first training records to
+   pre-warm on;
 7. poll until the job finishes and no evaluation job is pending, flush
    the checkpoint writer, save `--output`, tear down: manager, backend,
    server, checkpoint writer, metrics sink.
@@ -38,13 +41,16 @@ dropped (poison) tasks, or every worker exited with tasks outstanding.
 
 At exit the master logs one line, `master summary: {json}`, with the
 job type, the server's seconds per method (handler and codec), the
-job's exactness block, the relaunches and the completed evaluation
+job's exactness block, the relaunches and promotions, the completed evaluation
 jobs (`[version, metrics]`, and each one's seconds from its creation to
 its last task); `run(argv)` returns the same summary to an
 in-process caller.
 
-Not ported yet: the sharded PS, KV shards and aggregators, standby
-workers, the policy and observability planes, the tensorboard process,
+The workers reach the master over the tier `EDL_TRANSPORT` selects (the
+environment passes to them as it is).
+
+Not ported yet: the sharded PS, KV shards and aggregators, the policy
+and observability planes, the tensorboard process,
 speculation, master migration and the k8s backend.
 """
 
@@ -92,6 +98,32 @@ def collect_shards(path: str) -> dict:
     if not shards or not any(shards.values()):
         raise ValueError(f"no records found under {path!r}")
     return shards
+
+
+def make_sample_batch_fn(training_data_dir: str):
+    """Serves the first n raw records of the training shards, topped up
+    across shards in order: the batch a standby pre-warms on."""
+
+    def fn(n: int):
+        from elasticdl_tpu_torch.data.recordio import RecordIOReader
+
+        shards = collect_shards(training_data_dir)
+        records: list = []
+        for path in sorted(shards):
+            take = min(n - len(records), shards[path])
+            if take > 0:
+                with RecordIOReader(path) as reader:
+                    records.extend(reader.read_range(0, take))
+            if len(records) >= n:
+                break
+        if records and len(records) < n:
+            logger.warning(
+                "sample batch short: %d/%d records; standby pre-warm will run "
+                "another shape than the job's", len(records), n,
+            )
+        return records or None
+
+    return fn
 
 
 def build_master(args, job_type=None):
@@ -231,7 +263,12 @@ def run(argv=None):
         worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
         envs=parse_envs(args.envs),
         max_relaunches=args.max_worker_relaunches,
+        num_standby=args.num_standby_workers,
     )
+    if args.num_standby_workers:
+        servicer.set_standby_fn(manager.is_standby)
+        if args.training_data_dir:
+            servicer.set_sample_batch_fn(make_sample_batch_fn(args.training_data_dir))
     t0 = time.perf_counter()
     manager.start_workers()
 
@@ -274,6 +311,7 @@ def run(argv=None):
         "seconds": time.perf_counter() - t0,
         **servicer.exactness(),
         "relaunches": manager.relaunches(),
+        "promotions": manager.promotions(),
         "evaluations": [
             [v, m] for v, m in (eval_service.completed_metrics if eval_service else [])
         ],

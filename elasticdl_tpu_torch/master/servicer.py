@@ -47,8 +47,18 @@ evaluation snapshot or a durable checkpoint. ReportEvaluationMetrics
 feeds the evaluation service; the train-loss hook gets each report's
 loss. GetTask keeps workers waiting while an evaluation job is pending.
 
+Standby workers: with `set_standby_fn` (the worker manager's
+`is_standby`), GetTask answers a standby WAIT with `standby: True`, and
+GetSampleBatch serves the raw records it pre-warms on
+(`set_sample_batch_fn`).
+
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
+
+A request's arrays may be views over the transport's buffer, which the
+shm tier reuses for the connection's next request: whatever a handler
+keeps past its return (the aux trees, evaluation metric states) is
+copied first.
 """
 
 from __future__ import annotations
@@ -82,6 +92,18 @@ def _to_f32(tree):
 def _copy(tree):
     return codec.tree_map(
         lambda a: codec.BF16Bits(a.bits.copy()) if isinstance(a, codec.BF16Bits) else np.copy(a),
+        tree,
+    )
+
+
+def _own(tree):
+    """`tree` with its arrays copied out of the request's buffer (other
+    leaves as they are); None stays None."""
+    if tree is None:
+        return None
+    return codec.tree_map(
+        lambda a: codec.BF16Bits(a.bits.copy()) if isinstance(a, codec.BF16Bits)
+        else np.copy(a) if isinstance(a, np.ndarray) else a,
         tree,
     )
 
@@ -126,6 +148,8 @@ class MasterServicer:
         # report_keys of applied window syncs, oldest first
         self._seen_local_updates: "OrderedDict[str, bool]" = OrderedDict()
         self.duplicate_local_updates = 0
+        self._standby_fn = None  # fn(worker_id) -> bool
+        self._sample_batch_fn = None  # fn(n) -> list of records
 
     def handlers(self) -> Dict[str, Any]:
         return {
@@ -138,6 +162,7 @@ class MasterServicer:
             "ReportLocalUpdate": self.report_local_update,
             "ReportEvaluationMetrics": self.report_evaluation_metrics,
             "GetPSConfig": self.get_ps_config,
+            "GetSampleBatch": self.get_sample_batch,
         }
 
     # -- model state --------------------------------------------------------
@@ -186,17 +211,43 @@ class MasterServicer:
         metrics sink's `write_train_loss`)."""
         self._train_loss_hook = hook
 
+    def set_standby_fn(self, fn):
+        """fn(worker_id) -> bool; wired to WorkerManager.is_standby."""
+        self._standby_fn = fn
+
+    def set_sample_batch_fn(self, fn):
+        """fn(n) -> list of raw records, served for standby pre-warming."""
+        self._sample_batch_fn = fn
+
+    def get_sample_batch(self, req: dict) -> dict:
+        fn = self._sample_batch_fn
+        if fn is None:
+            return {"records": None}
+        return {"records": fn(int(req.get("n", 1)))}
+
     # -- RPC: tasks ---------------------------------------------------------
 
+    def _job_finished(self) -> bool:
+        """No task left, and no evaluation job pending (its tasks may not
+        exist yet)."""
+        finished = self._task_d.finished()
+        if finished and self._evaluation_service is not None:
+            finished = not self._evaluation_service.has_pending()
+        return finished
+
     def get_task(self, req: dict) -> dict:
-        """The next shard, or WAIT; `finished` tells workers to exit (not
-        while an evaluation job is pending: its tasks may not exist
-        yet)."""
+        """The next shard, or WAIT; `finished` tells workers to exit. A
+        standby gets WAIT with `standby: True`, which tells it to
+        pre-warm."""
+        if self._standby_fn is not None and self._standby_fn(req["worker_id"]):
+            return {
+                "task": Task(type=TaskType.WAIT).to_wire(),
+                "finished": self._job_finished(),
+                "standby": True,
+            }
         task = self._task_d.get(req["worker_id"])
         if task is None:
-            finished = self._task_d.finished()
-            if finished and self._evaluation_service is not None:
-                finished = not self._evaluation_service.has_pending()
+            finished = self._job_finished()
             resp = {"task": Task(type=TaskType.WAIT).to_wire(), "finished": finished}
             if finished:
                 resp["failed"] = self._task_d.has_failed_tasks()
@@ -270,7 +321,7 @@ class MasterServicer:
             if self._params is None:
                 self._params = _to_f32(req["params"])
                 if req.get("aux") is not None:
-                    self._aux = req["aux"]
+                    self._aux = _own(req["aux"])
         return {}
 
     # -- RPC: gradients (the hot path) --------------------------------------
@@ -278,7 +329,7 @@ class MasterServicer:
     def report_gradient(self, req: dict) -> dict:
         """Returns {accepted, version[, params_flat, aux]}."""
         report_version = req.get("version", -1)
-        aux_state = req.get("aux_state")
+        aux_state = _own(req.get("aux_state"))
         applied_version = -1
         ckpt_snapshot = None
         with self._lock:
@@ -374,7 +425,7 @@ class MasterServicer:
             else:
                 self._params = codec.tree_map(lambda p, d: p + scale * d, self._params, delta)
             if req.get("aux_state") is not None:
-                self._aux = req["aux_state"]
+                self._aux = _own(req["aux_state"])
             self._version += steps
             self._applied_update_steps += steps
             applied_version = self._version
@@ -397,7 +448,7 @@ class MasterServicer:
         if self._evaluation_service is not None:
             self._evaluation_service.report_metrics(
                 req.get("model_version", -1),
-                req.get("metrics", {}),
+                _own(req.get("metrics", {})),
                 req.get("num_examples", 1),
             )
         return {}

@@ -1,21 +1,25 @@
 """The RPC client: method-name-addressed calls to an `RpcServer`.
 
 The reference's `RpcClient` (`elasticdl_tpu/rpc/client.py`) over the
-port's TCP transport: every call runs under `RetryPolicy` (idempotent
-methods retry UNAVAILABLE and DEADLINE_EXCEEDED inside the caller's
-deadline), and raises `PolicyRpcError` when it fails. It exposes
-`call(method, request)` as `testing.InProcessMaster` does, so a Worker
-takes either.
+port's transport tiers: the link takes the tier that
+`select_transport(addr)` picks under `EDL_TRANSPORT` when the client is
+built, and the TCP tier when it picks none; `tier` names the tier the link runs on ("tcp", "uds", "shm" or
+"inproc"). Every call runs under `RetryPolicy` (idempotent methods retry
+UNAVAILABLE and DEADLINE_EXCEEDED inside the caller's deadline), and
+raises `PolicyRpcError` when it fails, whichever tier carries it. It
+exposes `call(method, request)` as `testing.InProcessMaster` does, so a
+Worker takes either.
 
 `seconds` and `codec_seconds` count each method's wall clock and the
 part of it spent in the codec (pack + unpack), so the socket hop is
-`seconds - codec_seconds` less the server's time for the method. Calls
-may come from several threads (window mode's sync threads): the
-transport gives each concurrent call its own connection, and the
-counters are locked.
+`seconds - codec_seconds` less the server's time for the method, on
+every tier. Calls may come from several threads (window mode's sync
+threads): the transport gives each concurrent call its own connection,
+and the counters are locked.
 
-Not ported yet: the trace envelope, `reconnect` (master failover) and
-the circuit breaker.
+Not ported yet: the trace envelope, `reconnect` (master failover), the
+circuit breaker, and the `transport` argument that pins one link's tier
+(the aggregation tree's).
 """
 
 from __future__ import annotations
@@ -32,14 +36,15 @@ from elasticdl_tpu_torch.rpc.policy import (
     RetryPolicy,
     StatusCode,
 )
-from elasticdl_tpu_torch.rpc.transport import TcpTransport
+from elasticdl_tpu_torch.rpc.transport import TcpTransport, select_transport
 
 
 class RpcClient:
     def __init__(self, addr: str, policy: Optional[RetryPolicy] = None):
         host, _, port = addr.rpartition(":")
         self._addr = addr
-        self._transport = TcpTransport(host, int(port))
+        self._transport = select_transport(addr) or TcpTransport(host, int(port))
+        self.tier = self._transport.name
         self._policy = policy if policy is not None else RetryPolicy()
         self.seconds: Counter = Counter()
         self.codec_seconds: Counter = Counter()

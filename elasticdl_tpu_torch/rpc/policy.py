@@ -53,7 +53,8 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
 #: and the window sync, which the servicer dedups by its `report_key`
 #: (a resend is absorbed and answered with the merged model).
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
-    {"GetModel", "GetAux", "GetPSConfig", "ReportTaskResult", "ReportLocalUpdate"}
+    {"GetModel", "GetAux", "GetPSConfig", "GetSampleBatch", "ReportTaskResult",
+     "ReportLocalUpdate"}
 )
 
 

@@ -1,12 +1,29 @@
-"""The RPC plane's one transport: length-prefixed codec frames over TCP.
+"""The RPC plane's transport tiers: tcp / uds / shm / inproc.
 
 The reference serves every method over gRPC and adds Unix-socket,
 shared-memory and in-process fast paths (`elasticdl_tpu/rpc/
-transport.py`). The port carries the framing of its Unix-socket tier
-over TCP instead (`AF_INET`, `TCP_NODELAY` on both ends): TCP stands in
-for the reference's default gRPC tier, because workers address the
-master as `host:port`, and the stdlib `socket` module needs no package
-that the card's machine may lack.
+transport.py`). The port's default tier is TCP in place of gRPC: the
+framing of the reference's Unix-socket tier over `AF_INET`
+(`TCP_NODELAY` on both ends), because workers address the master as
+`host:port` and the stdlib `socket` module needs no package that the
+card's machine may lack. **`EDL_TRANSPORT=grpc` (the default) selects
+the TCP tier here.** The other tiers are the reference's:
+
+- **uds**: the same frames over an `AF_UNIX` socket;
+- **shm**: one shared-memory segment per connection (request region
+  `[0, ring)`, response region `[ring, 2*ring)`); a Unix-socket doorbell
+  carries only the wakeup, the method and the frame length, and the
+  server hands the dispatcher a view over the mapped request region, so
+  a request's bytes never cross a socket. A frame larger than the ring
+  goes through it in ring-sized chunks, each acknowledged. A port-keyed
+  JSON rendezvous file (generation, segment prefix, doorbell, ring,
+  pid) next to the doorbell says the tier is up; a server sweeps a dead
+  predecessor's segments and files on its port at boot, and unlinks a
+  connection's segment when its doorbell reads EOF (a SIGKILLed client
+  never closes it);
+- **inproc**: a server in the same interpreter is called directly.
+
+Framing of the tcp and uds tiers:
 
     request   u16 method length, u32 body length   (struct "<HI")
               method utf-8, body = one codec frame
@@ -15,52 +32,189 @@ that the card's machine may lack.
     error     u8 status 1, i32 status-code value,  (struct "<BiH")
               u16 detail length, detail utf-8
 
-The server listens on the loopback interface only: the process backend,
-the one backend ported, runs every worker on the master's host. It
-authenticates nothing, so a body longer than `MAX_FRAME_BYTES` (the
-reference's gRPC message limit) is refused from its header and method
-name, before a buffer for it is allocated: the server answers
-INVALID_ARGUMENT and closes the connection, whose unread body would
-desynchronize the next frame.
+Every tier refuses a frame longer than `MAX_FRAME_BYTES` (the
+reference's gRPC message limit) with INVALID_ARGUMENT: the client before
+sending it, a server from its header, before a buffer for it is
+allocated (the tcp and uds servers then close the connection, whose
+unread body would desynchronize the next frame).
 
-A connection carries sequential request/response frames; clients pool
-connections. The receiver reads each body into one `bytearray` and hands
-it to the codec, which builds its arrays as views over it: a 134 MB
-gradient is copied once, by the kernel, into that buffer.
+The TCP server listens on the loopback interface only: the process
+backend, the one backend ported, runs every worker on the master's
+host. Connections carry sequential request/response frames; clients
+pool connections, so concurrent callers (window mode's sync threads)
+each get their own. The receivers read each body into one `bytearray`
+(the shm client copies the response region out into one) and hand it to
+the codec, which builds its arrays as views over it.
 
-`ServerDispatcher` is the server core: an unknown method answers
-UNIMPLEMENTED, a handler's `PolicyRpcError` keeps its code, and any
-other exception of the handler, or of decoding its request or encoding
-its response, answers INTERNAL with a one-line summary.
+Selection (`select_transport`) never raises: a fast tier is used only
+when the endpoint's host is local and its counterpart is reachable (a
+registered in-process dispatcher, a rendezvous file with its doorbell,
+a socket file); otherwise the caller uses TCP. `auto` prefers inproc >
+shm > uds > tcp. The port's socket, rendezvous and segment names start
+with "edlt" (`edlt-uds-<port>.sock`, `edlt-shm-<port>.{sock,json}`,
+`edltshm.p<port>.g<generation>.<pid>.`), so that they never collide
+with the reference's on one host. The generation is always 0: master
+failover, which starts a server at the next one, is not ported.
 
-Not ported yet: the shared-memory, Unix-socket and in-process tiers, the
-event-loop dispatch core, chaos hooks and fencing.
+`ServerDispatcher` is the core every tier's server runs: an unknown
+method answers UNIMPLEMENTED, a handler's `PolicyRpcError` keeps its
+code, and any other exception of the handler, or of decoding its request
+or encoding its response, answers INTERNAL with a one-line summary. A
+handler must not keep a view of its request past its return: over shm
+the next request on the connection overwrites it.
+
+Not ported yet: the shm tier's broadcast segments (`ShmBroadcaster`,
+the sharded PS's pull), `AsyncUdsServer` and the event-loop dispatch
+core (`EDL_DISPATCH=loop`), chaos hooks, wire statistics and fencing.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import socket
 import struct
+import tempfile
 import threading
 import time
 from collections import Counter
+from multiprocessing import shared_memory as _shm_mod
 from typing import Callable, Dict, Optional
 
 from elasticdl_tpu_torch.common import messages
+from elasticdl_tpu_torch.common.constants import (
+    ENV_TRANSPORT,
+    ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT,
+    ENV_TRANSPORT_SHM_RING,
+    ENV_UDS_DIR,
+)
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
 
 logger = get_logger(__name__)
 
+# the reference's tier names; "grpc" is the TCP tier here
+TRANSPORT_GRPC = "grpc"
+TRANSPORT_UDS = "uds"
+TRANSPORT_SHM = "shm"
+TRANSPORT_INPROC = "inproc"
+TRANSPORT_TIERS = (TRANSPORT_GRPC, TRANSPORT_UDS, TRANSPORT_SHM, TRANSPORT_INPROC)
+
+_LOCAL_HOSTS = frozenset({"localhost", "127.0.0.1", "[::1]", "::1", "0.0.0.0", "[::]", ""})
+
+# the port's file and segment name prefixes (never the reference's
+# "edl-uds-", "edl-shm-" and "edlshm.")
+UDS_PREFIX = "edlt-uds-"
+SHM_FILE_PREFIX = "edlt-shm-"
+SHM_SEGMENT_PREFIX = "edltshm."
+
 _REQ_HEADER = struct.Struct("<HI")
 _RESP_OK = struct.Struct("<BI")
 _RESP_ERR = struct.Struct("<BiH")
+# shm hello (server -> client on accept): u32 generation, u32 segment-name
+# length, u64 ring bytes a direction; then the segment name utf-8
+_SHM_HELLO = struct.Struct("<IIQ")
+# shm request doorbell: kind (1: the whole frame is in the request
+# region, 2: chunks follow), u16 method length, u32 frame length (the
+# total for kind 2); then the method utf-8
+_SHM_REQ = struct.Struct("<BHI")
+# shm response doorbell: status (0: the frame is in the response region,
+# 1: error, 2: chunks follow), u32 length
+_SHM_RESP = struct.Struct("<BI")
+# chunk header (either direction): u32 chunk length; the receiver acks
+# each chunk with one byte before the region is written again
+_SHM_CHUNK = struct.Struct("<I")
+# after a status-1 doorbell: i32 status-code value, u16 detail length;
+# then the detail utf-8
+_SHM_ERR = struct.Struct("<iH")
+_SHM_ACK = b"\x06"
 # the reference's gRPC send and receive limit, about 8x the 134 MB
 # gradient of the base transformer
 MAX_FRAME_BYTES = 1024 * 1024 * 1024
 LISTEN_HOST = "127.0.0.1"
 
 _CODE_BY_VALUE = {c.value: c for c in StatusCode}
+
+
+# -- selection and rendezvous (the reference's, never raising) --------------
+
+
+def transport_mode(env=None) -> str:
+    """The configured tier ("grpc" = tcp, "uds", "shm", "inproc" or
+    "auto"); an unknown value logs and means grpc."""
+    env = os.environ if env is None else env
+    mode = (env.get(ENV_TRANSPORT, "") or TRANSPORT_GRPC).strip().lower()
+    if mode not in TRANSPORT_TIERS and mode != "auto":
+        logger.warning("unknown %s=%r; using grpc (tcp)", ENV_TRANSPORT, mode)
+        return TRANSPORT_GRPC
+    return mode
+
+
+def server_fast_paths_enabled() -> bool:
+    """Whether RpcServer opens the uds listener (the inproc registry is
+    always filled: a dict entry, not a socket)."""
+    return transport_mode() in (TRANSPORT_UDS, "auto")
+
+
+def server_shm_enabled() -> bool:
+    """Whether RpcServer opens the shared-memory listener."""
+    return transport_mode() in (TRANSPORT_SHM, "auto")
+
+
+def uds_dir(env=None) -> str:
+    env = os.environ if env is None else env
+    return env.get(ENV_UDS_DIR) or tempfile.gettempdir()
+
+
+def uds_path_for(port: int) -> str:
+    """The socket a server on TCP `port` also serves: the port number is
+    the rendezvous, so a client derives the path from its endpoint."""
+    return os.path.join(uds_dir(), f"{UDS_PREFIX}{int(port)}.sock")
+
+
+_SHM_DEFAULT_RING = 1 << 22  # 4 MiB a direction
+
+
+def shm_ring_bytes(env=None) -> int:
+    """Ring bytes a direction for each shm connection, at least 4096 and
+    rounded up to the codec's 64-byte segment alignment."""
+    env = os.environ if env is None else env
+    try:
+        n = int(env.get(ENV_TRANSPORT_SHM_RING, "") or _SHM_DEFAULT_RING)
+    except ValueError:
+        n = _SHM_DEFAULT_RING
+    n = max(n, 4096)
+    return (n + 63) // 64 * 64
+
+
+def shm_doorbell_timeout(env=None) -> float:
+    """Socket timeout of the shm hello and chunk acks (a call's deadline
+    still comes from the caller's budget)."""
+    env = os.environ if env is None else env
+    try:
+        t = float(env.get(ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT, "") or 5.0)
+    except ValueError:
+        t = 5.0
+    return max(t, 0.001)
+
+
+def shm_doorbell_path(port: int) -> str:
+    return os.path.join(uds_dir(), f"{SHM_FILE_PREFIX}{int(port)}.sock")
+
+
+def shm_rendezvous_path(port: int) -> str:
+    """Rendezvous JSON of a server on TCP `port`, written atomically
+    after its doorbell listens: its existence says the tier is up."""
+    return os.path.join(uds_dir(), f"{SHM_FILE_PREFIX}{int(port)}.json")
+
+
+def read_shm_rendezvous(port: int) -> Optional[dict]:
+    try:
+        with open(shm_rendezvous_path(port), "r", encoding="utf-8") as f:
+            info = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return info if isinstance(info, dict) else None
 
 
 def _sanitized_detail(e: BaseException) -> str:
@@ -113,6 +267,7 @@ class ServerDispatcher:
         if fn is None:
             raise PolicyRpcError(StatusCode.UNIMPLEMENTED, f"no handler for {method}")
         t0 = time.perf_counter()
+        failure = None
         try:
             req = messages.unpack(request_bytes)
             t1 = time.perf_counter()
@@ -123,7 +278,11 @@ class ServerDispatcher:
             raise
         except Exception as e:
             logger.exception("RPC handler %s failed", method)
-            raise PolicyRpcError(StatusCode.INTERNAL, _sanitized_detail(e))
+            failure = _sanitized_detail(e)
+        if failure is not None:
+            # raised outside the except block: this frame (and the request
+            # views it holds) is not kept alive by a traceback cycle
+            raise PolicyRpcError(StatusCode.INTERNAL, failure)
         t3 = time.perf_counter()
         with self._lock:
             self._calls[method] += 1
@@ -140,22 +299,15 @@ class ServerDispatcher:
             }
 
 
-class TcpServer:
-    """Threaded TCP listener: one thread per connection, each serving
-    sequential frames. Binds in __init__, so `port` is known before
-    `start`."""
+class _FrameServer:
+    """Threaded stream listener over a bound, listening socket: one
+    thread per connection, each serving sequential frames. The tcp and
+    uds tiers differ only in the socket."""
 
-    def __init__(self, port: int, dispatcher: ServerDispatcher):
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        try:
-            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            self._sock.bind((LISTEN_HOST, port))
-            self._sock.listen(128)
-        except OSError:
-            self._sock.close()
-            raise
-        self.port = self._sock.getsockname()[1]
+    def __init__(self, sock: socket.socket, dispatcher: ServerDispatcher, name: str):
+        self._sock = sock
         self._dispatcher = dispatcher
+        self._name = name
         self._closed = False
         self._thread: Optional[threading.Thread] = None
         # live connections, severed on close(): a stopped server answers
@@ -165,7 +317,7 @@ class TcpServer:
 
     def start(self):
         self._thread = threading.Thread(
-            target=self._accept_loop, name=f"tcp-accept-{self.port}", daemon=True
+            target=self._accept_loop, name=f"{self._name}-accept", daemon=True
         )
         self._thread.start()
 
@@ -181,6 +333,9 @@ class TcpServer:
                 return  # closed
             threading.Thread(target=self._serve_conn, args=(conn,), daemon=True).start()
 
+    def _setup_conn(self, conn: socket.socket):
+        pass
+
     def _serve_conn(self, conn: socket.socket):
         with self._conns_lock:
             if self._closed:
@@ -188,7 +343,7 @@ class TcpServer:
                 return
             self._conns.add(conn)
         try:
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._setup_conn(conn)
             while not self._is_closed():
                 header = _recv_exact(conn, _REQ_HEADER.size, eof_ok=True)
                 if header is None:
@@ -235,34 +390,89 @@ class TcpServer:
             self._thread.join(timeout=5)
 
 
-class TcpTransport:
-    """Client side: a pool of persistent connections, a per-call socket
-    timeout from the remaining deadline budget, and PolicyRpcError for
-    every failure: a timeout is DEADLINE_EXCEEDED, a connection failure
-    UNAVAILABLE (both retryable), and an error frame carries the
-    server's code."""
+def _listening(family: int, address, reuse: bool = False) -> socket.socket:
+    sock = socket.socket(family, socket.SOCK_STREAM)
+    try:
+        if reuse:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(address)
+        sock.listen(128)
+    except OSError:
+        # a half-built listener has no owner to close it
+        sock.close()
+        raise
+    return sock
 
-    def __init__(self, host: str, port: int):
-        self._host = host
-        self._port = port
+
+class TcpServer(_FrameServer):
+    """The default tier's listener on the loopback interface. Binds in
+    __init__, so `port` is known before `start`."""
+
+    def __init__(self, port: int, dispatcher: ServerDispatcher):
+        sock = _listening(socket.AF_INET, (LISTEN_HOST, port), reuse=True)
+        self.port = sock.getsockname()[1]
+        super().__init__(sock, dispatcher, f"tcp-{self.port}")
+
+    def _setup_conn(self, conn: socket.socket):
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+
+class UdsServer(_FrameServer):
+    """The uds tier's listener at `uds_path_for(port)`, sharing an
+    RpcServer's dispatcher. Raises OSError from __init__ when the path
+    is unusable (the caller logs and serves TCP only)."""
+
+    def __init__(self, port: int, dispatcher: ServerDispatcher):
+        self.path = uds_path_for(port)
+        _unlink(self.path)
+        super().__init__(_listening(socket.AF_UNIX, self.path), dispatcher, f"uds-{port}")
+
+    def close(self):
+        super().close()
+        _unlink(self.path)
+
+
+def _unlink(path: str):
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+
+
+def _raise_error_reply(conn: socket.socket):
+    """After a status-1 byte: read the error tail and raise its code."""
+    code_val, dlen = struct.unpack("<iH", _recv_exact(conn, 6))
+    detail = _recv_exact(conn, dlen).decode("utf-8", "replace")
+    raise PolicyRpcError(_CODE_BY_VALUE.get(code_val, StatusCode.UNKNOWN), detail)
+
+
+class _FrameTransport:
+    """Client side of the tcp and uds tiers: a pool of persistent
+    connections, a per-call socket timeout from the remaining deadline
+    budget, and PolicyRpcError for every failure: a timeout is
+    DEADLINE_EXCEEDED, a connection failure UNAVAILABLE (both
+    retryable), and an error frame carries the server's code."""
+
+    name = ""
+
+    def __init__(self, where: str):
+        self._where = where
         self._pool: list = []
         self._pool_lock = threading.Lock()
+
+    def _connect(self, timeout: float) -> socket.socket:
+        raise NotImplementedError
 
     def _checkout(self, timeout: float) -> socket.socket:
         with self._pool_lock:
             if self._pool:
                 return self._pool.pop()
-        conn = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         try:
-            conn.settimeout(max(0.001, float(timeout)))
-            conn.connect((self._host, self._port))
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            return self._connect(max(0.001, float(timeout)))
         except OSError as e:
-            conn.close()
             raise PolicyRpcError(
-                StatusCode.UNAVAILABLE, f"tcp connect {self._host}:{self._port}: {e}"
+                StatusCode.UNAVAILABLE, f"{self.name} connect {self._where}: {e}"
             )
-        return conn
 
     def _checkin(self, conn: socket.socket):
         with self._pool_lock:
@@ -298,27 +508,582 @@ class TcpTransport:
                     _check_frame(blen, "response")
                 body = _recv_exact(conn, blen)
             else:
-                code_val, dlen = struct.unpack("<iH", _recv_exact(conn, 6))
-                detail = _recv_exact(conn, dlen).decode("utf-8", "replace")
-                self._checkin(conn)
-                conn = None
-                raise PolicyRpcError(
-                    _CODE_BY_VALUE.get(code_val, StatusCode.UNKNOWN), detail
-                )
+                try:
+                    _raise_error_reply(conn)
+                except PolicyRpcError:
+                    self._checkin(conn)
+                    conn = None
+                    raise
         except TimeoutError:
             conn.close()
             conn = None
             raise PolicyRpcError(
                 StatusCode.DEADLINE_EXCEEDED,
-                f"tcp call {method} timed out after {timeout:.3f}s",
+                f"{self.name} call {method} timed out after {timeout:.3f}s",
             )
         except (OSError, struct.error) as e:
             conn.close()
             conn = None
-            raise PolicyRpcError(
-                StatusCode.UNAVAILABLE, f"tcp {self._host}:{self._port}: {e}"
-            )
+            raise PolicyRpcError(StatusCode.UNAVAILABLE, f"{self.name} {self._where}: {e}")
         finally:
             if conn is not None:
                 self._checkin(conn)
         return body
+
+
+class TcpTransport(_FrameTransport):
+    """The default tier's client."""
+
+    name = "tcp"
+
+    def __init__(self, host: str, port: int):
+        super().__init__(f"{host}:{port}")
+        self._addr = (host, port)
+
+    def _connect(self, timeout: float) -> socket.socket:
+        conn = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            conn.settimeout(timeout)
+            conn.connect(self._addr)
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            conn.close()
+            raise
+        return conn
+
+
+class UdsTransport(_FrameTransport):
+    """The uds tier's client."""
+
+    name = TRANSPORT_UDS
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        self._path = path
+
+    def _connect(self, timeout: float) -> socket.socket:
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            conn.settimeout(timeout)
+            conn.connect(self._path)
+        except OSError:
+            conn.close()
+            raise
+        return conn
+
+
+# -- inproc: the same interpreter's servers, keyed by their TCP port -------
+
+_inproc_lock = threading.Lock()
+_inproc_registry: Dict[int, ServerDispatcher] = {}
+
+
+def register_inproc(port: int, dispatcher: ServerDispatcher) -> None:
+    with _inproc_lock:
+        _inproc_registry[int(port)] = dispatcher
+
+
+def unregister_inproc(port: int) -> None:
+    with _inproc_lock:
+        _inproc_registry.pop(int(port), None)
+
+
+def inproc_dispatcher(port: int) -> Optional[ServerDispatcher]:
+    with _inproc_lock:
+        return _inproc_registry.get(int(port))
+
+
+class InprocTransport:
+    """Direct dispatch into a same-interpreter RpcServer: the packed
+    frame crosses by reference. The dispatcher is looked up on each
+    call, so a stopped server answers UNAVAILABLE."""
+
+    name = TRANSPORT_INPROC
+
+    def __init__(self, port: int):
+        self._port = int(port)
+
+    def _dispatcher(self) -> ServerDispatcher:
+        dispatcher = inproc_dispatcher(self._port)
+        if dispatcher is None:
+            raise PolicyRpcError(
+                StatusCode.UNAVAILABLE, f"inproc server for port {self._port} is gone"
+            )
+        return dispatcher
+
+    def probe(self, timeout: float):
+        self._dispatcher()
+
+    def close(self):
+        pass
+
+    def call(self, method: str, payload: bytes, timeout: float) -> bytes:
+        _check_frame(len(payload), "request")
+        resp = self._dispatcher().dispatch(method, payload)
+        _check_frame(len(resp), "response")
+        return resp
+
+
+# -- shm: codec frames through per-connection shared-memory rings ----------
+
+
+class _QuietSharedMemory(_shm_mod.SharedMemory):
+    """SharedMemory whose destructor tolerates views still exported at
+    interpreter exit (the kernel drops the mapping either way)."""
+
+    def __del__(self):
+        try:
+            super().__del__()
+        except BufferError:
+            pass
+
+
+_attach_lock = threading.Lock()
+
+
+def _attach_shm_segment(name: str) -> _shm_mod.SharedMemory:
+    """Attach (never create) a server's segment. CPython before 3.13
+    registers an attachment with the resource tracker too, which would
+    unlink the server's segment when this process exits: the
+    registration is suppressed for the attach. The suppression patches
+    the module for the whole process, so every create holds the same
+    lock (`_create_shm_segment`)."""
+    from multiprocessing import resource_tracker
+
+    with _attach_lock:
+        orig = resource_tracker.register
+        resource_tracker.register = lambda *a, **k: None
+        try:
+            return _QuietSharedMemory(name=name)
+        finally:
+            resource_tracker.register = orig
+
+
+def _create_shm_segment(name: str, size: int) -> _shm_mod.SharedMemory:
+    """Create a segment under `_attach_lock`, so a concurrent attach's
+    suppression window cannot swallow its tracker registration."""
+    with _attach_lock:
+        return _QuietSharedMemory(name=name, create=True, size=size)
+
+
+def _unlink_segments(prefix: str) -> None:
+    """Unlink every segment whose name starts with `prefix` (Linux backs
+    POSIX shared memory with /dev/shm)."""
+    if not prefix:
+        return
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return
+    for name in names:
+        if name.startswith(prefix):
+            _unlink(os.path.join("/dev/shm", name))
+
+
+def _shm_error_frame(e: PolicyRpcError) -> bytes:
+    detail = e.details().encode("utf-8")[:1024]
+    return _SHM_RESP.pack(1, 0) + _SHM_ERR.pack(e.code().value, len(detail)) + detail
+
+
+class ShmServer:
+    """Threaded shared-memory listener sharing an RpcServer's
+    dispatcher. Each accepted doorbell connection gets its own segment
+    (request region [0, ring), response region [ring, 2*ring)); a
+    request frame that fits the ring reaches the dispatcher as a view
+    over the mapping, a larger one is assembled from chunks.
+
+    Boot order: sweep a dead predecessor's segments and files on this
+    port, bind the doorbell, then publish the rendezvous file
+    atomically. Raises OSError from __init__ when the doorbell path is
+    unusable (the caller logs and serves TCP only)."""
+
+    generation = 0  # master failover (the next generation) is not ported
+
+    def __init__(self, port: int, dispatcher: ServerDispatcher):
+        self.port = int(port)
+        self._dispatcher = dispatcher
+        self._ring = shm_ring_bytes()
+        # the pid keeps two live servers' names apart on one host
+        self._prefix = f"{SHM_SEGMENT_PREFIX}p{self.port}.g{self.generation}.{os.getpid()}."
+        self._reclaim_stale()
+        self.doorbell = shm_doorbell_path(self.port)
+        self.path = shm_rendezvous_path(self.port)
+        _unlink(self.doorbell)
+        self._sock = _listening(socket.AF_UNIX, self.doorbell)
+        self._conn_seq = 0
+        self._thread: Optional[threading.Thread] = None
+        # live connections, severed on close()
+        self._conns: set = set()
+        self._conn_threads: list = []
+        self._conns_lock = threading.Lock()
+        self._closed = False
+        try:
+            tmp = self.path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({"generation": self.generation, "prefix": self._prefix,
+                           "doorbell": self.doorbell, "ring": self._ring,
+                           "pid": os.getpid()}, f)
+            os.replace(tmp, self.path)
+        except Exception:
+            # a half-built server has no owner to close it
+            self._sock.close()
+            for leftover in (self.doorbell, self.path + ".tmp"):
+                _unlink(leftover)
+            raise
+
+    def _reclaim_stale(self) -> None:
+        """Sweep a dead predecessor's rings: the rendezvous file keyed by
+        this port is stale by construction (the TCP bind proved the port
+        free), and so is any segment named for this port."""
+        mine = read_shm_rendezvous(self.port)
+        if mine is not None:
+            _unlink_segments(str(mine.get("prefix", "")))
+            _unlink(str(mine.get("doorbell", "")))
+            _unlink(shm_rendezvous_path(self.port))
+        _unlink_segments(f"{SHM_SEGMENT_PREFIX}p{self.port}.")
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._accept_loop, name=f"shm-accept-{self.port}", daemon=True
+        )
+        self._thread.start()
+
+    def _is_closed(self) -> bool:
+        with self._conns_lock:
+            return self._closed
+
+    def _accept_loop(self):
+        while not self._is_closed():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # closed
+            t = threading.Thread(target=self._serve_conn, args=(conn,), daemon=True)
+            with self._conns_lock:
+                self._conn_threads = [x for x in self._conn_threads if x.is_alive()]
+                self._conn_threads.append(t)
+            t.start()
+
+    def _serve_conn(self, conn: socket.socket):
+        with self._conns_lock:
+            if self._closed:
+                conn.close()
+                return
+            self._conns.add(conn)
+            self._conn_seq += 1
+            name = f"{self._prefix}c{self._conn_seq}"
+        seg = req_region = resp_region = None
+        try:
+            seg = _create_shm_segment(name, 2 * self._ring)
+            mb = name.encode("utf-8")
+            conn.sendall(_SHM_HELLO.pack(self.generation, len(mb), self._ring) + mb)
+            req_region = memoryview(seg.buf)[: self._ring]
+            resp_region = memoryview(seg.buf)[self._ring : 2 * self._ring]
+            while not self._is_closed():
+                header = _recv_exact(conn, _SHM_REQ.size, eof_ok=True)
+                if header is None:
+                    return  # the client closed its doorbell, or died
+                kind, mlen, length = _SHM_REQ.unpack(header)
+                method = _recv_exact(conn, mlen).decode("utf-8")
+                try:
+                    _check_frame(length, "request")
+                except PolicyRpcError as e:
+                    # the client would go on with its chunks: answer, close
+                    conn.sendall(_shm_error_frame(e))
+                    return
+                if kind == 1:
+                    if length > self._ring:
+                        raise ConnectionError(f"shm frame length {length} exceeds the ring")
+                    # the dispatcher reads the mapped region itself, which
+                    # stays untouched until the response doorbell
+                    body = req_region[:length]
+                else:
+                    body = self._recv_chunked(conn, req_region, length)
+                try:
+                    resp = self._dispatcher.dispatch(method, body)
+                    _check_frame(len(resp), "response")
+                except PolicyRpcError as e:
+                    conn.sendall(_shm_error_frame(e))
+                    continue
+                finally:
+                    # the region's views must be gone before the segment
+                    # closes: the handler's have been, the request's here
+                    body = None
+                if len(resp) <= self._ring:
+                    resp_region[: len(resp)] = resp
+                    conn.sendall(_SHM_RESP.pack(0, len(resp)))
+                else:
+                    self._send_chunked(conn, resp_region, resp)
+        except (OSError, struct.error):
+            pass  # the client went away; its state is the segment
+        finally:
+            with self._conns_lock:
+                self._conns.discard(conn)
+            conn.close()
+            for region in (req_region, resp_region):
+                if region is not None:
+                    region.release()
+            if seg is not None:
+                try:
+                    seg.close()
+                except BufferError:  # pragma: no cover - a view not yet collected
+                    pass
+                try:
+                    seg.unlink()
+                except OSError:
+                    pass
+
+    def _recv_chunked(self, conn, region, total: int) -> bytearray:
+        """A request larger than the ring, assembled from ring-sized
+        chunks (one copy)."""
+        out = bytearray(total)
+        got = 0
+        conn.settimeout(shm_doorbell_timeout())
+        try:
+            while got < total:
+                (clen,) = _SHM_CHUNK.unpack(_recv_exact(conn, _SHM_CHUNK.size))
+                if clen > len(region) or got + clen > total:
+                    raise ConnectionError(f"shm chunk overrun ({clen} bytes)")
+                out[got : got + clen] = region[:clen]
+                got += clen
+                conn.sendall(_SHM_ACK)  # the client may write the region again
+        finally:
+            conn.settimeout(None)
+        return out
+
+    def _send_chunked(self, conn, region, resp: bytes) -> None:
+        total = len(resp)
+        conn.sendall(_SHM_RESP.pack(2, total))
+        rv = memoryview(resp)
+        sent = 0
+        conn.settimeout(shm_doorbell_timeout())
+        try:
+            while sent < total:
+                clen = min(self._ring, total - sent)
+                region[:clen] = rv[sent : sent + clen]
+                conn.sendall(_SHM_CHUNK.pack(clen))
+                _recv_exact(conn, 1)  # the client copied the chunk out
+                sent += clen
+        finally:
+            conn.settimeout(None)
+
+    def close(self):
+        with self._conns_lock:
+            self._closed = True
+            conns = list(self._conns)
+            threads = list(self._conn_threads)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+        # each connection thread unlinks its segment; close() returning
+        # means /dev/shm is clean (the prefix sweep backs up a thread that
+        # outlives its join)
+        for t in threads:
+            t.join(timeout=5)
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        _unlink_segments(self._prefix)
+        _unlink(self.doorbell)
+        _unlink(self.path)
+
+
+class _ShmConn:
+    """One client connection: the doorbell socket and the mapped regions
+    of its segment. Destroyed, never pooled, after any protocol error."""
+
+    __slots__ = ("sock", "seg", "ring", "generation", "req", "resp")
+
+    def __init__(self, doorbell: str):
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            sock.settimeout(shm_doorbell_timeout())
+            sock.connect(doorbell)
+            gen, nlen, ring = _SHM_HELLO.unpack(_recv_exact(sock, _SHM_HELLO.size))
+            seg = _attach_shm_segment(_recv_exact(sock, nlen).decode("utf-8"))
+        except (OSError, struct.error) as e:
+            sock.close()
+            raise PolicyRpcError(StatusCode.UNAVAILABLE, f"shm connect {doorbell}: {e}")
+        self.sock = sock
+        self.seg = seg
+        self.ring = int(ring)
+        self.generation = int(gen)
+        self.req = memoryview(seg.buf)[: self.ring]
+        self.resp = memoryview(seg.buf)[self.ring : 2 * self.ring]
+
+    def destroy(self):
+        self.sock.close()
+        self.req.release()
+        self.resp.release()
+        try:
+            self.seg.close()
+        except BufferError:  # pragma: no cover - a caller kept a view
+            pass
+
+
+class ShmTransport:
+    """Client side of the shm tier: a pool of persistent connections,
+    per-call socket timeouts from the deadline budget, and the other
+    tiers' PolicyRpcError codes. A response is copied out of the
+    response region into a private buffer before the connection goes
+    back to the pool (the next call on it overwrites the region)."""
+
+    name = TRANSPORT_SHM
+
+    def __init__(self, port: int):
+        self._port = int(port)
+        self._doorbell = shm_doorbell_path(port)
+        self._pool: list = []
+        self._pool_lock = threading.Lock()
+
+    def _checkout(self) -> _ShmConn:
+        with self._pool_lock:
+            if self._pool:
+                return self._pool.pop()
+        return _ShmConn(self._doorbell)
+
+    def _checkin(self, conn: _ShmConn):
+        with self._pool_lock:
+            if len(self._pool) < 8:
+                self._pool.append(conn)
+                return
+        conn.destroy()
+
+    def probe(self, timeout: float):
+        self._checkin(self._checkout())
+
+    def close(self):
+        with self._pool_lock:
+            pool, self._pool = self._pool, []
+        for conn in pool:
+            conn.destroy()
+
+    def call(self, method: str, payload: bytes, timeout: float) -> bytearray:
+        n = len(payload)
+        _check_frame(n, "request")
+        conn = self._checkout()
+        try:
+            conn.sock.settimeout(max(0.001, float(timeout)))
+            mb = method.encode("utf-8")
+            early = b""  # a server's answer instead of a chunk ack
+            if n <= conn.ring:
+                conn.req[:n] = payload
+                conn.sock.sendall(_SHM_REQ.pack(1, len(mb), n) + mb)
+            else:
+                conn.sock.sendall(_SHM_REQ.pack(2, len(mb), n) + mb)
+                pv = memoryview(payload)
+                sent = 0
+                while sent < n:
+                    clen = min(conn.ring, n - sent)
+                    conn.req[:clen] = pv[sent : sent + clen]
+                    conn.sock.sendall(_SHM_CHUNK.pack(clen))
+                    ack = _recv_exact(conn.sock, 1)
+                    if ack != _SHM_ACK:
+                        early = bytes(ack)
+                        break
+                    sent += clen
+            head = early + _recv_exact(conn.sock, _SHM_RESP.size - len(early))
+            status, length = _SHM_RESP.unpack(head)
+            if status in (0, 2) and length > MAX_FRAME_BYTES:
+                raise _FrameTooLarge(length)
+            if status == 0:
+                body = bytearray(conn.resp[:length])
+            elif status == 2:
+                body = bytearray(length)
+                got = 0
+                while got < length:
+                    (clen,) = _SHM_CHUNK.unpack(_recv_exact(conn.sock, _SHM_CHUNK.size))
+                    if clen > conn.ring or got + clen > length:
+                        raise ConnectionError(f"shm chunk overrun ({clen} bytes)")
+                    body[got : got + clen] = conn.resp[:clen]
+                    got += clen
+                    conn.sock.sendall(_SHM_ACK)
+            else:
+                code_val, dlen = _SHM_ERR.unpack(_recv_exact(conn.sock, _SHM_ERR.size))
+                detail = _recv_exact(conn.sock, dlen).decode("utf-8", "replace")
+                if early:
+                    # the server refused the frame mid-transfer and closed
+                    conn.destroy()
+                else:
+                    self._checkin(conn)
+                conn = None
+                raise PolicyRpcError(_CODE_BY_VALUE.get(code_val, StatusCode.UNKNOWN), detail)
+        except _FrameTooLarge as e:
+            conn.destroy()
+            conn = None
+            _check_frame(e.length, "response")
+        except TimeoutError:
+            conn.destroy()
+            conn = None
+            raise PolicyRpcError(
+                StatusCode.DEADLINE_EXCEEDED, f"shm call {method} timed out after {timeout:.3f}s"
+            )
+        except (OSError, struct.error) as e:
+            conn.destroy()
+            conn = None
+            raise PolicyRpcError(StatusCode.UNAVAILABLE, f"shm {self._doorbell}: {e}")
+        finally:
+            if conn is not None:
+                self._checkin(conn)
+        return body
+
+
+class _FrameTooLarge(Exception):
+    def __init__(self, length: int):
+        super().__init__(length)
+        self.length = length
+
+
+# -- selection ---------------------------------------------------------------
+
+
+def _endpoint_port(addr: str) -> Optional[int]:
+    try:
+        return int(addr.rpartition(":")[2])
+    except ValueError:
+        return None
+
+
+def endpoint_is_local(addr: str) -> bool:
+    """Whether the endpoint's host is this one."""
+    host = addr.rpartition(":")[0].strip().lower()
+    if host in _LOCAL_HOSTS:
+        return True
+    try:
+        return host == socket.gethostname().lower()
+    except OSError:  # pragma: no cover
+        return False
+
+
+def select_transport(addr: str, tier: Optional[str] = None):
+    """The fast-path transport for `addr` under the configured mode, or
+    None for the TCP tier. Never raises: any doubt (a remote host, no
+    socket file, an unparseable endpoint) means TCP. `tier` overrides
+    EDL_TRANSPORT for this one link; an unknown value is ignored."""
+    mode = transport_mode()
+    if tier is not None:
+        tier = tier.strip().lower()
+        if tier in TRANSPORT_TIERS or tier == "auto":
+            mode = tier
+    if mode == TRANSPORT_GRPC:
+        return None
+    port = _endpoint_port(addr)
+    if port is None or not endpoint_is_local(addr):
+        return None
+    if mode in (TRANSPORT_INPROC, "auto") and inproc_dispatcher(port) is not None:
+        return InprocTransport(port)
+    if mode in (TRANSPORT_SHM, "auto"):
+        info = read_shm_rendezvous(port)
+        if info is not None and os.path.exists(str(info.get("doorbell", ""))):
+            return ShmTransport(port)
+    if mode in (TRANSPORT_UDS, "auto"):
+        path = uds_path_for(port)
+        if os.path.exists(path):
+            return UdsTransport(path)
+    return None

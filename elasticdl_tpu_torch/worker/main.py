@@ -28,9 +28,11 @@ steps accepted and computed (in per-step mode the difference is stale
 recomputes; window mode computes each step once), the evaluation tasks
 (and their minibatches) and prediction tasks done, phase seconds, window
 mode's sync seconds and merged-back absorbs, whether it drained, the
-client's seconds per method, the three attention kernels' launches by
-head dim (`launch_counts`) and the dispatcher's attention fallbacks,
-and each accepted step's (or landed window's) time
+client's seconds per method and the tier its link runs on, the three
+attention kernels' launches by head dim (`launch_counts`) and the
+dispatcher's attention fallbacks, the device's peak allocated bytes,
+whether it stood by as a standby (pre-warmed, or failed to) and when it
+was promoted, and each accepted step's (or landed window's) time
 (`time.perf_counter()`) and loss.
 
 Not ported yet: master failover candidates and the profiler trace.
@@ -104,6 +106,15 @@ def _summary(worker_id, worker, client, device) -> dict:
         "aux_absorbed": dict(worker.aux_absorbed),
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),
+        "tier": client.tier,
+        "peak_memory_bytes": (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        ),
+        "was_standby": worker.was_standby,
+        "standby_prewarmed": worker.standby_prewarmed,
+        "standby_prewarm_failed": worker.standby_prewarm_failed,
+        "standby_prewarm_seconds": worker.standby_prewarm_seconds,
+        "promoted_at": worker.promoted_at,
         "launches": fa.launch_counts(),
         "attention_fallbacks": fa.attention.fallbacks,
         "accepted_at": [t for t, _loss in worker.step_log],

@@ -51,6 +51,24 @@ next training report goes out at the version and base it would have had
 without the eval. A PREDICTION task pulls the latest model and hands
 each minibatch's outputs to the spec's `PredictionOutputsProcessor`.
 
+Warm standby (the reference's `_standby_prewarm`): while GetTask answers
+WAIT with `standby: True`, the worker pre-warms once and then polls. The
+port has no compile step to run ahead, so the pre-warm pulls the model
+(or lazily initializes it), fetches a minibatch of raw records
+(GetSampleBatch) and runs one training forward and backward on the
+device on it (in window mode the window's first step, with the
+optimizer on a throwaway state), which brings up the CUDA context,
+cuDNN's algorithm choice and the caching allocator; then it throws the
+results away. The flat buffer (so the parameters), aux, optimizer state,
+error-feedback residuals, version, lineage, the RNG and the step and
+phase counters stay as they were (the attention kernels' launch counts
+include the pre-warm's launches); only the model is marked stale, so the
+first task after a promotion pulls the PS's latest parameters and aux
+rather than training on the model of the pre-warm. A failed pre-warm
+leaves the standby cold; `standby_prewarmed` and `standby_prewarm_failed`
+say which, and the log has one line for each, for a promotion, and for
+the worker's first accepted step.
+
 Lazy PS init: the first worker initializes the model on the host,
 offers it with ReportVariable (first writer wins) and pulls whatever
 won.
@@ -232,6 +250,15 @@ class Worker:
         self._flat: Optional[torch.Tensor] = None  # device [n_params] f32
         self._params: list = []  # module parameters in leaf order
         self._job_failed = False
+        self._is_standby = False  # the master holds this worker in reserve
+        self._standby_warmed = False  # pre-warm tried (done or failed)
+        self.standby_prewarmed = False
+        self.standby_prewarm_failed = False
+        self.standby_prewarm_seconds = 0.0
+        self.was_standby = False
+        # time.perf_counter() of the first task after standing by
+        self.promoted_at: Optional[float] = None
+        self._first_accepted_logged = False
         self._readers = ReaderCache()
         self.task_losses: list = []  # last loss of each training task
         # (time.perf_counter() at acceptance, loss) of every accepted step
@@ -371,6 +398,7 @@ class Worker:
     def get_task(self):
         resp = self._master.call("GetTask", {"worker_id": self._id})
         self._job_failed = resp.get("failed", False)
+        self._is_standby = resp.get("standby", False)
         return Task.from_wire(resp["task"]), resp.get("finished", False)
 
     def pull_model(self, version: int = -1, method: str = MethodType.MINIMUM) -> bool:
@@ -591,6 +619,7 @@ class Worker:
                 self._absorb_report_response(resp)
             if resp["accepted"]:
                 self.step_log.append((time.perf_counter(), loss_h))
+                self._note_accepted()
                 return loss_h
         raise RuntimeError("worker stuck: minibatch retries exhausted")
 
@@ -876,6 +905,7 @@ class Worker:
                     self.deduped_windows += 1
                 else:
                     self.window_log.append((time.perf_counter(), steps, float(loss_h[-1])))
+                    self._note_accepted()
             self._record_synced_losses(losses, loss_h[:-1], resp["version"])
             self._flush_deferred_reports()
 
@@ -1052,6 +1082,71 @@ class Worker:
         handler calls this; it never blocks)."""
         self._drain_requested.set()
 
+    # ------------------------------------------------------- warm standby
+
+    def _standby_prewarm(self):
+        """Pull the model and run one throwaway training step on a
+        master-served sample batch (see the module docstring). Any
+        failure leaves the standby cold: it still trains correctly once
+        promoted, only slower to start."""
+        t0 = time.perf_counter()
+        try:
+            records = self._master.call(
+                "GetSampleBatch", {"n": self._minibatch_size}
+            ).get("records")
+            if not records:
+                logger.info("Worker %d: no sample batch to pre-warm on", self._id)
+                return
+            features, labels = self._spec.dataset_fn(records, Mode.TRAINING)
+            if self._flat is None and not self.pull_model():
+                self._lazy_init_model()
+            self._prewarm_step(features, labels)
+            self.standby_prewarmed = True
+            self.standby_prewarm_seconds = time.perf_counter() - t0
+            logger.info("Worker %d: standby pre-warm complete in %.2f s",
+                        self._id, self.standby_prewarm_seconds)
+        except Exception:
+            self.standby_prewarm_failed = True
+            logger.exception("Worker %d: standby pre-warm failed (it warms on "
+                             "promotion instead)", self._id)
+        finally:
+            self._standby_warmed = True  # a hard failure is not retried
+            # the PS moves on while the standby waits: its first task
+            # after promotion pulls the latest model and aux
+            with self._report_lock:
+                self._fresh = False
+
+    def _prewarm_step(self, features, labels):
+        """One training step on the device whose results are thrown away:
+        the flat buffer, aux and RNG are restored, no counter moves, and
+        window mode's optimizer update runs on a state of its own."""
+        saved_flat = self._flat.clone()
+        saved_aux = self._aux_flat.clone() if self._aux_flat is not None else None
+        rng = torch.random.get_rng_state()
+        cuda_rng = torch.cuda.get_rng_state(self._device) if self._device.type == "cuda" else None
+        try:
+            loss, grad, new_aux = self._train_step(features, labels)
+            if self._local_updates:
+                (update,) = self._tx.update([grad], self._tx.init([self._flat]), [self._flat])
+                self._flat.add_(update)
+                if new_aux is not None:
+                    self._aux_flat.copy_(new_aux)
+            float(loss)  # waits for the device
+        finally:
+            self._flat.copy_(saved_flat)
+            if saved_aux is not None:
+                self._aux_flat.copy_(saved_aux)
+            torch.random.set_rng_state(rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self._device)
+
+    def _note_accepted(self):
+        """Log the worker's first accepted step, once: its time is when a
+        replacement (or a promoted standby) restored capacity."""
+        if not self._first_accepted_logged:
+            self._first_accepted_logged = True
+            logger.info("Worker %d: first step accepted at %.6f", self._id, time.perf_counter())
+
     # ------------------------------------------------------------- the loop
 
     def _eval_forward(self, features):
@@ -1174,6 +1269,12 @@ class Worker:
                     with self._phase("sync_wait"):
                         self._finalize_local_updates()
                     return not self._job_failed
+                if self._is_standby:
+                    if not self.was_standby:
+                        self.was_standby = True
+                        logger.info("Worker %d: held as a standby", self._id)
+                    if not self._standby_warmed:
+                        self._standby_prewarm()
                 # the master may be waiting on our deferred reports: a
                 # failed sync reports their tasks failed, so they requeue
                 try:
@@ -1182,6 +1283,10 @@ class Worker:
                     logger.exception("Worker %d: window sync failed", self._id)
                 time.sleep(0.05)
                 continue
+            if self.was_standby and self.promoted_at is None:
+                self.promoted_at = time.perf_counter()
+                logger.info("Worker %d: promoted from standby at %.6f",
+                            self._id, self.promoted_at)
             err = ""
             reported = False
             with self._report_lock:

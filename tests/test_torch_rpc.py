@@ -94,6 +94,8 @@ def _calls():
         ("GetTask", {"worker_id": 0}),
         ("ReportTaskResult", {"task_id": 2, "err_message": "boom", "worker_id": 0}),
         ("GetTask", {"worker_id": 1}),
+        # no sample-batch source wired (no standby workers): no records
+        ("GetSampleBatch", {"n": 2}),
     ]
 
 
