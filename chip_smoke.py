@@ -200,7 +200,27 @@ its result lines only when every phase passed:
    in the churn run 3 waves, a promotion, at least one warm promotion
    and no more than the promotions, and every promoted standby that
    stood by pre-warmed;
-19. prints the kernels' JSON line (one row per kernel and head dim in
+19. `BASELINE.json`'s deepfm_edl_embedding, the sparse plane (no
+   attention: every deepfm path must launch 0 attention kernels): builds
+   the native embedding store (`master/embedding_cpp/embedding_store.cc`,
+   g++) from the checkout; `phase_deepfm_models` holds one train step of
+   each deepfm model (the elastic one and the in-model tables) on the
+   card against the CPU (logits, dense gradient, BET gradients,
+   DEEPFM_TOL); `phase_deepfm_per_step` trains deepfm_edl_embedding
+   per-step in-process (b128, 4,096 records, vocab 10,000, 32 updates)
+   and `phase_deepfm_window` runs `bench.py:553-590`'s sparse cell (W
+   16, b128, 16,384 records, BET prefetch off, then on, then a profiled
+   run for the device idle share): each with the exactness block, finite
+   losses, the native store, one row per non-zero id seen in each table
+   plus the Adam slot rows, and (per-step) the rows moved from their
+   lazy init; prints records/s, the phase split, the master's sparse
+   apply and the sync split with the edl_gradient bytes;
+   `phase_deepfm_kv_process` runs master.main with 2 KV shard processes
+   and 2 worker processes over shm (W 16, 32,768 records from a vocab of
+   1,000,000, one evaluation with AUC, one checkpoint with the tables):
+   0 EmbeddingLookup on the master, every link's tier, the shards' rows,
+   no shard process or segment left;
+20. prints the kernels' JSON line (one row per kernel and head dim in
    bf16, 12 rows, plus the float32 kernels' own rows at the zoo
    default's [8, 1024, 4, 16], `{kernel}_d16_f32`, bound by products at
    the CUDA cores' float32 peak; the backward pair's yardstick once per
@@ -218,7 +238,8 @@ its result lines only when every phase passed:
    (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows),
    and `eval_launches` on every row (phase 13's evaluation forward:
    n_layers x evaluation minibatches on the forward rows at the run's
-   head dim and dtype, 0 elsewhere);
+   head dim and dtype, 0 elsewhere), and `deepfm_launches`,
+   `deepfm_window_launches`, `deepfm_kv_process_launches` (0) on every row;
    and each row's bound term, `bound_term`, with all three terms), the
    card line, and the result line. Each phase prints its wall-clock
    seconds (`timed`).
@@ -3451,6 +3472,387 @@ def phase_resnet_churn(tmp, uds):
             "warm_promotions": len(warm), "promotions": run["promotions"]}
 
 
+# -- the sparse plane: BASELINE.json's deepfm_edl_embedding --------------------
+
+DEEPFM_DEF = "deepfm_edl_embedding.custom_model"
+DEEPFM_BATCH, DEEPFM_VOCAB = 128, 10000
+DEEPFM_PER_STEP_RECORDS = 4096
+# bench.py:553-590's sparse cell: W 16, b128, 16,384 records in tasks of W x 128
+DEEPFM_WINDOW, DEEPFM_WINDOW_RECORDS = 16, 16384
+# the KV process job: most ids unseen, so the lazy init's SETNX carries the load
+DEEPFM_KV_RECORDS, DEEPFM_KV_VOCAB, DEEPFM_KV_EVAL = 32768, 1_000_000, 4096
+# card vs CPU, norm-relative over each output: float32 both (TF32 off);
+# the matmuls' and the BET gradient's scatter-add (atomic on the card)
+# sum in other orders
+DEEPFM_TOL = 1e-5
+
+
+def deepfm_step(model, params, features, labels, embs, device):
+    """One forward and backward of a deepfm model on `device`: (logits,
+    flat dense gradient, {table: BET gradient}) as float64 numpy."""
+    from elasticdl_tpu_torch.api.layers import EmbeddingInput
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.convert import load_variables
+    from elasticdl_tpu_torch.models.deepfm_edl_embedding import loss
+
+    model = model.to(device)
+    load_variables(model, params)
+    x = {"ids": torch.from_numpy(features["ids"].astype(np.int64)).to(device)}
+    bets, einp = {}, {}
+    for name, b in (embs or {}).items():
+        bets[name] = torch.from_numpy(b.bet.copy()).to(device).requires_grad_(True)
+        einp[name] = EmbeddingInput(bets[name], torch.from_numpy(b.inverse).to(device),
+                                    torch.from_numpy(b.mask).to(device))
+    out = model(x, einp) if embs else model(x)
+    names = [".".join(p) for p in codec.tree_paths(params)]
+    leaves = [model.get_parameter(n) for n in names] + list(bets.values())
+    grads = torch.autograd.grad(loss(out, torch.from_numpy(labels).to(device)), leaves)
+    as_np = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    n = len(names)
+    return (as_np(out), np.concatenate([as_np(g).ravel() for g in grads[:n]]),
+            {k: as_np(g) for k, g in zip(bets, grads[n:])})
+
+
+def phase_deepfm_models():
+    """One train step of each deepfm model on the card against the same
+    step on the CPU, from the same init and batch (b128, 10 fields; ids
+    from a vocab of 10,000 for the elastic model, of its 5,500 for the
+    in-model tables, with 0s as padding): the logits, the dense gradient
+    and the BET gradients (elastic model) within DEEPFM_TOL, norm-relative."""
+    from elasticdl_tpu_torch.api.layers import prepare_batch_embedding
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+
+    failures = []
+    for model_def, vocab in ((DEEPFM_DEF, DEEPFM_VOCAB), ("deepfm_functional_api.custom_model", 5500)):
+        spec = get_model_spec(ZOO, model_def)
+        rng = np.random.default_rng(0)
+        ids = rng.integers(0, vocab, size=(DEEPFM_BATCH, spec.module.NUM_FIELDS))
+        ids[rng.random(ids.shape) < 0.1] = 0
+        features = {"ids": ids.astype(np.int32)}
+        labels = (rng.random(DEEPFM_BATCH) < 0.5).astype(np.float32)
+        embs = {s.name: prepare_batch_embedding(
+            s, ids, lambda s, u: rng.uniform(-0.05, 0.05, (len(u), s.dim)).astype(np.float32))
+            for s in spec.embedding_specs}
+        params = spec.model.init_params(0)
+        card = deepfm_step(spec.model, params, features, labels, embs, "cuda")
+        cpu = deepfm_step(get_model_spec(ZOO, model_def).model, params, features, labels, embs, "cpu")
+        pairs = [("logits", card[0], cpu[0]), ("grad", card[1], cpu[1])]
+        pairs += [(f"bet_grad {k}", card[2][k], cpu[2][k]) for k in cpu[2]]
+        errs = {}
+        for what, got, want in pairs:
+            errs[what] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            if not np.isfinite(got).all() or not errs[what] <= DEEPFM_TOL:
+                failures.append(f"{model_def} {what}: card vs CPU {errs[what]:.3e}")
+        print(f"deepfm model {model_def} (b{DEEPFM_BATCH}, {card[1].size:,} dense params): card "
+              f"vs CPU norm-relative " + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+              + f" (limit {DEEPFM_TOL:.0e}, float32)")
+    if failures:
+        raise AssertionError("the deepfm models disagree between the card and the CPU:\n"
+                             + "\n".join(failures))
+
+
+def deepfm_records(path, n, vocab, seed=0):
+    from elasticdl_tpu_torch.models.record_codec import write_synthetic_tabular_records
+
+    if not os.path.exists(path):
+        write_synthetic_tabular_records(path, n, 10, vocab, seed=seed)
+    return path
+
+
+def distinct_ids(paths) -> set:
+    """The distinct non-zero ids of tabular record files."""
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader, count_records
+    from elasticdl_tpu_torch.models.record_codec import decode_tabular_records
+
+    seen = set()
+    for path in paths:
+        with RecordIOReader(path) as r:
+            ids, _ = decode_tabular_records(list(r.read_range(0, count_records(path))), 10)
+        seen |= set(ids[ids != 0].tolist())
+    return seen
+
+
+def deepfm_job(path, n_records, task_records, **worker_kw):
+    """An in-process master/PS (the native store and the sparse Adam) and
+    one deepfm_edl_embedding worker on the card; each lazy-init SETNX's
+    rows are recorded (`inits`) to check that the rows moved."""
+    from elasticdl_tpu_torch.api.model_spec import get_model_spec
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.testing import InProcessMaster, build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    spec = get_model_spec(ZOO, DEEPFM_DEF)
+    dispatcher = TaskDispatcher({path: n_records}, {}, {}, task_records, 1, shuffle_seed=0)
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
+    inits = {}
+
+    def record_init(req):
+        if req.get("set_if_not_exist"):
+            for i, row in zip(req["ids"].tolist(), req["values"]):
+                inits.setdefault((req["layer"], i), np.array(row))
+        return req
+
+    master = InProcessMaster(servicer, intercept={"EmbeddingUpdate": record_init})
+    worker = Worker(0, master, spec, minibatch_size=DEEPFM_BATCH, device="cuda", seed=0,
+                    **worker_kw)
+    return dispatcher, servicer, master, worker, inits
+
+
+def check_deepfm(what, ok, dispatcher, servicer, worker, steps, launches, fallbacks, seen,
+                 inits=None):
+    """The checks of every deepfm run: a clean finish, the exactness block,
+    finite losses, 0 attention launches, the native store, one row per
+    non-zero id seen in each table plus the Adam slot rows, and rows moved
+    from their lazy init."""
+    from elasticdl_tpu_torch.master.embedding_store import NativeEmbeddingStore
+
+    ex = servicer.exactness()
+    losses = ([loss for _t, loss in worker.step_log]
+              + [loss for _t, _n, loss in worker.window_log] + list(worker.task_losses))
+    if not ok or not dispatcher.finished():
+        raise AssertionError(f"{what}: the job did not finish cleanly")
+    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+        raise AssertionError(f"{what}: exactness {ex}, {steps} steps applied once expected")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    if any(launches.values()) or fallbacks:
+        raise AssertionError(f"{what}: attention launches {launches}, fallbacks {fallbacks}")
+    store = servicer._embedding_store
+    print(f"{what}: store {type(store).__name__}, {len(store)} rows")
+    if not isinstance(store, NativeEmbeddingStore):
+        raise AssertionError(f"{what}: the {type(store).__name__} served, not the native store")
+    snap = store.snapshot()
+    want = {t: len(seen) for t in ("fm_second", "fm_first", "fm_second/slot/m",
+                                   "fm_second/slot/v", "fm_first/slot/m", "fm_first/slot/v")}
+    got = {t: len(rows) for t, rows in snap.items()}
+    if got != want:
+        raise AssertionError(f"{what}: store rows by table {got}, {want} expected")
+    if inits is not None:
+        moved = sum(not np.array_equal(snap[t][i], row) for (t, i), row in inits.items())
+        if len(inits) != 2 * len(seen) or moved < 0.99 * len(inits):
+            raise AssertionError(f"{what}: {moved} of {len(inits)} lazily initialized rows moved")
+    print(f"{what}: exactness {ex}, {len(seen)} distinct ids, rows by table {got}, "
+          f"losses first / last {losses[0]:.4f} / {losses[-1]:.4f}, attention launches 0")
+
+
+def phase_deepfm_per_step(fa, tmp):
+    """deepfm_edl_embedding per-step in-process with the native store: b128,
+    4,096 synthetic tabular records (seed 0) from a vocab of 10,000,
+    grads_to_wait 1, 32 updates; `check_deepfm`, then records/s and the
+    phase split (lookup with lazy init, compute, report) beside the
+    master's sparse apply."""
+    path = deepfm_records(os.path.join(tmp, "deepfm-per-step.rio"), DEEPFM_PER_STEP_RECORDS,
+                          DEEPFM_VOCAB)
+    steps = DEEPFM_PER_STEP_RECORDS // DEEPFM_BATCH
+    dispatcher, servicer, master, worker, inits = deepfm_job(
+        path, DEEPFM_PER_STEP_RECORDS, DEEPFM_BATCH * 8)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+    check_deepfm("deepfm per-step", ok, dispatcher, servicer, worker, steps, launches,
+                 fallbacks, distinct_ids([path]), inits)
+    times = [t for t, _loss in worker.step_log]
+    print(f"deepfm per-step (b{DEEPFM_BATCH}, vocab {DEEPFM_VOCAB}): "
+          f"{DEEPFM_PER_STEP_RECORDS / wall:.1f} records/s over the whole run ({wall:.2f} s), "
+          f"{images_per_s(times, DEEPFM_BATCH):.1f} records/s over steps 2-{steps}; seconds a "
+          f"step: " + ", ".join(f"{k} {v / steps:.5f}" for k, v in sorted(worker.phase_seconds.items()))
+          + f", master sparse apply {servicer.sparse_apply_seconds / steps:.5f}, ReportGradient "
+          f"handler {master.handler_seconds['ReportGradient'] / steps:.5f}, EmbeddingLookup "
+          f"handler {master.handler_seconds['EmbeddingLookup'] / steps:.5f}; "
+          f"{worker.lazy_init_rows} rows lazily initialized, "
+          f"{worker.edl_gradient_bytes / steps:.0f} edl_gradient bytes a step")
+    return launches
+
+
+def deepfm_window_run(fa, path, what, env, profile=False):
+    """One window run of the sparse cell under `env`: (records/s from the
+    first to the last window sync, worker, servicer, master, profiler or
+    None, the attention launch counts)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    steps = DEEPFM_WINDOW_RECORDS // DEEPFM_BATCH
+    with environ(env):
+        dispatcher, servicer, master, worker, _inits = deepfm_job(
+            path, DEEPFM_WINDOW_RECORDS, DEEPFM_WINDOW * DEEPFM_BATCH,
+            local_updates=DEEPFM_WINDOW)
+        reset_counts(fa)
+        prof = (torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile
+                else contextlib.nullcontext())
+        with prof:
+            ok = worker.run()
+            torch.cuda.synchronize()
+        launches, fallbacks = read_counts(fa)
+        worker.close()
+    check_deepfm(what, ok, dispatcher, servicer, worker, steps, launches, fallbacks,
+                 distinct_ids([path]))
+    if not math.isfinite(worker.task_losses[-1]):
+        raise AssertionError(f"{what}: the tail loss is not finite")
+    return (window_images_per_s(worker.window_log, DEEPFM_BATCH), worker, servicer, master,
+            prof if profile else None, launches)
+
+
+def phase_deepfm_window(fa, tmp):
+    """bench.py:553-590's sparse cell: deepfm_edl_embedding in window mode,
+    16,384 records from a vocab of 10,000, b128, W 16, tasks of W x 128
+    (128 updates), BET prefetch off (EDL_BET_PREFETCH=0) and then on, in
+    this call; each with `check_deepfm` and a finite tail loss. Prints
+    the steady records/s of each, the sync split a sync with the
+    edl_gradient bytes, and the device idle share of a third, profiled
+    run (prefetch on)."""
+    path = deepfm_records(os.path.join(tmp, "deepfm-window.rio"), DEEPFM_WINDOW_RECORDS,
+                          DEEPFM_VOCAB)
+    rates, counts = {}, []
+    for prefetch in ("0", "1"):
+        what = f"deepfm window prefetch {'on' if prefetch == '1' else 'off'}"
+        rate, worker, servicer, master, _p, launches = deepfm_window_run(
+            fa, path, what, {"EDL_BET_PREFETCH": prefetch})
+        counts.append(launches)
+        rates[prefetch] = rate
+        syncs = len(worker.window_log)
+        print(f"{what} (W {DEEPFM_WINDOW}, b{DEEPFM_BATCH}, {DEEPFM_WINDOW_RECORDS} records): "
+              f"{rate:.1f} records/s from the first to the last window sync; sync seconds a "
+              f"sync: " + ", ".join(f"{k} {v / syncs:.5f}" for k, v in sorted(worker.sync_seconds.items()))
+              + f"; edl_gradient {worker.edl_gradient_bytes / syncs:.0f} bytes a sync; PS "
+              f"(ReportLocalUpdate handler, sparse apply included) "
+              f"{master.handler_seconds['ReportLocalUpdate'] / syncs:.5f} s a sync, sparse "
+              f"apply {servicer.sparse_apply_seconds / syncs:.5f}; worker phases "
+              f"{rounded(worker.phase_seconds)}")
+    print(f"deepfm window: prefetch on / off {rates['1'] / rates['0']:.3f}x")
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    _r, _w, _s, _m, prof, _l = deepfm_window_run(fa, path, "deepfm window profiled",
+                                                 {"EDL_BET_PREFETCH": "1"}, profile=True)
+    device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "Sync" not in e.name]
+    if not device:
+        print("deepfm window profile: the profiler recorded no device time (not measured)")
+        return launches
+    first, last = min(s for s, _e in device), max(e for _s, e in device)
+    t0 = first + (last - first) / 8  # past the first window (warm-up)
+    busy = busy_us(device, t0, last)
+    print(f"deepfm window profile (prefetch on): device busy {busy / 1e3:.2f} ms of "
+          f"{(last - t0) / 1e3:.2f} ms over the last 7/8 of the device timeline (device idle "
+          f"share {1 - busy / (last - t0):.3f})")
+    return launches
+
+
+def shard_processes() -> list:
+    """Pids of live KV shard processes on the host."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"elasticdl_tpu_torch.master.kv_shard_main" in f.read():
+                    out.append(int(pid))
+        except OSError:
+            pass
+    return out
+
+
+def phase_deepfm_kv_process(tmp, uds):
+    """master.main for deepfm_edl_embedding with `--num_kv_shards 2
+    --kv_mode process` and 2 worker processes on the card, over
+    EDL_TRANSPORT=shm: window mode (W 16, b128, tasks of W x 128),
+    32,768 records from a vocab of 1,000,000 (most ids unseen: the SETNX
+    path carries the load), one evaluation job with AUC at the end
+    (4,096 records) and one checkpoint with the embeddings (at the last
+    training version, before the evaluation's lookups). Checks rc 0,
+    the exactness block, 0 EmbeddingLookup and EmbeddingUpdate calls on
+    the master (the workers go to the shards), every link (master and
+    shards) on shm, native stores in both shards, the shards' rows (each
+    table one row per distinct non-zero id seen, two Adam slot rows per
+    id trained on), the AUC, the checkpoint's tables, 0 attention
+    launches, and no shard process or segment left."""
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    train, evald = os.path.join(tmp, "deepfm-kv"), os.path.join(tmp, "deepfm-kv-eval")
+    os.makedirs(train, exist_ok=True)
+    os.makedirs(evald, exist_ok=True)
+    half = DEEPFM_KV_RECORDS // 2
+    shards = [deepfm_records(os.path.join(train, f"s{i}.rio"), half, DEEPFM_KV_VOCAB, seed=i)
+              for i in range(2)]
+    evals = [deepfm_records(os.path.join(evald, "e.rio"), DEEPFM_KV_EVAL, DEEPFM_KV_VOCAB, 7)]
+    steps = DEEPFM_KV_RECORDS // DEEPFM_BATCH
+    ckpt_dir, logs = os.path.join(tmp, "deepfm-kv-ckpt"), os.path.join(tmp, "deepfm-kv-logs")
+    argv = ["--model_def", DEEPFM_DEF, "--minibatch_size", str(DEEPFM_BATCH),
+            "--records_per_task", str(DEEPFM_WINDOW * DEEPFM_BATCH), "--num_workers", "2",
+            "--worker_backend", "process", "--device", "cuda", "--grads_to_wait", "1",
+            "--local_updates", str(DEEPFM_WINDOW), "--num_kv_shards", "2", "--kv_mode", "process",
+            "--training_data_dir", train, "--evaluation_data_dir", evald,
+            "--eval_steps", str(steps), "--checkpoint_dir", ckpt_dir,
+            "--checkpoint_steps", str(steps)]
+    rc, summary, wall = run_master(argv, logs, {"EDL_TRANSPORT": "shm"})
+    with logs_on_failure(logs):
+        workers = read_summaries(logs)
+        left = shard_processes()
+        if rc != 0 or summary is None:
+            raise AssertionError(f"deepfm kv process job: rc {rc}")
+        ex = {k: summary[k] for k in ("version", "init_version", "applied_update_steps")}
+        calls = summary["server"]["calls"]
+        sparse = summary["sparse"]
+        print(f"deepfm kv process (2 KV shard processes, 2 workers, W {DEEPFM_WINDOW}, "
+              f"b{DEEPFM_BATCH}, {DEEPFM_KV_RECORDS} records, vocab {DEEPFM_KV_VOCAB}, shm): rc {rc} "
+              f"in {wall:.2f} s, exactness {ex}, master calls {calls}, sparse {sparse}, "
+              f"evaluations {summary['evaluations']}")
+        for wid, s in sorted(workers.items()):
+            print(f"deepfm kv process worker {wid}: {s['device']}, master link {s['tier']}, KV "
+                  f"links {s['kv_tiers']}, {s['steps_accepted']} steps, {s['lazy_init_rows']} rows "
+                  f"lazily initialized, {s['edl_gradient_bytes']} edl_gradient bytes, phases "
+                  f"{rounded(s['phase_seconds'])}, sync {rounded(s['sync_seconds'])}, client "
+                  f"{rounded(s['rpc_seconds'])}, attention launches {sum(s['launches'].values())}")
+        failures = []
+        if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+            failures.append(f"exactness {ex}, {steps} steps applied once expected")
+        if calls.get("EmbeddingLookup", 0) or calls.get("EmbeddingUpdate", 0):
+            failures.append("the master served embedding rows: the workers must go to the shards")
+        if len(workers) != 2 or sum(s["steps_accepted"] for s in workers.values()) != steps:
+            failures.append(f"{len(workers)} worker summaries, accepted steps "
+                            f"{[s['steps_accepted'] for s in workers.values()]}")
+        for s in workers.values():
+            if s["tier"] != "shm" or s["kv_tiers"] != ["shm", "shm"]:
+                failures.append(f"worker {s['worker_id']} links {s['tier']} / {s['kv_tiers']}, shm asked")
+            if s["device"] == "cpu":
+                failures.append(f"worker {s['worker_id']} ran on {s['device']}")
+            if any(s["launches"].values()):
+                failures.append(f"worker {s['worker_id']} launched attention kernels")
+        if sparse["store"] != ["NativeEmbeddingStore"] * 2:
+            failures.append(f"the shards' stores {sparse['store']}, native expected")
+        seen, trained = distinct_ids(shards + evals), distinct_ids(shards)
+        if sum(sparse["rows"]) != 2 * len(seen) + 4 * len(trained):
+            failures.append(f"the shards hold {sum(sparse['rows'])} rows, {2 * len(seen)} rows of "
+                            f"{len(seen)} ids and {4 * len(trained)} slot rows expected")
+        evaluations = summary["evaluations"]
+        if len(evaluations) != 1 or not 0.0 <= evaluations[0][1].get("auc", -1) <= 1.0:
+            failures.append(f"evaluations {evaluations}: one job with an AUC expected")
+        ckpts = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
+        if ckpts != [f"model_v{steps}.ckpt"]:
+            failures.append(f"checkpoints {ckpts}, model_v{steps}.ckpt expected")
+        else:
+            model = load_model_file(os.path.join(ckpt_dir, ckpts[0]))
+            emb = model.embeddings or {}
+            # taken at the last training version, before the evaluation's lookups
+            if {t: len(r) for t, r in emb.items()} != dict.fromkeys(
+                    ("fm_second", "fm_first", "fm_second/slot/m", "fm_second/slot/v",
+                     "fm_first/slot/m", "fm_first/slot/v"), len(trained)):
+                failures.append("the checkpoint's tables are not the trained rows and slots")
+            print(f"deepfm kv process checkpoint: v{model.version}, tables "
+                  f"{ {t: len(r) for t, r in emb.items()} }")
+        if left:
+            failures.append(f"KV shard processes left: {left}")
+        segments = [n for n in os.listdir("/dev/shm") if n.startswith("edltshm.")]
+        if segments:
+            failures.append(f"shm segments left: {segments}")
+        if failures:
+            raise AssertionError("deepfm kv process job:\n" + "\n".join(failures))
+        return summed_launches(workers)
+
+
 def timed(phase, *args):
     """Run one phase and print its wall-clock seconds."""
     t0 = time.perf_counter()
@@ -3471,12 +3873,21 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from elasticdl_tpu_torch.master import embedding_store
+
     lib = build.library_path("flash_attention")
     if os.path.exists(lib):
         os.remove(lib)  # build from the checkout's source in this run
     t0 = time.perf_counter()
     build.build("flash_attention")
     print(f"built flash_attention.cu in {time.perf_counter() - t0:.2f} s")
+    # the native embedding store (host C++, g++) from the checkout's source too
+    lib = embedding_store.library_path()
+    if os.path.exists(lib):
+        os.remove(lib)
+    t0 = time.perf_counter()
+    embedding_store.build_native()
+    print(f"built embedding_store.cc in {time.perf_counter() - t0:.2f} s")
     with open(os.path.join(build.BUILD_DIR, "flash_attention.log")) as f:
         registers = check_ptxas(f.read())
 
@@ -3517,6 +3928,13 @@ def main() -> int:
             timed(phase_transport_probe, uds)
             timed(phase_imagenet_async, tmp, uds)
             timed(phase_resnet_churn, tmp, uds)
+            # the sparse plane: no attention on any deepfm path
+            timed(phase_deepfm_models)
+            deepfm_counts = {
+                "deepfm_launches": timed(phase_deepfm_per_step, fa, tmp),
+                "deepfm_window_launches": timed(phase_deepfm_window, fa, tmp),
+                "deepfm_kv_process_launches": timed(phase_deepfm_kv_process, tmp, uds),
+            }
     # each row's counts are its own kernel's at its own head dim, per path
     # of its dtype (the wrappers count by head dim; a path runs one dtype)
     for by_kernel in rows.values():
@@ -3530,6 +3948,9 @@ def main() -> int:
             row["launches"] = row[main_path] if main_path else sum(row[p] for p in paths)
             # the evaluation forward's launches, by the row's dtype
             row["eval_launches"] = eval_counts[row["dtype"]][f"{kernel}_d{row['head_dim']}"]
+            # the deepfm paths run no attention: 0 on every row
+            for path, c in deepfm_counts.items():
+                row[path] = c[f"{kernel}_d{row['head_dim']}"]
     print(json.dumps({
         "kernels": [row for by_kernel in rows.values() for row in by_kernel.values()],
         "backward_pair": {f"d{d}": pair for d, pair in pairs.items()},

@@ -8,12 +8,10 @@ completion. An average of per-batch AUCs is not the job's AUC; summed
 threshold-bin counts finalize to it.
 
 Kinds:
-- ``auc_bins``: positive/negative counts bucketed over score-threshold
-  bins; finalization is the rank/trapezoid form with in-bin ties counted
-  half.
-
-The per-batch state builder (`auc_state`) comes with the models that use
-it (the deepfm zoo).
+- ``auc_bins`` (`auc_state`): positive/negative counts bucketed over
+  score-threshold bins of sigmoid(score); finalization is the
+  rank/trapezoid form with in-bin ties counted half, exact up to bin
+  collisions.
 """
 
 from __future__ import annotations
@@ -21,10 +19,31 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
+
+DEFAULT_NUM_THRESHOLDS = 512
 
 
 def is_mergeable_state(value: Any) -> bool:
     return isinstance(value, dict) and "kind" in value
+
+
+def auc_state(scores, labels, num_thresholds: int = DEFAULT_NUM_THRESHOLDS) -> Dict:
+    """One minibatch's mergeable AUC state on the tensors' device: each
+    score (a logit) goes to bin floor(sigmoid(score) * T), clipped to
+    [0, T - 1], in float32; `pos` and `neg` count the positive (label >
+    0.5) and negative labels of each bin."""
+    scores = torch.as_tensor(scores).reshape(-1)
+    labels = torch.as_tensor(labels, device=scores.device).reshape(-1)
+    p = torch.sigmoid(scores.to(torch.float32))
+    idx = torch.clamp((p * num_thresholds).to(torch.int32), 0, num_thresholds - 1).long()
+    pos = (labels > 0.5).to(torch.float32)
+    zeros = torch.zeros(num_thresholds, dtype=torch.float32, device=scores.device)
+    return {
+        "kind": "auc_bins",
+        "pos": zeros.index_add(0, idx, pos),
+        "neg": zeros.index_add(0, idx, 1.0 - pos),
+    }
 
 
 def merge_metric_states(acc: Dict, state: Dict) -> Dict:

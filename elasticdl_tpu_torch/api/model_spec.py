@@ -24,7 +24,12 @@ A model-zoo module exports:
   tensor or mergeable state}`` (``api/metrics.py``) for evaluation
   tasks, and a ``PredictionOutputsProcessor`` class whose instance's
   ``process(outputs, worker_id)`` takes each prediction minibatch's
-  outputs (numpy).
+  outputs (numpy);
+- optionally ``embedding_specs`` -> list of ``api.layers.EmbeddingSpec``
+  declaring PS-resident tables, and ``sparse_optimizer`` -> the PS's
+  sparse optimizer settings (``dict(kind=..., learning_rate=...)``). A
+  model with tables takes ``forward(features, embeddings)``, where
+  ``embeddings`` maps each table's name to its ``EmbeddingInput``.
 
 Module-level names are the reference's, so ``--model_def`` strings
 carry over unchanged.
@@ -47,6 +52,8 @@ class ModelSpec:
     loss: Callable
     optimizer: Callable
     eval_metrics_fn: Optional[Callable] = None
+    embedding_specs: List[Any] = dataclasses.field(default_factory=list)
+    sparse_optimizer: Dict[str, Any] = dataclasses.field(default_factory=dict)
     prediction_outputs_processor: Any = None
     module: Any = None
 
@@ -136,6 +143,8 @@ def get_model_spec(
         loss=resolve(loss),
         optimizer=resolve(optimizer),
         eval_metrics_fn=resolve(eval_metrics_fn, required=False),
+        embedding_specs=list(getattr(module, "embedding_specs", []) or []),
+        sparse_optimizer=dict(getattr(module, "sparse_optimizer", {}) or {}),
         prediction_outputs_processor=processor_cls() if processor_cls else None,
         module=module,
     )

@@ -15,6 +15,8 @@ def spec_from_module(module, **overrides) -> ModelSpec:
         loss=module.loss,
         optimizer=module.optimizer,
         eval_metrics_fn=getattr(module, "eval_metrics_fn", None),
+        embedding_specs=list(getattr(module, "embedding_specs", []) or []),
+        sparse_optimizer=dict(getattr(module, "sparse_optimizer", {}) or {}),
         prediction_outputs_processor=processor_cls() if processor_cls else None,
         module=module,
     )

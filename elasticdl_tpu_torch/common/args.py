@@ -18,12 +18,14 @@ staleness (`--use_async`, `--lr_staleness_modulation`,
 `--staleness_window`), evaluation and prediction data and the
 evaluation cadence, checkpoints and resume
 (`--checkpoint_filename_for_init`), the metrics sink
-(`--tensorboard_log_dir`), and warm standby workers
+(`--tensorboard_log_dir`), warm standby workers
 (`--num_standby_workers`: a master flag, not forwarded; the master tells
-a standby through GetTask). Not carried, so argparse rejects them: the
+a standby through GetTask), and the KV shards of the embedding tables
+(`--num_kv_shards`, `--kv_mode`: master flags; workers learn the
+endpoints from GetPSConfig). Not carried, so argparse rejects them: the
 sync plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
 `--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, the
-sharded PS, KV shards and aggregators, the policy plane, the k8s pod
+sharded PS and aggregators, the policy plane, the k8s pod
 settings, `--keep_tensorboard_running`, profiling and master failover
 candidates.
 """
@@ -140,6 +142,18 @@ def add_master_args(parser: argparse.ArgumentParser):
     parser.add_argument("--use_async", action="store_true")
     parser.add_argument("--lr_staleness_modulation", action="store_true")
     parser.add_argument("--staleness_window", type=non_neg_int, default=0)
+    parser.add_argument(
+        "--num_kv_shards", type=non_neg_int, default=0,
+        help="N>0: host the embedding tables behind N KV shard "
+        "endpoints (workers look rows up directly, bypassing the "
+        "master — the reference's worker->Redis topology); 0: tables "
+        "live in the master process",
+    )
+    parser.add_argument(
+        "--kv_mode", default="process", choices=("process", "inproc"),
+        help="KV shard hosting: shard subprocesses, or servers in the "
+        "master's process",
+    )
     parser.add_argument("--eval_steps", type=non_neg_int, default=0)
     parser.add_argument("--eval_start_delay_secs", type=float, default=0.0)
     parser.add_argument("--eval_throttle_secs", type=float, default=0.0)

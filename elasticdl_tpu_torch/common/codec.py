@@ -41,6 +41,14 @@ Two jobs, both host-side numpy:
 A `bytes` leaf (a raw record: GetSampleBatch) travels as a uint8 payload
 segment under the dtype tag "bytes" and decodes to a `bytes` copy.
 
+`IndexedRows` (the sparse plane's row-indexed gradient: an embedding
+table's rows by id) travels as `{"__ir__": 1, "v": values, "i":
+indices}`, two payload segments; in the reference's v2 frame it is the
+reference's own `{"__ir__": True, "v": ..., "i": ...}`, byte for byte.
+The v2 frame also takes integer dict keys (an embedding snapshot's
+`{layer: {id: row}}`, as a checkpoint carries it); the JSON header
+takes string keys only.
+
 bfloat16 has no numpy dtype without `ml_dtypes`, so a bf16 array travels
 as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
 `BF16Bits`; `as_f32` widens it. The compressed window deltas
@@ -70,6 +78,7 @@ _ND_KEY = "__nd__"
 _TUPLE_KEY = "__tp__"
 _QD_KEY = "__qd__"
 _SD_KEY = "__sd__"
+_IR_KEY = "__ir__"
 _BF16_TAG = "bfloat16"
 _BYTES_TAG = "bytes"
 
@@ -114,6 +123,43 @@ def as_f32(a: Any) -> np.ndarray:
     if a.dtype == np.float32:
         return a
     return a.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# row-indexed tensors (the sparse plane)
+
+
+@dataclasses.dataclass
+class IndexedRows:
+    """A row-indexed tensor: `values[k]` is the row of id `indices[k]`
+    (an embedding table's gradient rows, or the rows of an update)."""
+
+    values: np.ndarray  # [n, dim]
+    indices: np.ndarray  # [n] int64
+
+    def __post_init__(self):
+        self.values = np.asarray(self.values)
+        self.indices = np.asarray(self.indices, dtype=np.int64)
+
+
+def merge_indexed_rows(slices: List[IndexedRows], dedup: bool = False) -> IndexedRows:
+    """Concatenate IndexedRows; with `dedup`, the rows of a repeated id
+    are summed in float32 (the math the PS's sparse apply runs first),
+    by a stable sort and `np.add.reduceat`, as the reference does, so the
+    sums equal its bit for bit."""
+    out = IndexedRows(
+        values=np.concatenate([s.values for s in slices], axis=0),
+        indices=np.concatenate([s.indices for s in slices], axis=0),
+    )
+    if not dedup:
+        return out
+    uniq, inverse = np.unique(out.indices, return_inverse=True)
+    vals = np.asarray(out.values, dtype=np.float32)
+    if len(uniq) == 0:
+        return IndexedRows(values=np.zeros((0,) + vals.shape[1:], dtype=np.float32), indices=uniq)
+    order = np.argsort(inverse, kind="stable")
+    starts = np.searchsorted(inverse[order], np.arange(len(uniq)))
+    return IndexedRows(values=np.add.reduceat(vals[order], starts, axis=0), indices=uniq)
 
 
 # --------------------------------------------------------------------------
@@ -384,9 +430,12 @@ def _descriptor(a: np.ndarray, dtype_tag: str, builder: _FrameBuilder) -> dict:
     return {_ND_KEY: 1, "d": dtype_tag, "s": shape, "o": off, "n": seg.nbytes}
 
 
-def _build_header_tree(obj: Any, builder: _FrameBuilder) -> Any:
+def _build_header_tree(obj: Any, builder: _FrameBuilder, int_keys: bool = False) -> Any:
     if isinstance(obj, BF16Bits):
         return _descriptor(obj.bits, _BF16_TAG, builder)
+    if isinstance(obj, IndexedRows):
+        return {_IR_KEY: 1, "v": _build_header_tree(obj.values, builder),
+                "i": _build_header_tree(obj.indices, builder)}
     if isinstance(obj, QuantizedDelta):
         return {_QD_KEY: {
             "q": _build_header_tree(obj.q, builder),
@@ -408,14 +457,16 @@ def _build_header_tree(obj: Any, builder: _FrameBuilder) -> Any:
     if isinstance(obj, dict):
         out = {}
         for k, v in obj.items():
-            if not isinstance(k, str):
+            if isinstance(k, (int, np.integer)) and not isinstance(k, bool) and int_keys:
+                k = int(k)
+            elif not isinstance(k, str):
                 raise TypeError(f"frame dict keys must be str, got {k!r}")
-            out[k] = _build_header_tree(v, builder)
+            out[k] = _build_header_tree(v, builder, int_keys)
         return out
     if isinstance(obj, list):
-        return [_build_header_tree(v, builder) for v in obj]
+        return [_build_header_tree(v, builder, int_keys) for v in obj]
     if isinstance(obj, tuple):
-        return {_TUPLE_KEY: [_build_header_tree(v, builder) for v in obj]}
+        return {_TUPLE_KEY: [_build_header_tree(v, builder, int_keys) for v in obj]}
     if isinstance(obj, (np.floating, np.integer, np.bool_)):
         return obj.item()
     if isinstance(obj, (str, bool, int, float)) or obj is None:
@@ -438,6 +489,9 @@ def _reference_header_tree(tree: Any) -> Any:
     if isinstance(tree, dict):
         if _QD_KEY in tree or _SD_KEY in tree:
             raise TypeError("compressed deltas have no reference-frame form here")
+        if _IR_KEY in tree:
+            return {_IR_KEY: True, "v": _reference_header_tree(tree["v"]),
+                    "i": _reference_header_tree(tree["i"])}
         if _ND_KEY in tree:
             if tree["d"] == _BYTES_TAG:
                 raise TypeError("bytes leaves have no reference-frame form here")
@@ -452,7 +506,7 @@ def dumps_v2(obj: Any) -> bytes:
     """Serialize a pytree of arrays, containers and scalars as the
     reference's v2 frame (its `codec.dumps`): checkpoint files."""
     builder = _FrameBuilder()
-    header = _mp_pack(_reference_header_tree(_build_header_tree(obj, builder)))
+    header = _mp_pack(_reference_header_tree(_build_header_tree(obj, builder, int_keys=True)))
     return _join_frame(REFERENCE_CODEC_VERSION, header, builder)
 
 
@@ -504,6 +558,8 @@ def loads(data) -> Any:
             return _read_descriptor(m, data, payload_start)
         if _TUPLE_KEY in m:
             return tuple(m[_TUPLE_KEY])
+        if _IR_KEY in m:
+            return IndexedRows(values=m["v"], indices=m["i"])
         if _QD_KEY in m:
             return QuantizedDelta(**m[_QD_KEY])
         if _SD_KEY in m:

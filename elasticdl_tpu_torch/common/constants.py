@@ -53,7 +53,21 @@ ENV_UDS_DIR = "EDL_UDS_DIR"
 ENV_TRANSPORT_SHM_RING = "EDL_TRANSPORT_SHM_RING_BYTES"
 ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT = "EDL_TRANSPORT_SHM_DOORBELL_TIMEOUT"
 
+# The sparse plane (api/layers.py, master/embedding_store.py): window
+# mode's BET lookahead on a background thread ("0" turns it off), and
+# the switch that forces the Python embedding store over the C++ one
+ENV_BET_PREFETCH = "EDL_BET_PREFETCH"
+ENV_NO_NATIVE_KV = "EDL_TPU_NO_NATIVE_KV"
+
 ENV_REGISTRY = {
+    ENV_BET_PREFETCH: (
+        "0 disables the batched-embedding-training lookup prefetch "
+        "overlap (default on)"
+    ),
+    ENV_NO_NATIVE_KV: (
+        "1 disables the C++ embedding-store arena, forcing the "
+        "lock-striped Python store"
+    ),
     ENV_TRANSPORT: (
         "RPC transport tier: grpc (default), uds (Unix-domain-socket "
         "fast path to co-located shards), shm (shared-memory rings "

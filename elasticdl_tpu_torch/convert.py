@@ -5,7 +5,12 @@ layout), so a reference tree, handed over as numpy arrays, converts by
 copy. A reference `variables` tree (flax's `{"params": ..., "batch_stats":
 ...}`) splits into the port's params tree and aux (the non-trainable
 collections, each leaf a module buffer at the leaf's path without its
-collection), which `load_variables` copies into a model.
+collection), which `load_variables` copies into a model. The sparse
+plane's tables convert the same way: an embedding store's snapshot,
+`{layer: {id: row}}` (the optimizer's slot tables included), becomes a
+tree of float32 copies that any store of the port `restore`s
+(`embeddings_from_jax`); deepfm's dense parameters are an ordinary
+`params` tree.
 """
 
 from __future__ import annotations
@@ -33,6 +38,15 @@ def variables_from_jax(variables) -> Tuple[Dict, Dict]:
     params = codec.tree_map(as_np, dict(variables["params"]))
     aux = {k: codec.tree_map(as_np, dict(v)) for k, v in variables.items() if k != "params"}
     return params, aux
+
+
+def embeddings_from_jax(snapshot) -> Dict[str, Dict[int, np.ndarray]]:
+    """A reference embedding snapshot ({layer: {id: row}}, numpy) -> the
+    same tables as float32 copies with int ids, for `store.restore`."""
+    return {
+        layer: {int(i): np.array(row, dtype=np.float32) for i, row in rows.items()}
+        for layer, rows in snapshot.items()
+    }
 
 
 def load_variables(model: torch.nn.Module, params, aux=None):

@@ -3,16 +3,20 @@
 The reference's `elasticdl_tpu/master/checkpoint.py`:
 
 - `save_model_file` / `load_model_file`: the payload `{"version",
-  "params", "aux"[, "opt_state"]}` in the reference's codec frame
-  (`codec.dumps_v2`), written to a temporary file and renamed into
-  place, so a reader never sees a partial file. `opt_state` is the dense optimizer's flat state leaves
-  (`{"kind": "single", "leaves": [...]}`), so a resumed job continues
-  its momentum or Adam moments instead of restarting them cold. A file
-  that either package writes loads in the other.
+  "params", "aux"[, "embeddings"][, "opt_state"]}` in the reference's
+  codec frame (`codec.dumps_v2`), written to a temporary file and
+  renamed into place, so a reader never sees a partial file.
+  `embeddings` is the embedding store's snapshot, `{table: {id: row}}`,
+  the sparse optimizer's slot tables included; `opt_state` is the dense
+  optimizer's flat state leaves (`{"kind": "single", "leaves": [...]}`),
+  so a resumed job continues its momentum or Adam moments instead of
+  restarting them cold. A file that either package writes loads in the
+  other.
 - `CheckpointService`: durable checkpoints every `checkpoint_steps`
   versions (floor crossing, so a multi-step bump cannot skip one),
   written by a bounded background writer and rotated to
-  `keep_checkpoint_max` files (`model_v{version}.ckpt`); and ephemeral
+  `keep_checkpoint_max` files (`model_v{version}.ckpt`), with the
+  embedding store's snapshot taken when the save is triggered; and ephemeral
   evaluation snapshots, written synchronously in their own directory,
   which pin a version for an evaluation job and serve its FIXED pulls.
 
@@ -36,9 +40,12 @@ from elasticdl_tpu_torch.common.messages import Model
 logger = get_logger(__name__)
 
 
-def save_model_file(path: str, params: Any, version: int, aux: Any = None, opt_state: Any = None):
+def save_model_file(path: str, params: Any, version: int, aux: Any = None,
+                    embeddings: Optional[Dict] = None, opt_state: Any = None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"version": version, "params": params, "aux": aux}
+    if embeddings is not None:
+        payload["embeddings"] = embeddings
     if opt_state is not None:
         payload["opt_state"] = opt_state
     tmp = path + ".tmp"
@@ -48,22 +55,26 @@ def save_model_file(path: str, params: Any, version: int, aux: Any = None, opt_s
 
 
 def load_model_file(path: str) -> Model:
-    """The file's model; its `opt_state` (None when the file has none)
-    rides on the returned Model."""
+    """The file's model; its `embeddings` and `opt_state` (None when the
+    file has none) ride on the returned Model."""
     with open(path, "rb") as f:
         d = codec.loads(f.read())
     m = Model(version=d["version"], params=d["params"], aux=d.get("aux"))
+    m.embeddings = d.get("embeddings")
     m.opt_state = d.get("opt_state")
     return m
 
 
-def restore_for_init(path: str, optimizer) -> Tuple[Any, Any, int]:
+def restore_for_init(path: str, optimizer, embedding_store=None) -> Tuple[Any, Any, int]:
     """(params, aux, version) of the checkpoint at `path` for a PS to boot
     from. `optimizer` (a PSOptimizer) adopts the file's optimizer state,
     so the resumed job continues its momentum or Adam moments instead of
     starting them cold; a file without that state, or with the sharded
-    PS's, leaves the optimizer cold."""
+    PS's, leaves the optimizer cold. The file's embedding tables go into
+    `embedding_store` when it is given."""
     model = load_model_file(path)
+    if embedding_store is not None and model.embeddings:
+        embedding_store.restore(model.embeddings)
     opt_state = model.opt_state
     if opt_state and opt_state.get("kind") == "single":
         optimizer.restore_state(model.params, opt_state["leaves"])
@@ -82,8 +93,10 @@ class CheckpointService:
         checkpoint_dir: str = "",
         checkpoint_steps: int = 0,
         keep_checkpoint_max: int = 0,
+        embedding_store=None,
     ):
         self._directory = checkpoint_dir
+        self._embedding_store = embedding_store
         self._steps = checkpoint_steps
         self._max_versions = keep_checkpoint_max
         self._eval_checkpoint_dir = ""
@@ -131,13 +144,15 @@ class CheckpointService:
 
     def save(self, params: Any, version: int, is_eval: bool = False, aux: Any = None,
              opt_state: Any = None):
-        """Durable saves go to the background writer; eval snapshots are
+        """Durable saves go to the background writer, with the embedding
+        tables as they are now; eval snapshots (the dense model only) are
         written before this returns."""
         path = self._path(version, is_eval)
         if is_eval:
             save_model_file(path, params, version, aux=aux)
             self._eval_models[version] = path
             return
+        emb = self._embedding_store.snapshot() if self._embedding_store is not None else None
         with self._writer_lock:
             # save() runs on the server's handler threads: two reports
             # crossing the cadence at once must not start two writers
@@ -146,7 +161,7 @@ class CheckpointService:
                 self._writer.start()
         with self._write_cv:
             self._enqueued += 1
-        self._write_q.put((path, params, version, aux, opt_state))
+        self._write_q.put((path, params, version, aux, emb, opt_state))
 
     def _writer_loop(self):
         while True:
@@ -154,8 +169,9 @@ class CheckpointService:
             if item is None:
                 return
             try:
-                path, params, version, aux, opt_state = item
-                save_model_file(path, params, version, aux=aux, opt_state=opt_state)
+                path, params, version, aux, emb, opt_state = item
+                save_model_file(path, params, version, aux=aux, embeddings=emb,
+                                opt_state=opt_state)
                 logger.info("Checkpoint saved: %s", path)
                 self._checkpoint_list.append(path)
                 if self._max_versions:

@@ -1,0 +1,77 @@
+"""KV shard process entry point.
+
+    python -m elasticdl_tpu_torch.master.kv_shard_main --shard_id 0 \\
+        --num_shards 2 [--port 0 --port_file <path>]
+
+The reference's `elasticdl_tpu/master/kv_shard_main.py`: one
+`KVShardServicer` (an id-hash slice of the embedding tables and their
+optimizer slot rows) behind an RPC endpoint, spawned by the master's
+`KVShardGroup` in process mode. A shard is model-oblivious (id-keyed
+rows; the sparse optimizer runs in the master) and keeps its rows in
+host memory: it never touches the card. It publishes its bound port
+through `--port_file` (written to a temporary file and renamed), logs
+which store serves ("native" or "python"), and exits 0 on SIGTERM or
+SIGINT after closing its listeners.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import sys
+import threading
+
+from elasticdl_tpu_torch.common.args import non_neg_int, pos_int
+from elasticdl_tpu_torch.common.log_util import get_logger
+
+logger = get_logger(__name__)
+
+
+def kv_shard_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="elasticdl_tpu_torch.master.kv_shard_main",
+        description="ElasticDL (PyTorch) embedding KV shard",
+    )
+    p.add_argument("--shard_id", type=non_neg_int, required=True)
+    p.add_argument("--num_shards", type=pos_int, required=True)
+    p.add_argument("--port", type=non_neg_int, default=0)
+    p.add_argument("--port_file", default="",
+                   help="publish the bound port here (ephemeral-port discovery)")
+    p.add_argument("--log_level", default="INFO")
+    return p
+
+
+def main(argv=None) -> int:
+    args = kv_shard_parser().parse_args(argv)
+    logging.getLogger().setLevel(args.log_level.upper())
+
+    from elasticdl_tpu_torch.master.embedding_store import NativeEmbeddingStore
+    from elasticdl_tpu_torch.master.kv_shard import KVShardServicer
+    from elasticdl_tpu_torch.rpc.server import RpcServer
+
+    servicer = KVShardServicer(args.shard_id, args.num_shards)
+    server = RpcServer(servicer.handlers(), port=args.port)
+    server.start()
+    native = isinstance(servicer.store, NativeEmbeddingStore)
+    logger.info("KV shard %d/%d listening on :%d (%s store)", args.shard_id,
+                args.num_shards, server.port, "native" if native else "python")
+    if args.port_file:
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(server.port))
+        os.replace(tmp, args.port_file)
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda s, f: stop.set())
+    signal.signal(signal.SIGINT, lambda s, f: stop.set())
+    stop.wait()
+    server.stop()
+    logger.info("KV shard %d: %d lookups, %d updates, %d rows", args.shard_id,
+                servicer.lookups, servicer.updates, len(servicer.store))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,9 +16,14 @@ prediction jobs:
    optimizer factory only: the PS is numpy on the host, and the master
    never initializes CUDA, whose context every worker would then share
    the card with);
-3. boot from `--checkpoint_filename_for_init` when given: params, aux
-   and version, and the optimizer's state from the file's `opt_state`
-   (exact resume); evaluation and prediction jobs need it;
+3. for a model with `embedding_specs`, the sparse plane: the embedding
+   store (in the master, or `--num_kv_shards N` KV shards, `--kv_mode`
+   process or inproc, whose endpoints GetPSConfig advertises to the
+   workers) and the sparse optimizer over it; then boot from
+   `--checkpoint_filename_for_init` when given: params, aux and version,
+   the optimizer's state from the file's `opt_state` (exact resume),
+   and the file's embedding tables into the store; evaluation and
+   prediction jobs need it;
 4. wire the job services: the checkpoint service (`--checkpoint_dir`,
    `--checkpoint_steps`, `--keep_checkpoint_max`), the evaluation
    service (`--evaluation_data_dir`: every `--eval_steps` versions or,
@@ -33,15 +38,17 @@ prediction jobs:
    in reserve and GetSampleBatch feeds the first training records to
    pre-warm on;
 7. poll until the job finishes and no evaluation job is pending, flush
-   the checkpoint writer, save `--output`, tear down: manager, backend,
-   server, checkpoint writer, metrics sink.
+   the checkpoint writer, save `--output` (with the embedding tables),
+   tear down: manager, backend, server, checkpoint writer, metrics
+   sink, KV shards.
 
 Exit codes: 0 success; 1 boot or config error; 2 the job completed with
 dropped (poison) tasks, or every worker exited with tasks outstanding.
 
 At exit the master logs one line, `master summary: {json}`, with the
 job type, the server's seconds per method (handler and codec), the
-job's exactness block, the relaunches and promotions, the completed evaluation
+job's exactness block, the sparse plane (the store that served, its
+rows, the sparse apply's seconds), the relaunches and promotions, the completed evaluation
 jobs (`[version, metrics]`, and each one's seconds from its creation to
 its last task); `run(argv)` returns the same summary to an
 in-process caller.
@@ -49,7 +56,7 @@ in-process caller.
 The workers reach the master over the tier `EDL_TRANSPORT` selects (the
 environment passes to them as it is).
 
-Not ported yet: the sharded PS, KV shards and aggregators, the policy
+Not ported yet: the sharded PS and aggregators, the k8s KV mode, the policy
 and observability planes, the tensorboard process,
 speculation, master migration and the k8s backend.
 """
@@ -130,14 +137,10 @@ def build_master(args, job_type=None):
     """(spec, dispatcher, servicer, evaluation service or None,
     checkpoint service) on the single PS, shared by run() and tests; the
     metrics sink, when there is one, is `servicer.tb_service` (its owner
-    tears it down). `job_type` defaults to the one the flags give."""
+    tears it down), the KV shards, when there are, `servicer.kv_group`.
+    `job_type` defaults to the one the flags give."""
     from elasticdl_tpu_torch.api.model_spec import get_model_spec
-    from elasticdl_tpu_torch.common.constants import JobType
-    from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
-    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
-    from elasticdl_tpu_torch.master.servicer import MasterServicer
-    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
     if job_type is None:
         job_type = validate_master_args(args)
@@ -152,11 +155,55 @@ def build_master(args, job_type=None):
         prediction_outputs_processor=args.prediction_outputs_processor,
     )
     ps_opt = PSOptimizer(spec.optimizer())
+    store, sparse_opt, kv_group = build_sparse_plane(spec, args.num_kv_shards, args.kv_mode)
+    try:
+        return _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group)
+    except Exception:
+        # no shard process may outlive a failed boot
+        if kv_group is not None:
+            kv_group.stop()
+        raise
+
+
+def build_sparse_plane(spec, num_kv_shards: int = 0, kv_mode: str = "process", store=None):
+    """(embedding store, sparse optimizer, KV shard group) for a model
+    with `embedding_specs`, else (None, None, None): the tables in
+    `store` when given (a ShardedEmbeddingStore, say), else behind
+    `num_kv_shards` KV shards, else in a new store in the master."""
+    from elasticdl_tpu_torch.master.embedding_store import EmbeddingStore
+    from elasticdl_tpu_torch.master.sparse_optimizer import SparseOptimizer
+
+    if not spec.embedding_specs:
+        return None, None, None
+    kv_group = None
+    # `store is None`, not `not store`: a store with no rows has len 0
+    if store is None and num_kv_shards > 0:
+        from elasticdl_tpu_torch.master.kv_group import KVShardGroup
+
+        kv_group = KVShardGroup(num_kv_shards, mode=kv_mode)
+        try:
+            kv_group.start()
+            store = kv_group.store()
+        except Exception:
+            kv_group.stop()
+            raise
+    elif store is None:
+        store = EmbeddingStore()
+    return store, SparseOptimizer(store, **(spec.sparse_optimizer or {})), kv_group
+
+
+def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group):
+    from elasticdl_tpu_torch.common.constants import JobType
+    from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+
     init_params = init_aux = None
     init_version = 0
     if args.checkpoint_filename_for_init:
         init_params, init_aux, init_version = restore_for_init(
-            args.checkpoint_filename_for_init, ps_opt
+            args.checkpoint_filename_for_init, ps_opt, store
         )
     dispatcher = TaskDispatcher(
         collect_shards(args.training_data_dir),
@@ -170,6 +217,7 @@ def build_master(args, job_type=None):
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_steps=args.checkpoint_steps,
         keep_checkpoint_max=args.keep_checkpoint_max,
+        embedding_store=store,
     )
     servicer = MasterServicer(
         grads_to_wait=args.grads_to_wait,
@@ -182,6 +230,9 @@ def build_master(args, job_type=None):
         use_async=args.use_async,
         lr_staleness_modulation=args.lr_staleness_modulation,
         staleness_window=args.staleness_window,
+        embedding_store=store,
+        sparse_optimizer=sparse_opt,
+        kv_group=kv_group,
     )
     tb_service = None
     if args.tensorboard_log_dir:
@@ -241,7 +292,7 @@ def run(argv=None):
 
     try:
         _spec, dispatcher, servicer, eval_service, ckpt = build_master(args, job_type)
-    except (ValueError, OSError) as e:
+    except (ValueError, OSError, RuntimeError) as e:
         # a bad data dir, unreadable shards or a bad checkpoint are
         # config errors
         logger.error("master boot failed: %s", e)
@@ -305,11 +356,15 @@ def run(argv=None):
             eval_service.stop()
         if servicer.tb_service is not None:
             servicer.tb_service.close()
+        sparse = servicer.sparse_summary()
+        if servicer.kv_group is not None:
+            servicer.kv_group.stop()
     summary = {
         "exit_code": exit_code,
         "job_type": job_type,
         "seconds": time.perf_counter() - t0,
         **servicer.exactness(),
+        "sparse": sparse,
         "relaunches": manager.relaunches(),
         "promotions": manager.promotions(),
         "evaluations": [

@@ -11,7 +11,9 @@ operations and float32 rounding:
 
 - `ClipAdam`: `optax.chain(clip_by_global_norm(max_norm),
   adam(learning_rate, b1, b2, eps))`, Adam with eps_root 0 and bias
-  correction from count + 1; state leaves `[count, *mu, *nu]`;
+  correction from count + 1; state leaves `[count, *mu, *nu]`; with
+  `max_norm=None` it is `optax.adam` alone (`adam(learning_rate)`), whose
+  state has the same leaves;
 - `Chain(*ops)`: `optax.chain` of
   - `ClipByGlobalNorm(max_norm)` (`where(norm < max_norm, g, g / norm *
     max_norm)`; no state),
@@ -64,7 +66,7 @@ def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
 
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
-    max_norm: float = 1.0
+    max_norm: Optional[float] = 1.0
     learning_rate: float = 1e-3
     b1: float = 0.9
     b2: float = 0.999
@@ -89,7 +91,8 @@ class ClipAdam:
         with no host sync: `state` advances, and each of `grads` (owned
         by the caller, float32) is overwritten with its update, which is
         returned. The same operations, in the same order, as optax."""
-        _clip_by_global_norm(grads, self.max_norm)
+        if self.max_norm is not None:
+            _clip_by_global_norm(grads, self.max_norm)
         state["count"].add_(1)
         c = state["count"].to(torch.float32)
         bc1 = 1 - torch.pow(self.b1, c)
@@ -103,6 +106,12 @@ class ClipAdam:
             torch.div(v, bc2, out=s).sqrt_().add_(self.eps)
             torch.div(m, bc1, out=g).div_(s).mul_(-self.learning_rate)
         return grads
+
+
+def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> ClipAdam:
+    """`optax.adam`: ClipAdam without the clip."""
+    return ClipAdam(max_norm=None, learning_rate=learning_rate, b1=b1, b2=b2, eps=eps)
 
 
 @dataclasses.dataclass(frozen=True)

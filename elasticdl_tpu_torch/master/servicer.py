@@ -52,18 +52,32 @@ Standby workers: with `set_standby_fn` (the worker manager's
 GetSampleBatch serves the raw records it pre-warms on
 (`set_sample_batch_fn`).
 
+The sparse plane (a model with `embedding_specs`): the tables live in an
+embedding store (in the master, or behind KV shards, `kv_group`, whose
+endpoints GetPSConfig advertises so workers look rows up directly).
+EmbeddingLookup and EmbeddingUpdate serve a worker's row fetches and its
+lazy-init SETNX. Each report's `edl_gradient` ({table: IndexedRows})
+goes to the sparse optimizer: per-step under `grads_to_wait > 1` the
+reports' rows are concatenated and applied with the step (duplicates
+are summed by the optimizer's dedup), async at once, and a window
+sync's rows with its delta. The sparse apply runs after the model lock
+is released, under its own lock, before the response and before the
+version-bump hooks (so a cadence checkpoint's embedding snapshot holds
+the step's rows); its seconds accumulate in `sparse_apply_seconds`.
+
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
 
 A request's arrays may be views over the transport's buffer, which the
 shm tier reuses for the connection's next request: whatever a handler
-keeps past its return (the aux trees, evaluation metric states) is
-copied first.
+keeps past its return (the aux trees, evaluation metric states, the
+pending reports' gradient rows) is copied first.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, Optional
 
@@ -101,11 +115,15 @@ def _own(tree):
     leaves as they are); None stays None."""
     if tree is None:
         return None
-    return codec.tree_map(
-        lambda a: codec.BF16Bits(a.bits.copy()) if isinstance(a, codec.BF16Bits)
-        else np.copy(a) if isinstance(a, np.ndarray) else a,
-        tree,
-    )
+
+    def own(a):
+        if isinstance(a, codec.BF16Bits):
+            return codec.BF16Bits(a.bits.copy())
+        if isinstance(a, codec.IndexedRows):
+            return codec.IndexedRows(values=np.copy(a.values), indices=np.copy(a.indices))
+        return np.copy(a) if isinstance(a, np.ndarray) else a
+
+    return codec.tree_map(own, tree)
 
 
 class MasterServicer:
@@ -122,8 +140,18 @@ class MasterServicer:
         use_async: bool = False,
         lr_staleness_modulation: bool = False,
         staleness_window: int = 0,
+        embedding_store=None,
+        sparse_optimizer=None,
+        kv_group=None,
     ):
         self._lock = threading.Lock()
+        self._embedding_store = embedding_store
+        self._sparse_opt = sparse_optimizer
+        # the KV shards behind the store, when the tables live there
+        self.kv_group = kv_group
+        self._sparse_lock = threading.Lock()
+        self._edl_grads: Dict[str, list] = {}  # pending reports' rows by table
+        self.sparse_apply_seconds = 0.0
         self._grads_to_wait = grads_to_wait
         self._opt = optimizer
         self._task_d = task_dispatcher
@@ -163,6 +191,8 @@ class MasterServicer:
             "ReportEvaluationMetrics": self.report_evaluation_metrics,
             "GetPSConfig": self.get_ps_config,
             "GetSampleBatch": self.get_sample_batch,
+            "EmbeddingLookup": self.embedding_lookup,
+            "EmbeddingUpdate": self.embedding_update,
         }
 
     # -- model state --------------------------------------------------------
@@ -181,6 +211,20 @@ class MasterServicer:
                 "applied_update_steps": self._applied_update_steps,
             }
 
+    def sparse_summary(self) -> Optional[dict]:
+        """The sparse plane's state (None without tables): the store
+        that served (the KV shards' stores each), its rows, and the
+        sparse apply's seconds."""
+        store = self._embedding_store
+        if store is None:
+            return None
+        if self.kv_group is not None:
+            shards = store.shard_lens()
+            return {"store": [s["store"] for s in shards], "rows": [s["n"] for s in shards],
+                    "apply_seconds": self.sparse_apply_seconds}
+        return {"store": type(store).__name__, "rows": len(store),
+                "apply_seconds": self.sparse_apply_seconds}
+
     def model_initialized(self) -> bool:
         with self._lock:
             return self._params is not None
@@ -194,12 +238,14 @@ class MasterServicer:
             )
 
     def save_latest_checkpoint(self, output_path: str):
-        """The model now, with the optimizer's state, as `--output`."""
+        """The model now, with the optimizer's state and the embedding
+        tables, as `--output`."""
         from elasticdl_tpu_torch.master.checkpoint import save_model_file
 
+        emb = self._embedding_store.snapshot() if self._embedding_store is not None else None
         with self._lock:
             save_model_file(output_path, self._params, self._version, aux=self._aux,
-                            opt_state=self._opt_state_snapshot())
+                            embeddings=emb, opt_state=self._opt_state_snapshot())
 
     def set_evaluation_service(self, evaluation_service):
         """Late wiring: the evaluation service needs `get_params_copy`
@@ -263,8 +309,34 @@ class MasterServicer:
 
     def get_ps_config(self, req: dict) -> dict:
         """Shard discovery for a booting worker: the master is the single
-        PS, so there are no PS or KV shard endpoints."""
-        return {"endpoints": [], "kv_endpoints": []}
+        PS (no PS shard endpoints); the KV shards' endpoints when the
+        embedding tables live there."""
+        kv = list(self.kv_group.endpoints) if self.kv_group is not None else []
+        return {"endpoints": [], "kv_endpoints": kv}
+
+    # -- RPC: the embedding plane -------------------------------------------
+
+    def embedding_lookup(self, req: dict) -> dict:
+        values, unknown = self._embedding_store.lookup(req["layer"], req["ids"])
+        return {"values": values, "unknown_index": unknown}
+
+    def embedding_update(self, req: dict) -> dict:
+        """A batch write (both stores copy the rows in)."""
+        self._embedding_store.update(
+            req["layer"], req["ids"], req["values"],
+            set_if_not_exist=req.get("set_if_not_exist", False),
+        )
+        return {}
+
+    def _apply_sparse(self, edl_grads):
+        """Apply {table: IndexedRows} to the store; callers run it after
+        releasing the model lock and before responding."""
+        if not edl_grads or self._sparse_opt is None:
+            return
+        t0 = time.perf_counter()
+        with self._sparse_lock:
+            self._sparse_opt.apply_gradients(edl_grads)
+            self.sparse_apply_seconds += time.perf_counter() - t0
 
     # -- RPC: model ---------------------------------------------------------
 
@@ -330,8 +402,10 @@ class MasterServicer:
         """Returns {accepted, version[, params_flat, aux]}."""
         report_version = req.get("version", -1)
         aux_state = _own(req.get("aux_state"))
+        edl_grads = req.get("edl_gradient") or {}
         applied_version = -1
         ckpt_snapshot = None
+        sparse_to_apply = None
         with self._lock:
             if self._params is None:
                 raise ValueError("gradient reported before model init")
@@ -360,6 +434,7 @@ class MasterServicer:
                     scale = 1.0 / float(staleness)
                 self._apply(grad, dense_scale=scale, aux_state=aux_state)
                 applied_version = self._version
+                sparse_to_apply = edl_grads
             else:
                 if self._grad_sum is None:
                     self._grad_sum = np.array(grad, dtype=np.float32)
@@ -367,22 +442,32 @@ class MasterServicer:
                     self._grad_sum += grad
                 if aux_state is not None:
                     self._pending_aux = aux_state
+                for layer, rows in edl_grads.items():
+                    # kept past the handler: copied out of the request
+                    self._edl_grads.setdefault(layer, []).append(_own(rows))
                 self._grad_n += 1
                 if self._grad_n >= self._grads_to_wait:
                     avg = self._grad_sum / np.float32(self._grad_n)
+                    merged = {
+                        layer: codec.merge_indexed_rows(rows)
+                        for layer, rows in self._edl_grads.items()
+                    }
                     # clear BEFORE apply: a failed apply raises to the
                     # reporter, and leftovers would double-count its retry
                     aux_pending, self._pending_aux = self._pending_aux, None
                     self._grad_sum = None
                     self._grad_n = 0
+                    self._edl_grads = {}
                     self._apply(avg, aux_state=aux_pending)
                     applied_version = self._version
+                    sparse_to_apply = merged
             resp = {"accepted": True, "version": self._version}
             if req.get("return_model") and self._version != report_version:
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = _copy(self._aux)
             if applied_version >= 0:
                 ckpt_snapshot = self._checkpoint_snapshot(applied_version - 1, applied_version)
+        self._apply_sparse(sparse_to_apply)
         if applied_version >= 0:
             self._on_version_bump(applied_version, ckpt_snapshot, applied_version - 1)
             self._report_train_loss(applied_version, req.get("loss"))
@@ -439,6 +524,8 @@ class MasterServicer:
             if base_version + steps != self._version or req.get("want_model"):
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = _copy(self._aux)
+        # the window's rows, at full weight like the per-step path
+        self._apply_sparse(req.get("edl_gradient") or {})
         self._on_version_bump(applied_version, ckpt_snapshot, prev_version)
         self._report_train_loss(applied_version, req.get("loss"))
         return resp

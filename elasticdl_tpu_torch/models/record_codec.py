@@ -5,9 +5,9 @@ Fixed-layout numpy byte records, the reference's own
 
 - image records: int64 label | uint8[prod(shape)] pixels;
 - token records: int32[seq_len + 1] token ids (LM input is [:-1],
-  target [1:]).
-
-Tabular records are not ported yet.
+  target [1:]);
+- tabular records: int64[num_fields] categorical ids | float32 label
+  (frappe-style rows: the deepfm zoo's input).
 """
 
 from __future__ import annotations
@@ -68,6 +68,39 @@ def write_synthetic_image_records(
                 rng.normal(40.0 + 15.0 * label, 25.0, size=shape), 0, 255
             ).astype(np.uint8)
             w.write(encode_image_record(img, label))
+
+
+# --------------------------------------------------------- tabular records
+
+
+def encode_tabular_record(ids: np.ndarray, label: float) -> bytes:
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    return ids.tobytes() + np.float32(label).tobytes()
+
+
+def decode_tabular_records(
+    records: Sequence[bytes], num_fields: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (ids int64 [B, num_fields], labels float32 [B])."""
+    ids = np.empty((len(records), num_fields), dtype=np.int64)
+    labels = np.empty(len(records), dtype=np.float32)
+    for i, r in enumerate(records):
+        ids[i] = np.frombuffer(r, dtype=np.int64, count=num_fields)
+        labels[i] = np.frombuffer(r, dtype=np.float32, offset=8 * num_fields)[0]
+    return ids, labels
+
+
+def write_synthetic_tabular_records(
+    path: str, n: int, num_fields: int, vocab: int, seed: int = 0
+):
+    """Rows of ids in [1, vocab) with a parity label (the sum of the ids
+    mod 2); the reference's writer: the same draws and bytes for one
+    seed."""
+    rng = np.random.default_rng(seed)
+    with RecordIOWriter(path) as w:
+        for _ in range(n):
+            ids = rng.integers(1, vocab, size=num_fields)
+            w.write(encode_tabular_record(ids, float(ids.sum() % 2)))
 
 
 # ----------------------------------------------------------- token records

@@ -58,34 +58,44 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless its library exists; returns the
-    library path. Raises RuntimeError with the compiler's output if
-    nvcc fails."""
-    out = library_path(name)
+def compile_once(out: str, argv_fn, log_path: str) -> str:
+    """Build `out` once across threads and processes: under an exclusive
+    `flock` on `.lock` beside it, run the compiler argv `argv_fn(tmp)`
+    (which writes `tmp`) unless `out` exists, keep its output at
+    `log_path`, and rename `tmp` into place. Raises RuntimeError with the
+    compiler's output if it fails. Also builds the host C++ libraries
+    (`master/embedding_store.py`)."""
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(os.path.join(os.path.dirname(out), ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if os.path.exists(out):
             return out  # another process built it while this one waited
         tmp = f"{out}.{os.getpid()}.tmp"
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True,
-            text=True,
-        )
+        argv = argv_fn(tmp)
+        proc = subprocess.run(argv, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
+                f"{' '.join(argv)} failed (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
-        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+        with open(log_path, "w") as f:
             f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return out
+
+
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` unless its library exists; returns the
+    library path. Raises RuntimeError with the compiler's output if
+    nvcc fails."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return compile_once(
+        library_path(name),
+        lambda tmp: [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        os.path.join(BUILD_DIR, f"{name}.log"),
+    )
 
 
 def load(name: str) -> ctypes.CDLL:

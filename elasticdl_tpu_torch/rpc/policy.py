@@ -48,13 +48,16 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
     {StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED}
 )
 
-#: The ported methods that are safe to re-send: reads, the task report
-#: that the dispatcher dedups (a stale or repeated report is dropped),
-#: and the window sync, which the servicer dedups by its `report_key`
-#: (a resend is absorbed and answered with the merged model).
+#: The ported methods that are safe to re-send: reads (EmbeddingLookup
+#: among them), the task report that the dispatcher dedups (a stale or
+#: repeated report is dropped), and the window sync, which the servicer
+#: dedups by its `report_key` (a resend is absorbed and answered with the
+#: merged model). EmbeddingUpdate is not, as in the reference. The KV
+#: shards' methods are classified where their client calls them
+#: (`rpc/kv_client.py`).
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
     {"GetModel", "GetAux", "GetPSConfig", "GetSampleBatch", "ReportTaskResult",
-     "ReportLocalUpdate"}
+     "EmbeddingLookup", "ReportLocalUpdate"}
 )
 
 

@@ -65,6 +65,7 @@ def build_job(
     checkpoint_filename_for_init: str = "",
     init_params=None,
     init_aux=None,
+    embedding_store=None,
 ):
     """Wire a MasterServicer and its services from a ModelSpec over
     `dispatcher`, as the master's boot does, the boot from a checkpoint
@@ -74,22 +75,28 @@ def build_job(
     `init_aux` seed the PS at version 0 without a file, else the
     checkpoint or the first worker does. The same servicer takes
     per-step and window-mode workers: window mode's settings are the
-    Worker's (`local_updates`, `sync_dtype`, ...)."""
+    Worker's (`local_updates`, `sync_dtype`, ...). A model with
+    `embedding_specs` gets its embedding store (`embedding_store`, e.g.
+    a ShardedEmbeddingStore over KV shards, or a new in-process one) and
+    the sparse optimizer over it; a checkpoint's tables go into it."""
     from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
     from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+    from elasticdl_tpu_torch.master.main import build_sparse_plane
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
     from elasticdl_tpu_torch.master.servicer import MasterServicer
 
     ps_opt = PSOptimizer(spec.optimizer())
+    store, sparse_opt, _kv = build_sparse_plane(spec, store=embedding_store)
     init_version = 0
     if checkpoint_filename_for_init:
         init_params, init_aux, init_version = restore_for_init(
-            checkpoint_filename_for_init, ps_opt
+            checkpoint_filename_for_init, ps_opt, store
         )
     ckpt = CheckpointService(
         checkpoint_dir=checkpoint_dir,
         checkpoint_steps=checkpoint_steps,
         keep_checkpoint_max=keep_checkpoint_max,
+        embedding_store=store,
     )
     servicer = MasterServicer(
         grads_to_wait=grads_to_wait,
@@ -102,6 +109,8 @@ def build_job(
         use_async=use_async,
         lr_staleness_modulation=lr_staleness_modulation,
         staleness_window=staleness_window,
+        embedding_store=store,
+        sparse_optimizer=sparse_opt,
     )
     eval_service = None
     if eval_steps:

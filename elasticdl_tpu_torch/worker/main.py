@@ -7,8 +7,9 @@
 The reference's worker main (`elasticdl_tpu/worker/main.py`): resolve
 the device (CUDA unless `--device cpu`: without a card the worker exits
 with the "no CUDA device" error before anything else), load the model
-spec, wait for the master, fetch its PS config (the boot handshake),
-run the task loop.
+spec, wait for the master, fetch its PS config (the boot handshake:
+the KV shards' endpoints, when the embedding tables live there, which the
+worker then looks rows up from directly), run the task loop.
 
 Exit codes: 0 the job finished cleanly; 1 a crash;
 EXIT_CODE_JOB_FAILED (2) the master reported dropped (poison) tasks;
@@ -30,7 +31,9 @@ recomputes; window mode computes each step once), the evaluation tasks
 mode's sync seconds and merged-back absorbs, whether it drained, the
 client's seconds per method and the tier its link runs on, the three
 attention kernels' launches by head dim (`launch_counts`) and the
-dispatcher's attention fallbacks, the device's peak allocated bytes,
+dispatcher's attention fallbacks, the sparse plane's counters (the
+KV links' tiers, the rows this worker lazily initialized, the
+`edl_gradient` bytes it sent), the device's peak allocated bytes,
 whether it stood by as a standby (pre-warmed, or failed to) and when it
 was promoted, and each accepted step's (or landed window's) time
 (`time.perf_counter()`) and loss.
@@ -79,7 +82,8 @@ def _is_unreachable(e: BaseException) -> bool:
 
 def _boot_handshake(client) -> dict:
     """First master contact: wait for the listener, then ask for the PS
-    config (always empty shard lists on the port's single PS)."""
+    config (no PS shards on the port's single PS; the KV shards'
+    endpoints, or none)."""
     client.wait_ready(timeout=BOOT_WAIT_SECONDS)
     return client.call("GetPSConfig", {})
 
@@ -107,6 +111,9 @@ def _summary(worker_id, worker, client, device) -> dict:
         "rpc_seconds": dict(client.seconds),
         "rpc_codec_seconds": dict(client.codec_seconds),
         "tier": client.tier,
+        "kv_tiers": worker.kv_tiers,
+        "lazy_init_rows": worker.lazy_init_rows,
+        "edl_gradient_bytes": worker.edl_gradient_bytes,
         "peak_memory_bytes": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
         ),
@@ -161,7 +168,7 @@ def main(argv=None) -> int:
     )
     client = RpcClient(args.master_addr)
     try:
-        _boot_handshake(client)
+        ps_config = _boot_handshake(client)
     except Exception as e:
         client.close()
         if _is_unreachable(e):
@@ -185,6 +192,7 @@ def main(argv=None) -> int:
         sync_dtype=args.sync_dtype or None,
         sync_compress=args.sync_compress or None,
         overlap_sync=args.overlap_sync or None,
+        kv_endpoints=ps_config.get("kv_endpoints") or None,
     )
     # teardown and preemption send SIGTERM: drain at the next task
     # boundary instead of dying with windows and reports in flight

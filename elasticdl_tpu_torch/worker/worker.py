@@ -89,6 +89,26 @@ merged model brings the PS's back. The first worker's ReportVariable
 offers the model's `init_aux()`. Images stay uint8 to the device: only
 signed integer arrays (token ids, labels) widen to int64.
 
+The sparse plane (a model with `embedding_specs`, the reference's
+embedding plane): per minibatch the worker fetches each table's unique
+rows on the host (`lookup_embedding`: straight from the KV shards when
+GetPSConfig named them, else EmbeddingLookup on the master; unseen ids
+are drawn from `np.random.default_rng(seed + worker_id)`, written with
+a SETNX, whose one winner every worker then reads back), pads them into
+a BET (`api/layers.prepare_batch_embedding`) and hands the model its
+device tensors (`forward(features, embeddings)`). Each BET is a leaf
+that takes a gradient, sliced back to the real rows as IndexedRows
+(`extract_indexed_grads`): per-step they ride the ReportGradient as
+`edl_gradient`; in window mode each step's BET gradients stay on the
+device until the window's sync copies them to the host with the delta,
+and go as one `merge_indexed_rows(..., dedup=True)` per table (a
+window's repeated ids summed before the wire). In window mode batch
+N+1's lookups run on one background thread while batch N computes (BET
+prefetch: single and ordered, so the lazy-init draws keep their order),
+unless `EDL_BET_PREFETCH=0` or the sync depth is 0. Evaluation and
+prediction look rows up the same way; a standby's pre-warm runs on zero
+rows and touches no table.
+
 On the card, float32 convolutions and matmuls run in full float32:
 TF32 is switched off when a worker is built for a CUDA device.
 
@@ -96,8 +116,7 @@ The worker computes on `device` ("cuda" by default) and raises if that
 device is absent; the CPU runs only when the caller asks for it.
 
 Not ported yet: the local-steps ladder, the adaptive wire plane, the
-background model page-in, speculative backup tasks, the embedding
-window and the sharded PS.
+background model page-in, speculative backup tasks and the sharded PS.
 """
 
 from __future__ import annotations
@@ -115,6 +134,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from elasticdl_tpu_torch.api.layers import (
+    EmbeddingInput,
+    extract_indexed_grads,
+    prepare_batch_embedding,
+)
 from elasticdl_tpu_torch.api.metrics import is_mergeable_state
 from elasticdl_tpu_torch.api.model_spec import (
     ModelSpec,
@@ -126,6 +150,7 @@ from elasticdl_tpu_torch.api.model_spec import (
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.constants import (
     DEFAULT_SYNC_DEPTH,
+    ENV_BET_PREFETCH,
     ENV_OVERLAP_SYNC,
     ENV_SYNC_DEPTH,
     MAX_MINIBATCH_RETRY_NUM,
@@ -189,6 +214,11 @@ def _host_value(v):
     return np.asarray(v)
 
 
+def _rows_nbytes(edl_grads: dict) -> int:
+    """Payload bytes of {table: IndexedRows}: values and ids."""
+    return sum(int(r.values.nbytes + r.indices.nbytes) for r in edl_grads.values())
+
+
 def _parse_sync_compress(spec) -> float:
     """"topk:<ratio>" -> the ratio (0 < r <= 1); "" / "none" -> 0.0 (off).
     Anything else raises at worker construction."""
@@ -236,6 +266,7 @@ class Worker:
         sync_dtype: Optional[str] = None,
         sync_compress: Optional[str] = None,
         overlap_sync: Optional[str] = None,
+        kv_endpoints=None,
     ):
         self._id = worker_id
         self._master = master
@@ -323,6 +354,22 @@ class Worker:
         self._ef_residual: Optional[torch.Tensor] = None  # window-delta EF
         self._ef_grad_residual: Optional[torch.Tensor] = None  # per-step EF
 
+        # -- the sparse plane
+        self._emb_specs = {s.name: s for s in model_spec.embedding_specs}
+        # the lazy-init draws: numpy on the host, per-worker deterministic
+        self._emb_init_rng = np.random.default_rng(seed + worker_id)
+        self._emb_prefetch_pool = None  # the BET prefetch thread, lazily
+        # (BatchEmbeddings, {table: device BET gradient}) of each unsynced
+        # window step: device refs, copied to the host by the window's sync
+        self._pending_edl: list = []
+        self._kv = None  # the KV shards' client, when the tables live there
+        if kv_endpoints:
+            from elasticdl_tpu_torch.rpc.kv_client import ShardedEmbeddingStore
+
+            self._kv = ShardedEmbeddingStore(kv_endpoints)
+        self.lazy_init_rows = 0  # rows this worker drew and offered (SETNX)
+        self.edl_gradient_bytes = 0  # IndexedRows payload sent (values + ids)
+
         # -- window mode
         self._local_updates = local_updates
         self._tx = model_spec.optimizer()
@@ -372,6 +419,11 @@ class Worker:
     def _add_sync_seconds(self, name: str, seconds: float):
         with self._stats_lock:
             self.sync_seconds[name] += seconds
+
+    @property
+    def kv_tiers(self) -> list:
+        """The transport tier of each KV shard link ([] without shards)."""
+        return self._kv.tiers if self._kv is not None else []
 
     @property
     def steps_accepted(self) -> int:
@@ -444,9 +496,10 @@ class Worker:
     def report_variable(self, params, aux=None):
         self._master.call("ReportVariable", {"params": params, "aux": aux or None})
 
-    def report_gradient(self, grad_wire, loss: float, aux_state=None):
-        """One ReportGradient round with a host-side wire gradient and
-        the step's new aux tree (None for a model without aux)."""
+    def report_gradient(self, grad_wire, loss: float, aux_state=None, edl_grads=None):
+        """One ReportGradient round with a host-side wire gradient, the
+        step's new aux tree (None for a model without aux) and its BET
+        gradients ({table: IndexedRows}, for a model with tables)."""
         req = {
             "worker_id": self._id,
             "version": self._version,
@@ -455,6 +508,9 @@ class Worker:
             "loss": loss,
             "return_model": True,
         }
+        if edl_grads:
+            req["edl_gradient"] = edl_grads
+            self.edl_gradient_bytes += _rows_nbytes(edl_grads)
         md = self._model_wire_dtype()
         if md:
             req["model_dtype"] = md
@@ -465,6 +521,124 @@ class Worker:
             "ReportTaskResult",
             {"task_id": task_id, "err_message": err, "worker_id": self._id},
         )
+
+    # ------------------------------------------------------- embedding plane
+
+    def _emb_lookup(self, layer: str, ids):
+        """Row fetch: from the KV shards when the job runs them, else
+        through the master."""
+        if self._kv is not None:
+            return self._kv.lookup(layer, ids)
+        resp = self._master.call("EmbeddingLookup", {"layer": layer, "ids": ids})
+        return resp["values"], resp["unknown_index"]
+
+    def _emb_update(self, layer: str, ids, values, set_if_not_exist=False):
+        if self._kv is not None:
+            self._kv.update(layer, ids, values, set_if_not_exist=set_if_not_exist)
+            return
+        self._master.call("EmbeddingUpdate", {
+            "layer": layer, "ids": ids, "values": values,
+            "set_if_not_exist": set_if_not_exist,
+        })
+
+    def lookup_embedding(self, spec, ids: np.ndarray) -> np.ndarray:
+        """The rows of `ids`, lazily initializing the unseen ones: drawn
+        uniformly in (-init_scale, init_scale) from the worker's numpy
+        generator, offered with a SETNX (the first writer wins across
+        workers), then read back."""
+        values, unknown = self._emb_lookup(spec.name, ids)
+        if values.shape[1] == 0:
+            values = np.zeros((len(ids), spec.dim), dtype=np.float32)
+        else:
+            values = np.array(values)  # decoded buffers are read-only views
+        if len(unknown):
+            init = self._emb_init_rng.uniform(
+                -spec.init_scale, spec.init_scale, size=(len(unknown), spec.dim)
+            ).astype(np.float32)
+            unknown_ids = np.asarray(ids)[np.asarray(unknown)]
+            self._emb_update(spec.name, unknown_ids, init, set_if_not_exist=True)
+            self.lazy_init_rows += len(unknown)
+            values2, unknown2 = self._emb_lookup(spec.name, unknown_ids)
+            if len(unknown2):
+                raise RuntimeError("embedding rows missing after lazy init")
+            values[np.asarray(unknown)] = values2
+        return values
+
+    def _prepare_embeddings(self, features, lookup=None) -> dict:
+        """{table: BatchEmbedding} of one minibatch's features."""
+        lookup = lookup or self.lookup_embedding
+        return {
+            name: prepare_batch_embedding(spec, features[spec.input_key], lookup)
+            for name, spec in self._emb_specs.items()
+        }
+
+    def _device_embeddings(self, embs, requires_grad: bool = False) -> dict:
+        """{table: EmbeddingInput} on the device; with `requires_grad`
+        each BET is a leaf that takes a gradient."""
+        out = {}
+        for name, b in embs.items():
+            bet = self._to_device(b.bet)
+            if requires_grad:
+                bet.requires_grad_(True)
+            out[name] = EmbeddingInput(bet, self._to_device(b.inverse), self._to_device(b.mask))
+        return out
+
+    def _emb_pool(self):
+        """The BET prefetch thread: one, so lookups (and the lazy-init
+        draws) stay in order."""
+        if self._emb_prefetch_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._emb_prefetch_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="bet-prefetch"
+            )
+        return self._emb_prefetch_pool
+
+    def _prefetch_on(self) -> bool:
+        """BET prefetch: window mode with syncs in flight (depth 0 is the
+        serialized mode, where every flush lands before the next lookup)
+        unless EDL_BET_PREFETCH=0."""
+        return (
+            self._max_inflight_syncs > 0
+            and os.environ.get(ENV_BET_PREFETCH, "1") != "0"
+        )
+
+    def _with_embeddings(self, batches):
+        """(features, labels, embs) of each window-mode minibatch: batch
+        N+1's rows are fetched on the prefetch thread while batch N
+        computes; without prefetch, right before it. The exposed wait
+        counts as the "lookup" phase."""
+        if not self._prefetch_on():
+            for features, labels in batches:
+                with self._phase("lookup"):
+                    embs = self._prepare_embeddings(features)
+                yield features, labels, embs
+            return
+        pool = self._emb_pool()
+        batch = next(batches, None)
+        fut = pool.submit(self._prepare_embeddings, batch[0]) if batch is not None else None
+        while batch is not None:
+            nxt = next(batches, None)
+            nxt_fut = pool.submit(self._prepare_embeddings, nxt[0]) if nxt is not None else None
+            with self._phase("lookup"):
+                embs = fut.result()
+            yield batch[0], batch[1], embs
+            batch, fut = nxt, nxt_fut
+
+    def _window_edl(self, pending_edl, grads_h) -> dict:
+        """A window's BET gradients (host copies, in `pending_edl`'s
+        order) as one deduped IndexedRows a table."""
+        per_table: dict = {}
+        it = iter(grads_h)
+        for embs, gbets in pending_edl:
+            for name in gbets:
+                per_table.setdefault(name, []).append(
+                    extract_indexed_grads(self._emb_specs[name], next(it), embs[name])
+                )
+        return {
+            name: codec.merge_indexed_rows(slices, dedup=True)
+            for name, slices in per_table.items()
+        }
 
     # ------------------------------------------------------ flat param buffer
 
@@ -553,24 +727,38 @@ class Worker:
         """Signed integers (token ids, labels) widen to int64, as torch
         indexes with; unsigned ones (uint8 images) cross as they are and
         the model normalizes them on the device."""
+        if isinstance(a, dict):  # a model's dict of feature arrays
+            return {k: self._to_device(v) for k, v in a.items()}
         a = np.asarray(a)
         if a.dtype.kind == "i":
             a = a.astype(np.int64)
         return _host_tensor(a).to(self._device)
 
-    def _train_step(self, features, labels):
-        """(loss, flat gradient, new aux flat or None) on the device, from
-        the current model; the model's buffers are left as they were."""
+    def _forward(self, x, embeddings, train: bool):
+        """The model's outputs; a model with tables also takes its
+        {table: EmbeddingInput}."""
+        args = (x,) if embeddings is None else (x, embeddings)
+        return self._model(*args, train=train) if self._takes_train else self._model(*args)
+
+    def _train_step(self, features, labels, embs=None):
+        """(loss, flat gradient, new aux flat or None, {table: BET
+        gradient}) on the device, from the current model and the
+        minibatch's BatchEmbeddings (a model with tables); the model's
+        buffers are left as they were."""
         x = self._to_device(features)
-        outputs = self._model(x, train=True) if self._takes_train else self._model(x)
+        embeddings = self._device_embeddings(embs, requires_grad=True) if embs else None
+        bets = [e.bet for e in embeddings.values()] if embeddings else []
+        outputs = self._forward(x, embeddings, train=True)
         loss = self._spec.loss(outputs, self._to_device(labels))
-        grads = torch.autograd.grad(loss, self._params)
+        grads = torch.autograd.grad(loss, self._params + bets)
+        n = len(self._params)
+        gbets = dict(zip(embeddings, grads[n:])) if embeddings else {}
         new_aux = None
         if self._aux_paths:
             new_aux = torch.cat(
                 [v.reshape(-1) for v in new_aux_values(self._model, self._aux_paths)]
             )
-        return loss.detach(), torch.cat([g.reshape(-1) for g in grads]), new_aux
+        return loss.detach(), torch.cat([g.reshape(-1) for g in grads[:n]]), new_aux, gbets
 
     def _grad_to_wire(self, grad: torch.Tensor):
         """The per-step gradient's wire form on the host: EF-compressed
@@ -608,14 +796,22 @@ class Worker:
         steady state."""
         for _ in range(MAX_MINIBATCH_RETRY_NUM):
             self._ensure_step_ready(task)
+            embs = None
+            if self._emb_specs:
+                with self._phase("lookup"):
+                    embs = self._prepare_embeddings(features)
             with self._phase("compute"):
-                loss, grad, new_aux = self._train_step(features, labels)
+                loss, grad, new_aux, gbets = self._train_step(features, labels, embs)
                 grad_wire = self._grad_to_wire(grad)
                 aux_h = self._aux_tree(new_aux.cpu().numpy()) if new_aux is not None else None
+                edl = {
+                    name: extract_indexed_grads(self._emb_specs[name], g.cpu().numpy(), embs[name])
+                    for name, g in gbets.items()
+                }
                 loss_h = float(loss)
             self.steps_computed += 1
             with self._phase("report"):
-                resp = self.report_gradient(grad_wire, loss_h, aux_h)
+                resp = self.report_gradient(grad_wire, loss_h, aux_h, edl)
                 self._absorb_report_response(resp)
             if resp["accepted"]:
                 self.step_log.append((time.perf_counter(), loss_h))
@@ -718,16 +914,19 @@ class Worker:
 
     # ---------------------------------------------------------- window mode
 
-    def _local_step(self, features, labels) -> torch.Tensor:
+    def _local_step(self, features, labels, embs=None) -> torch.Tensor:
         """The one local update that the window and the per-step-local
         path share (the reference's `_local_step_core`): forward and
         backward, then the spec's optimizer in place on the flat buffer;
-        the new aux is kept. Returns the loss as a device scalar."""
-        loss, grad, new_aux = self._train_step(features, labels)
+        the new aux is kept, and the BET gradients wait on the device for
+        the window's sync. Returns the loss as a device scalar."""
+        loss, grad, new_aux, gbets = self._train_step(features, labels, embs)
         (update,) = self._tx.update([grad], self._opt_state, [self._flat])
         self._flat.add_(update)
         if new_aux is not None:
             self._aux_flat.copy_(new_aux)
+        if gbets:
+            self._pending_edl.append((embs, gbets))
         self.steps_computed += 1
         return loss
 
@@ -753,11 +952,14 @@ class Worker:
             self._opt_state = self._tx.init([self._flat])
             self._base_flat = self._flat.clone()
 
-    def _local_minibatch(self, features, labels, task: Task):
+    def _local_minibatch(self, features, labels, task: Task, embs=None):
         """One local step; the W-th since the last sync spawns the next."""
         self._ensure_local_ready(task)
+        if self._emb_specs and embs is None:
+            with self._phase("lookup"):
+                embs = self._prepare_embeddings(features)
         with self._phase("compute"):
-            loss = self._local_step(features, labels)
+            loss = self._local_step(features, labels, embs)
         self._pending_steps += 1
         self._latest_step_loss = loss
         if self._pending_steps >= self._local_updates:
@@ -817,6 +1019,9 @@ class Worker:
         else:
             report_key = uuid.uuid4().hex
         losses, self._pending_losses = self._pending_losses, []
+        # the window's BET gradients ride the same copy to the host
+        pending_edl, self._pending_edl = self._pending_edl, []
+        edl_dev = [g for _embs, gbets in pending_edl for g in gbets.values()]
         # the tasks' losses and the window's newest step loss, one copy
         loss_dev = torch.stack([l for _, l in losses] + [self._latest_step_loss])
         self._base_flat.copy_(self._flat)
@@ -852,9 +1057,10 @@ class Worker:
                     # delta's base never reached the PS, so it is not sent
                     return
             t1 = time.perf_counter()
-            host = self._to_host([*arrays, loss_dev, *aux_dev], event)
-            aux_h = self._aux_tree(host.pop()) if aux_dev else None
-            *payload, loss_h = host
+            host = self._to_host([*arrays, loss_dev, *aux_dev, *edl_dev], event)
+            payload, loss_h = host[: len(arrays)], host[len(arrays)]
+            aux_h = self._aux_tree(host[len(arrays) + 1]) if aux_dev else None
+            edl_h = host[len(arrays) + 1 + len(aux_dev):]
             wire = (
                 self._materialize_wire_delta(wire_meta, payload)
                 if wire_meta is not None
@@ -871,6 +1077,12 @@ class Worker:
             md = self._model_wire_dtype()
             if md:
                 req["model_dtype"] = md
+            if pending_edl:
+                ts = time.perf_counter()
+                req["edl_gradient"] = self._window_edl(pending_edl, edl_h)
+                self._add_sync_seconds("sparse", time.perf_counter() - ts)
+                with self._stats_lock:
+                    self.edl_gradient_bytes += _rows_nbytes(req["edl_gradient"])
             t2 = time.perf_counter()
             resp = self._master.call("ReportLocalUpdate", req)
             t3 = time.perf_counter()
@@ -984,6 +1196,7 @@ class Worker:
         self._opt_state = None
         self._pending_steps = 0
         self._pending_losses = []
+        self._pending_edl = []
         self._ef_residual = None
         self._ef_grad_residual = None
 
@@ -1075,6 +1288,7 @@ class Worker:
         if self._pending_steps:
             self._flat.copy_(self._base_flat)
             self._pending_steps = 0
+            self._pending_edl = []
             self._opt_state = None
 
     def request_drain(self):
@@ -1125,7 +1339,14 @@ class Worker:
         rng = torch.random.get_rng_state()
         cuda_rng = torch.cuda.get_rng_state(self._device) if self._device.type == "cuda" else None
         try:
-            loss, grad, new_aux = self._train_step(features, labels)
+            embs = None
+            if self._emb_specs:
+                # zero rows: the pre-warm needs the shapes, and must not
+                # touch the tables or the lazy-init draws
+                embs = self._prepare_embeddings(
+                    features, lambda spec, ids: np.zeros((len(ids), spec.dim), np.float32)
+                )
+            loss, grad, new_aux, _gbets = self._train_step(features, labels, embs)
             if self._local_updates:
                 (update,) = self._tx.update([grad], self._tx.init([self._flat]), [self._flat])
                 self._flat.add_(update)
@@ -1154,7 +1375,10 @@ class Worker:
         `torch.inference_mode()`): no autograd graph, and `train=False`
         for a model that takes it."""
         x = self._to_device(features)
-        return self._model(x, train=False) if self._takes_train else self._model(x)
+        embeddings = None
+        if self._emb_specs:
+            embeddings = self._device_embeddings(self._prepare_embeddings(features))
+        return self._forward(x, embeddings, train=False)
 
     def _task_batches(self, task: Task, mode: str):
         reader = self._readers.get(task.shard_file_name)
@@ -1221,10 +1445,14 @@ class Worker:
         self._cur_spec_key = task.spec_key
         self._cur_window_idx = 0
         loss = None
+        if self._local_updates and self._emb_specs:
+            batches = self._with_embeddings(batches)
+        else:
+            batches = ((features, labels, None) for features, labels in batches)
         try:
-            for features, labels in batches:
+            for features, labels, embs in batches:
                 if self._local_updates:
-                    loss = self._local_minibatch(features, labels, task)
+                    loss = self._local_minibatch(features, labels, task, embs)
                 else:
                     loss = self._process_minibatch(features, labels, task)
         except Exception:
@@ -1315,4 +1543,8 @@ class Worker:
         try:
             self._finalize_local_updates()
         finally:
+            if self._emb_prefetch_pool is not None:
+                self._emb_prefetch_pool.shutdown(wait=True)
+            if self._kv is not None:
+                self._kv.close()
             self._readers.close()

@@ -4,15 +4,16 @@
 phase_async_process_job,phase_standalone_eval_predict
 
 Builds the attention kernels from the checkout, then calls each named
-phase of `chip_smoke.py` in order with the arguments it takes (the
-kernels' module, a temporary directory, the fast tiers' short socket
-directory for the three phases that take it, and for
-`phase_standalone_eval_predict` what `phase_async_process_job` returned,
-so that one must come first); each phase prints its lines and seconds.
+phase of `chip_smoke.py` in order with the arguments its signature names
+(`fa`: the kernels' module, `tmp`: a temporary directory, `uds`: the
+fast tiers' short socket directory, `async_job`: what
+`phase_async_process_job` returned, so that one must come first); each
+phase prints its lines and seconds.
 Ends with "DEV OK" when every phase passed. For iterating on a few
 phases without the whole smoke run; the smoke run is the check.
 """
 
+import inspect
 import os
 import sys
 import tempfile
@@ -35,21 +36,13 @@ def main():
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     names = sys.argv[1].split(",")
     with tempfile.TemporaryDirectory() as tmp, cs.tier_dir() as uds:
-        async_job = None
+        args = {"fa": fa, "tmp": tmp, "uds": uds, "async_job": None}
         for n in names:
             f = getattr(cs, n)
-            if n in ("phase_eval_kernels",):
-                out = cs.timed(f, fa, tmp)
-            elif n == "phase_standalone_eval_predict":
-                out = cs.timed(f, fa, tmp, async_job)
-            elif n == "phase_transport_probe":
-                out = cs.timed(f, uds)
-            elif n in ("phase_imagenet_async", "phase_resnet_churn"):
-                out = cs.timed(f, tmp, uds)
-            else:
-                out = cs.timed(f, tmp)
+            params = [p for p in inspect.signature(f).parameters if p in args]
+            out = cs.timed(f, *[args[p] for p in params])
             if n == "phase_async_process_job":
-                async_job = out
+                args["async_job"] = out
             print(f"{n} -> {out}", flush=True)
     print("DEV OK")
 

@@ -27,6 +27,7 @@ setup(
     package_data={
         "elasticdl_tpu.data": ["recordio_cpp/*.cc"],
         "elasticdl_tpu_torch.ops": ["csrc/*.cu"],
+        "elasticdl_tpu_torch.master": ["embedding_cpp/*.cc"],
         "elasticdl_tpu.master": ["embedding_cpp/*.cc"],
         "elasticdl_tpu.chaos": ["traces/*.json"],
     },

@@ -22,6 +22,7 @@ from elasticdl_tpu.master.main import collect_shards as jcollect_shards
 from elasticdl_tpu.rpc import policy as jpolicy
 from elasticdl_tpu_torch.common import args as targs
 from elasticdl_tpu_torch.common.codec import BF16Bits, SparseDelta, quantize_int8
+from elasticdl_tpu_torch.master.embedding_store import EmbeddingStore
 from elasticdl_tpu_torch.master.main import collect_shards
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
 from elasticdl_tpu_torch.master.servicer import MasterServicer
@@ -41,14 +42,16 @@ SPEC_ARGV = ["--model_zoo", "zoo", "--model_def", "m.custom_model", "--minibatch
 def _servicer():
     dispatcher = TaskDispatcher({"shard-a": 64, "shard-b": 40}, {}, {}, 32, 1, shuffle_seed=5)
     return MasterServicer(
-        grads_to_wait=1, optimizer=PSOptimizer(tzoo.optimizer()), task_dispatcher=dispatcher
+        grads_to_wait=1, optimizer=PSOptimizer(tzoo.optimizer()), task_dispatcher=dispatcher,
+        embedding_store=EmbeddingStore(),
     )
 
 
 def _calls():
     """A call sequence over every ported method: lazy init (an f32 tree
     with a bf16 aux), pulls, an accepted f32 gradient, a stale bf16 one,
-    an accepted bf16 one, task reports (one failed)."""
+    an accepted bf16 one, task reports (one failed), an embedding row
+    write (SETNX) and a lookup with a miss."""
     rng = np.random.default_rng(0)
     params = {
         "dense": {
@@ -96,6 +99,10 @@ def _calls():
         ("GetTask", {"worker_id": 1}),
         # no sample-batch source wired (no standby workers): no records
         ("GetSampleBatch", {"n": 2}),
+        ("EmbeddingUpdate", {"layer": "t", "ids": np.array([3, 9], dtype=np.int64),
+                             "values": rng.standard_normal((2, 4)).astype(np.float32),
+                             "set_if_not_exist": True}),
+        ("EmbeddingLookup", {"layer": "t", "ids": np.array([9, 4, 3], dtype=np.int64)}),
     ]
 
 
