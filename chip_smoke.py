@@ -87,7 +87,7 @@ its result lines only when every phase passed:
    device memory of one step under remat off / full / dots; the
    reference's xl config (`phase_xl`: d_model 2048, 16 heads of 128, d_ff
    8192, 8 layers, remat "dots", bf16, b8 x s1024, 436,242,432
-   parameters), 4 per-step updates and 16 window steps with the same
+   parameters), 2 per-step updates and 8 window steps with the same
    checks and prints, and its peak memory of one step; the reference's
    MoE config (`phase_moe`: the base width with every FFN 8 experts of
    256, top-1 at capacity factor 2.0, bf16, b8 x s1024, 33,595,904
@@ -103,8 +103,20 @@ its result lines only when every phase passed:
    steps), steps computed = applied, finite moved parameters, each
    worker's device, launches and no fallback; prints merged-back absorbs
    per worker, and rpc and PS add a sync (the servicer lock included);
-   then the same of the large config (b16, tasks of one window, 16
-   steps);
+   then the same of the large config (b16, tasks of one window, 8
+   steps); then the sharded PS: the xl config as 2 worker processes over
+   `--num_ps 4 --ps_mode process` (`phase_xl_sharded_processes`: W 4,
+   bf16 EF, b8, 16 steps over shm, seeded from a version-0 init
+   checkpoint of 1.75 GB through `--checkpoint_filename_for_init`, since
+   xl's tree is over the 1 GiB frame) and the base transformer async
+   per-step as 2 worker processes over `--num_ps 2 --ps_mode inproc`
+   (`phase_sharded_async`: 16 updates, one checkpoint with each shard's
+   optimizer state); each checks rc, every shard's version and the
+   master's at init + the applied steps, steps accepted = computed, the
+   launches, finite losses, moved parameters (xl: shm links, no shard
+   process or segment left; async: the checkpoint's per-shard Adam
+   counts), and prints tokens/s, each shard's apply and lock wait a
+   push, and the workers' sync split;
 11. the drain (`phase_window_drain`): SIGTERM to worker 0 mid-window of
    the same job drains it (exit 0, its drain line, nothing requeued,
    every step applied once); SIGKILL in a second job requeues its tasks
@@ -233,7 +245,8 @@ its result lines only when every phase passed:
    path runs, every path's count summed), `process_launches`,
    `window_launches`, `window_process_launches`, `large_launches`,
    `large_window_launches`, `large_window_process_launches`,
-   `xl_launches`, `xl_window_launches`, `moe_launches`,
+   `xl_launches`, `xl_window_launches`, `xl_sharded_process_launches`,
+   `sharded_async_launches`, `moe_launches`,
    `moe_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
    (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows),
    and `eval_launches` on every row (phase 13's evaluation forward:
@@ -311,7 +324,8 @@ LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 16
 XL_PARAMS = ("vocab=8192,d_model=2048,n_heads=16,d_ff=8192,n_layers=8,n_micro=1,"
              "dtype=bfloat16,remat=True,remat_policy=dots")
 XL_N_PARAMS = 436_242_432
-XL_BATCH, XL_STEPS, XL_WINDOW_STEPS = 8, 4, 16
+# (cut from 4 and 16: phase_xl_sharded_processes trains xl 32 steps too)
+XL_BATCH, XL_STEPS, XL_WINDOW_STEPS = 8, 2, 8
 # the reference's MoE config (bench_transformer.py:245-257): the base
 # transformer's width with every FFN 8 experts of d_expert 256 (top-1,
 # capacity factor 2.0: the config's defaults), bf16 compute, b8 x s1024,
@@ -1750,11 +1764,13 @@ def phase_moe_reference():
 
 
 def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARAMS,
-                             batch=BATCH, task_records=TASK_RECORDS) -> dict:
+                             batch=BATCH, task_records=TASK_RECORDS, n_files=4) -> dict:
     """`master.main ... --local_updates 4 --sync_dtype bfloat16
-    --worker_backend process` with 2 workers on the card over 4 shards of
-    64 records (the base model by default: 32 steps; the large config at
-    b16 in tasks of one window: 16 steps). Checks rc, the `--output`
+    --worker_backend process` with 2 workers on the card over `n_files`
+    shards of 64 records (the base model by default: 4 files, 32 steps;
+    the large config at b16 in tasks of one window over 2 files: 8
+    steps, cut from 16 since `phase_xl_sharded_processes` runs window
+    mode as processes at the xl width). Checks rc, the `--output`
     version = the workers' applied steps = steps computed, finite moved
     parameters, and each worker's device, launches at the model's head
     dim (the forward twice a layer under remat) and no fallback. Returns
@@ -1769,8 +1785,8 @@ def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARA
     data, log_dir = os.path.join(tmp, f"{tag}-data"), os.path.join(tmp, f"{tag}-logs")
     with logs_on_failure(log_dir):
         output = os.path.join(tmp, f"{tag}.ckpt")
-        write_shards(data, 4, cfg.vocab)
-        steps = 4 * SHARD_RECORDS // batch
+        write_shards(data, n_files, cfg.vocab)
+        steps = n_files * SHARD_RECORDS // batch
         os.environ[ENV_WORKER_LOG_DIR] = log_dir
         try:
             t0 = time.perf_counter()
@@ -1832,6 +1848,201 @@ def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARA
             if not all(math.isfinite(loss) for _t, _n, loss in s["windows"]):
                 raise AssertionError(f"{name} worker {wid}: window losses not finite")
         return summed_launches(summaries)
+
+# -- the sharded PS (--num_ps): xl as worker processes over shard processes,
+# and the base transformer async per-step over inproc shards
+PS_SHARD_MAIN = "elasticdl_tpu_torch.master.ps_shard_main"
+XL_SHARDS = 4
+SHARDED_ASYNC_SHARDS = 2
+# record files of SHARD_RECORDS each: 16 steps of xl at b8, 16 updates of
+# the base model at b8 (cut from 4 files to keep the whole run in budget)
+SHARDED_FILES = 2
+
+
+def shard_line(name, shards, syncs) -> str:
+    """Each PS shard's push-apply and lock-wait seconds a push, and its
+    pushes, from the master summary's `ps_shards`."""
+    parts = []
+    for st in shards:
+        n = max(1, st["applied_pushes"] + st["duplicate_pushes"])
+        parts.append(f"shard {st['shard_id']} v{st['version']} ({st['size']} params): apply "
+                     f"{st['apply_seconds'] / n:.4f} s, lock wait "
+                     f"{st['lock_wait_seconds'] / n:.4f} s a push over "
+                     f"{st['applied_pushes']} pushes ({st['duplicate_pushes']} duplicate), "
+                     f"{st['pulls']} pulls")
+    return f"{name} PS shards ({syncs} syncs): " + "; ".join(parts)
+
+
+def check_sharded(name, rc, summary, workers, steps, model_params, shm=False):
+    """The sharded job's common checks: rc 0, every shard's version and
+    the master's at init + the applied steps, the workers' accepted and
+    computed steps, each worker on the card with the model's launches and
+    no fallback, finite losses, and (`shm`) every link on shm. Returns
+    the failures."""
+    cfg = zoo_model(model_params).cfg
+    failures = []
+    if rc != 0 or summary is None:
+        return [f"{name}: master.main exited {rc}"]
+    ex = {k: summary[k] for k in ("version", "init_version", "applied_update_steps")}
+    versions = [st["version"] for st in summary["ps_shards"]]
+    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+        failures.append(f"exactness {ex}, {steps} steps applied once expected")
+    if versions != [ex["init_version"] + ex["applied_update_steps"]] * len(versions):
+        failures.append(f"shard versions {versions}, all init + applied = {steps} expected")
+    calls = summary["server"]["calls"]
+    if calls.get("ReportGradient", 0) or calls.get("ReportLocalUpdate", 0):
+        failures.append(f"the master took pushes ({calls}): they go to the shards")
+    if sorted(workers) != [0, 1]:
+        return failures + [f"worker summaries of {sorted(workers)}, of [0, 1] expected"]
+    accepted = sum(s["steps_accepted"] for s in workers.values())
+    computed = sum(s["steps_computed"] for s in workers.values())
+    if accepted != steps or computed != steps:
+        failures.append(f"steps accepted {accepted}, computed {computed}: {steps} expected")
+    card = torch.cuda.get_device_name(0)
+    forward_per_layer = 2 if cfg.remat else 1
+    for wid, s in workers.items():
+        n = cfg.n_layers * s["steps_computed"]
+        want = want_launches(cfg.head_dim, {"flash_forward": forward_per_layer * n,
+                                            "flash_dq": n, "flash_dkv": n})
+        if s["device"] != card:
+            failures.append(f"worker {wid} ran on {s['device']!r}, not {card!r}")
+        if s["launches"] != want or s["attention_fallbacks"]:
+            failures.append(f"worker {wid} launches {s['launches']}, {want} expected, "
+                            f"fallbacks {s['attention_fallbacks']}")
+        losses = s["losses"] + [loss for _t, _n, loss in s["windows"]]
+        if not losses or not all(math.isfinite(x) for x in losses):
+            failures.append(f"worker {wid}: losses {losses[:4]}... not all finite")
+        if s["shard_versions"] is None or len(s["shard_versions"]) != len(versions):
+            failures.append(f"worker {wid} saw shard versions {s['shard_versions']}")
+        if shm and (s["tier"] != "shm" or s["ps_tiers"] != ["shm"] * len(versions)):
+            failures.append(f"worker {wid} links: master {s['tier']}, shards {s['ps_tiers']}; "
+                            "shm asked")
+    return failures
+
+
+def phase_xl_sharded_processes(tmp):
+    """The reference's xl config (436,242,432 parameters: 1.75 GB of
+    float32, over the transport's 1 GiB frame) as 2 worker processes on
+    the card over `--num_ps 4 --ps_mode process` (436 MB a slice), in
+    window mode (W 4, bf16 EF deltas, b8, tasks of one window: 16 steps)
+    over EDL_TRANSPORT=shm. The model's version-0 init goes in as a
+    checkpoint file (`--checkpoint_filename_for_init`): the master seeds
+    each shard with its slice, and the workers pull from the shards (the
+    first ReportVariable would carry the whole tree through one frame).
+    Checks rc 0, every shard's version and the master's at init + the
+    applied window steps, finite losses, moved parameters (the
+    `--output` against the init file), every link on shm, the D = 128
+    launches, and no shard process or segment left. Prints steady
+    tokens/s, each shard's apply and lock wait a push, the workers' rpc
+    a sync. Returns the launches summed over the workers."""
+    from elasticdl_tpu_torch.common import codec
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file, save_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "xl sharded processes"
+    model = zoo_model(XL_PARAMS)
+    data, logs = os.path.join(tmp, "xl-sharded-data"), os.path.join(tmp, "xl-sharded-logs")
+    write_shards(data, SHARDED_FILES, model.cfg.vocab)
+    steps = SHARDED_FILES * SHARD_RECORDS // XL_BATCH
+    init_path, output = os.path.join(tmp, "xl-init.ckpt"), os.path.join(tmp, "xl-sharded.ckpt")
+    t0 = time.perf_counter()
+    init = model.init_params(0)
+    save_model_file(init_path, init, 0)
+    init_flat = codec.ravel_np(init)
+    del init
+    print(f"{name}: the init checkpoint ({os.path.getsize(init_path)} bytes) written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    argv = (master_argv(data, 2, output, XL_PARAMS, XL_BATCH, XL_BATCH * WINDOW) + WINDOW_ARGS
+            + ["--num_ps", str(XL_SHARDS), "--ps_mode", "process",
+               "--checkpoint_filename_for_init", init_path])
+    with tier_dir() as uds:
+        rc, summary, wall = run_master(argv, logs, {"EDL_TRANSPORT": "shm", "EDL_UDS_DIR": uds})
+    with logs_on_failure(logs):
+        workers = read_summaries(logs)
+        failures = check_sharded(name, rc, summary, workers, steps, XL_PARAMS, shm=True)
+        if failures:
+            raise AssertionError(f"{name}:\n" + "\n".join(failures))
+        windows = [w for s in workers.values() for w in s["windows"]]
+        print(f"{name} ({XL_SHARDS} shard processes, 2 workers, W {WINDOW}, b{XL_BATCH}, "
+              f"{steps} steps, shm): rc {rc} in {wall:.2f} s, "
+              f"{window_steady(windows, XL_BATCH):.1f} tokens/s from the first to the last "
+              f"window sync, exactness v{summary['version']}, master calls "
+              f"{summary['server']['calls']}")
+        print(shard_line(name, summary["ps_shards"], len(windows)))
+        for wid, s in sorted(workers.items()):
+            n = max(1, len(s["windows"]))
+            print(f"{name} worker {wid} on {s['device']}: links master {s['tier']}, shards "
+                  f"{s['ps_tiers']}; {s['steps_accepted']} steps in {len(s['windows'])} syncs, "
+                  f"{s['merged_back']} merged-back absorbs, sync seconds a sync "
+                  f"{rounded({k: v / n for k, v in s['sync_seconds'].items()})}, shard links' "
+                  f"seconds {rounded(s['ps_rpc_seconds'])}, phase seconds "
+                  f"{rounded(s['phase_seconds'])}, peak {s['peak_memory_bytes'] / 2**30:.2f} "
+                  f"GiB, launches {s['launches']}")
+        final = codec.ravel_np(load_model_file(output).params)
+        if final.shape != init_flat.shape or not np.isfinite(final).all():
+            raise AssertionError(f"{name}: the --output model is not finite or not xl")
+        moved = float(np.abs(final - init_flat).max())
+        if moved == 0.0:
+            raise AssertionError(f"{name}: the parameters did not move from the init")
+        print(f"{name}: the --output model moved by up to {moved:.4g} from the init")
+        left = shard_processes(PS_SHARD_MAIN)
+        segments = [n for n in os.listdir("/dev/shm") if n.startswith("edltshm.")]
+        if left or segments:
+            raise AssertionError(f"{name}: shard processes {left}, segments {segments} left")
+        return summed_launches(workers)
+
+
+def phase_sharded_async(tmp):
+    """The base transformer async per-step as 2 worker processes over
+    `--num_ps 2 --ps_mode inproc` (the shards in the master's process,
+    each running the zoo's clip + Adam on its slice), 16 updates of b8,
+    with one checkpoint at v16 carrying each shard's optimizer state.
+    Checks rc 0, every shard's version and the master's at the applied
+    steps, steps accepted = computed (async accepts every report), the
+    D = 64 launches, finite losses, moved parameters, the checkpoint's
+    per-shard Adam state (its count at each shard's version). Prints
+    tokens/s and each shard's apply and lock wait a push. Returns the
+    launches summed over the workers."""
+    from elasticdl_tpu_torch.master.checkpoint import load_model_file
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "sharded async"
+    data, logs = os.path.join(tmp, "sharded-async-data"), os.path.join(tmp, "sharded-async-logs")
+    ckpt_dir, output = os.path.join(tmp, "sharded-async-ckpt"), os.path.join(tmp, "sa.ckpt")
+    write_shards(data, SHARDED_FILES)
+    steps = SHARDED_FILES * SHARD_RECORDS // BATCH
+    argv = master_argv(data, 2, output) + [
+        "--use_async", "--num_ps", str(SHARDED_ASYNC_SHARDS), "--ps_mode", "inproc",
+        "--checkpoint_dir", ckpt_dir, "--checkpoint_steps", str(steps)]
+    rc, summary, wall = run_master(argv, logs)
+    with logs_on_failure(logs):
+        workers = read_summaries(logs)
+        failures = check_sharded(name, rc, summary, workers, steps, SLICE_PARAMS)
+        if failures:
+            raise AssertionError(f"{name}:\n" + "\n".join(failures))
+        print(f"{name} ({SHARDED_ASYNC_SHARDS} inproc shards, 2 workers, b{BATCH}, {steps} "
+              f"updates): rc {rc} in {wall:.2f} s, {steady_tokens_per_s(workers):.1f} tokens/s "
+              f"between the first and last accepted steps, master calls "
+              f"{summary['server']['calls']}")
+        print(shard_line(name, summary["ps_shards"], steps))
+        for wid, s in sorted(workers.items()):
+            print(f"{name} worker {wid}: links master {s['tier']}, shards {s['ps_tiers']}; "
+                  f"{s['steps_accepted']} steps, phase seconds {rounded(s['phase_seconds'])}, "
+                  f"shard links' seconds {rounded(s['ps_rpc_seconds'])}, master link "
+                  f"{rounded(s['rpc_seconds'])}, launches {s['launches']}")
+        check_params(load_model_file(output).params, f"{name} job")
+        ckpts = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
+        if ckpts != [f"model_v{steps}.ckpt"]:
+            raise AssertionError(f"{name}: checkpoints {ckpts}, model_v{steps}.ckpt expected")
+        opt = load_model_file(os.path.join(ckpt_dir, ckpts[0])).opt_state or {}
+        shards = opt.get("shards") or []
+        counts = [int(np.asarray(leaves[0])) for leaves in shards if leaves]
+        if opt.get("kind") != "sharded" or counts != [steps] * SHARDED_ASYNC_SHARDS:
+            raise AssertionError(f"{name}: checkpoint optimizer state {opt.get('kind')!r} with "
+                                 f"Adam counts {counts}; sharded, {steps} on each shard expected")
+        print(f"{name}: checkpoint {ckpts[0]} with the sharded optimizer state of "
+              f"{len(shards)} shards (Adam counts {counts}, {len(shards[0])} leaves each)")
+        return summed_launches(workers)
 
 
 def job_parts(tmp, name, extra_argv=()):
@@ -3739,15 +3950,15 @@ def phase_deepfm_window(fa, tmp):
     return launches
 
 
-def shard_processes() -> list:
-    """Pids of live KV shard processes on the host."""
+def shard_processes(module="elasticdl_tpu_torch.master.kv_shard_main") -> list:
+    """Pids of live shard processes of `module` (KV by default) on the host."""
     out = []
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
             continue
         try:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
-                if b"elasticdl_tpu_torch.master.kv_shard_main" in f.read():
+                if module.encode() in f.read():
                     out.append(int(pid))
         except OSError:
             pass
@@ -3919,7 +4130,9 @@ def main() -> int:
         counts["window_process_launches"] = timed(phase_window_process_job, tmp)
         counts["large_window_process_launches"] = timed(
             phase_window_process_job, tmp, "large window process", LARGE_PARAMS, LARGE_BATCH,
-            LARGE_BATCH * WINDOW)
+            LARGE_BATCH * WINDOW, 2)
+        counts["xl_sharded_process_launches"] = timed(phase_xl_sharded_processes, tmp)
+        counts["sharded_async_launches"] = timed(phase_sharded_async, tmp)
         timed(phase_window_drain, tmp)
         timed(phase_image_process_job, tmp)
         async_job = timed(phase_async_process_job, tmp)

@@ -22,12 +22,15 @@ evaluation cadence, checkpoints and resume
 (`--num_standby_workers`: a master flag, not forwarded; the master tells
 a standby through GetTask), and the KV shards of the embedding tables
 (`--num_kv_shards`, `--kv_mode`: master flags; workers learn the
-endpoints from GetPSConfig). Not carried, so argparse rejects them: the
-sync plane's ladder, adaptive and bucket flags (`--sync_local_steps`,
-`--sync_adaptive`, `--sync_bucket_bytes`), the step pipeline, the
-sharded PS and aggregators, the policy plane, the k8s pod
-settings, `--keep_tensorboard_running`, profiling and master failover
-candidates.
+endpoints from GetPSConfig), and the sharded PS (`--num_ps`,
+`--ps_mode`: master flags; `validate_ps_args` refuses strict per-step
+sync with shards; each shard process gets `ps_shard_forward_args`, and
+workers learn the endpoints from GetPSConfig). Not carried, so argparse
+rejects them: the sync plane's ladder, adaptive and bucket flags
+(`--sync_local_steps`, `--sync_adaptive`, `--sync_bucket_bytes`), the
+step pipeline, the fan-in combine, the aggregators, the policy plane,
+the k8s pod settings, `--keep_tensorboard_running`, profiling and master
+failover candidates.
 """
 
 from __future__ import annotations
@@ -154,6 +157,17 @@ def add_master_args(parser: argparse.ArgumentParser):
         help="KV shard hosting: shard subprocesses, or servers in the "
         "master's process",
     )
+    parser.add_argument(
+        "--num_ps", type=non_neg_int, default=0,
+        help="N>0: shard the dense model across N parameter-server "
+        "endpoints (workers push and pull slices in parallel); 0: the "
+        "master is the single PS",
+    )
+    parser.add_argument(
+        "--ps_mode", default="process", choices=("process", "inproc"),
+        help="sharded-PS hosting: shard subprocesses (default) or servers "
+        "in the master's process",
+    )
     parser.add_argument("--eval_steps", type=non_neg_int, default=0)
     parser.add_argument("--eval_start_delay_secs", type=float, default=0.0)
     parser.add_argument("--eval_throttle_secs", type=float, default=0.0)
@@ -243,6 +257,37 @@ def validate_master_args(args) -> str:
             )
         return JobType.EVALUATION_ONLY
     raise ValueError("one of training/evaluation/prediction data dirs required")
+
+
+def validate_ps_args(args):
+    """The sharded PS's combination check: a strict per-step sync
+    rejection cannot be atomic across shards, so `--num_ps` > 0 needs
+    window mode, async or a staleness window."""
+    if getattr(args, "num_ps", 0) <= 0:
+        return
+    if not args.use_async and args.local_updates == 0 and args.staleness_window == 0:
+        raise ValueError(
+            "--num_ps > 0 with strict per-step sync SGD is not supported (a "
+            "stale-gradient rejection cannot be atomic across shards): use "
+            "--local_updates N, --use_async, or --staleness_window W"
+        )
+
+
+def ps_shard_forward_args(args) -> List[str]:
+    """The model-spec flag subset a master forwards to each PS shard
+    process (the shard resolves the zoo's `optimizer()` from it)."""
+    argv = [
+        "--model_zoo", args.model_zoo,
+        "--model_def", args.model_def,
+        "--minibatch_size", str(args.minibatch_size),
+        "--log_level", args.log_level,
+    ]
+    for flag in ("model_params", "dataset_fn", "loss", "optimizer", "eval_metrics_fn",
+                 "prediction_outputs_processor"):
+        value = getattr(args, flag)
+        if value:
+            argv += [f"--{flag}", value]
+    return argv
 
 
 def worker_forward_args(args, worker_id: int, master_addr: str) -> List[str]:

@@ -54,7 +54,9 @@ as its uint16 bit patterns under the dtype tag "bfloat16" and decodes to
 `BF16Bits`; `as_f32` widens it. The compressed window deltas
 (`QuantizedDelta`, `SparseDelta`, nested for top-k over int8) travel as
 tagged header objects whose arrays are ordinary payload segments;
-`delta_to_f32` decodes every delta form.
+`delta_to_f32` decodes every delta form, and `slice_delta` cuts any form
+to a PS shard's range without decoding it (an int8 slice keeps the
+`offset` of its first element in the chunks its scales cover).
 """
 
 from __future__ import annotations
@@ -113,6 +115,16 @@ class BF16Bits:
 
     def to_f32(self) -> np.ndarray:
         return (self.bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def narrow(vec: np.ndarray, model_dtype: str | None):
+    """A float32 model vector in the wire dtype a request asked for
+    (bfloat16 halves the bytes; the receiver widens it again)."""
+    if model_dtype == "bfloat16":
+        return BF16Bits.from_f32(vec)
+    if model_dtype and model_dtype != "float32":
+        raise ValueError(f"unsupported model_dtype {model_dtype!r}")
+    return vec
 
 
 def as_f32(a: Any) -> np.ndarray:
@@ -183,19 +195,38 @@ class QuantizedDelta:
     q: np.ndarray  # [n] int8
     scale: np.ndarray  # [nchunks] f32
     chunk: int
+    # absolute position of q[0] in the vector whose chunks `scale`
+    # covers: nonzero for a PS-shard slice (`slice`), whose first chunk
+    # may start before it
+    offset: int = 0
 
     def __post_init__(self):
         self.q = np.asarray(self.q)
         self.scale = np.asarray(self.scale)
         self.chunk = int(self.chunk)
+        self.offset = int(self.offset)
 
     @property
     def n(self) -> int:
         return int(self.q.size)
 
+    def slice(self, start: int, stop: int) -> "QuantizedDelta":
+        """Elements [start, stop), the scales of the chunks they overlap."""
+        start, stop = int(start), int(stop)
+        abs_start = self.offset + start
+        first_chunk = self.offset // self.chunk
+        if stop <= start:
+            return QuantizedDelta(q=self.q[:0], scale=self.scale[:0], chunk=self.chunk,
+                                  offset=abs_start)
+        lo = abs_start // self.chunk - first_chunk
+        hi = (self.offset + stop - 1) // self.chunk - first_chunk + 1
+        return QuantizedDelta(q=self.q[start:stop], scale=self.scale[lo:hi], chunk=self.chunk,
+                              offset=abs_start)
+
     def dequantize(self) -> np.ndarray:
         """Dense f32: each q times the scale of its chunk."""
-        idx = np.arange(self.q.size) // self.chunk
+        first_chunk = self.offset // self.chunk
+        idx = (self.offset + np.arange(self.q.size)) // self.chunk - first_chunk
         return self.q.astype(np.float32) * np.asarray(self.scale, dtype=np.float32)[idx]
 
 
@@ -223,6 +254,20 @@ class SparseDelta:
     @property
     def k(self) -> int:
         return int(self.indices.size)
+
+    def slice(self, start: int, stop: int) -> "SparseDelta":
+        """Elements [start, stop), the indices rebased to the range."""
+        start, stop = int(start), int(stop)
+        lo = int(np.searchsorted(self.indices, start, side="left"))
+        hi = int(np.searchsorted(self.indices, stop, side="left"))
+        if isinstance(self.values, QuantizedDelta):
+            values = self.values.slice(lo, hi)
+        elif isinstance(self.values, BF16Bits):
+            values = BF16Bits(self.values.bits[lo:hi])
+        else:
+            values = self.values[lo:hi]
+        return SparseDelta(indices=self.indices[lo:hi] - start, values=values,
+                           n=max(0, stop - start))
 
     def dense(self) -> np.ndarray:
         out = np.zeros(self.n, dtype=np.float32)
@@ -256,6 +301,17 @@ def delta_length(obj: Any) -> int:
     if isinstance(obj, BF16Bits):
         return int(obj.bits.size)
     return int(np.asarray(obj).size)
+
+
+def slice_delta(obj: Any, start: int, stop: int) -> Any:
+    """Elements [start, stop) of a wire delta in its own form: the
+    PS-shard fan-out's split (`rpc/ps_client.py`), which never
+    decompresses."""
+    if isinstance(obj, (QuantizedDelta, SparseDelta)):
+        return obj.slice(start, stop)
+    if isinstance(obj, BF16Bits):
+        return BF16Bits(obj.bits[start:stop])
+    return np.asarray(obj)[start:stop]
 
 
 def delta_nbytes(obj: Any) -> int:
@@ -437,11 +493,14 @@ def _build_header_tree(obj: Any, builder: _FrameBuilder, int_keys: bool = False)
         return {_IR_KEY: 1, "v": _build_header_tree(obj.values, builder),
                 "i": _build_header_tree(obj.indices, builder)}
     if isinstance(obj, QuantizedDelta):
-        return {_QD_KEY: {
+        qd = {
             "q": _build_header_tree(obj.q, builder),
             "scale": _build_header_tree(obj.scale, builder),
             "chunk": obj.chunk,
-        }}
+        }
+        if obj.offset:
+            qd["offset"] = obj.offset
+        return {_QD_KEY: qd}
     if isinstance(obj, SparseDelta):
         return {_SD_KEY: {
             "indices": _build_header_tree(obj.indices, builder),

@@ -59,7 +59,28 @@ ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT = "EDL_TRANSPORT_SHM_DOORBELL_TIMEOUT"
 ENV_BET_PREFETCH = "EDL_BET_PREFETCH"
 ENV_NO_NATIVE_KV = "EDL_TPU_NO_NATIVE_KV"
 
+# Every environment variable the port reads, with its help text. The PS
+# and KV shard processes read the transport tier's (EDL_TRANSPORT,
+# EDL_UDS_DIR and the shm ring's), which their group passes on.
 ENV_REGISTRY = {
+    ENV_TB_BACKEND: (
+        "TensorBoard event-writer backend override "
+        "(master/tensorboard_service.py)"
+    ),
+    ENV_WORKER_LOG_DIR: (
+        "directory for per-worker log files under the ProcessBackend "
+        "(empty = inherit stdio)"
+    ),
+    ENV_SYNC_DEPTH: (
+        "max in-flight pipelined window syncs per worker (0 serializes; "
+        "default 2)"
+    ),
+    ENV_OVERLAP_SYNC: (
+        "worker overlap plane: on (default) pipelines window-delta "
+        "syncs on sync threads and enables BET prefetch; off restores "
+        "the serial blocking sync chain (worker/worker.py; CLI "
+        "--overlap_sync)"
+    ),
     ENV_BET_PREFETCH: (
         "0 disables the batched-embedding-training lookup prefetch "
         "overlap (default on)"

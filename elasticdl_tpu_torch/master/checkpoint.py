@@ -8,10 +8,11 @@ The reference's `elasticdl_tpu/master/checkpoint.py`:
   renamed into place, so a reader never sees a partial file.
   `embeddings` is the embedding store's snapshot, `{table: {id: row}}`,
   the sparse optimizer's slot tables included; `opt_state` is the dense
-  optimizer's flat state leaves (`{"kind": "single", "leaves": [...]}`),
-  so a resumed job continues its momentum or Adam moments instead of
-  restarting them cold. A file that either package writes loads in the
-  other.
+  optimizer's flat state leaves (`{"kind": "single", "leaves": [...]}`,
+  or with the sharded PS each shard's: `{"kind": "sharded", "shards":
+  [leaves, ...]}`), so a resumed job continues its momentum or Adam
+  moments instead of restarting them cold. A file that either package
+  writes loads in the other.
 - `CheckpointService`: durable checkpoints every `checkpoint_steps`
   versions (floor crossing, so a multi-step bump cannot skip one),
   written by a bounded background writer and rotated to
@@ -65,25 +66,42 @@ def load_model_file(path: str) -> Model:
     return m
 
 
-def restore_for_init(path: str, optimizer, embedding_store=None) -> Tuple[Any, Any, int]:
+def restore_for_init(path: str, optimizer, embedding_store=None,
+                     ps_group=None) -> Tuple[Any, Any, int]:
     """(params, aux, version) of the checkpoint at `path` for a PS to boot
-    from. `optimizer` (a PSOptimizer) adopts the file's optimizer state,
-    so the resumed job continues its momentum or Adam moments instead of
-    starting them cold; a file without that state, or with the sharded
-    PS's, leaves the optimizer cold. The file's embedding tables go into
+    from. On the single PS, `optimizer` (a PSOptimizer) adopts the file's
+    single-PS optimizer state, so the resumed job continues its momentum
+    or Adam moments instead of starting them cold. With `ps_group` (the
+    sharded PS) each shard is seeded with its slice and adopts its own
+    state from a sharded file, which needs the same shard count (slices
+    do not re-split). Any other pairing leaves the optimizer cold, with a
+    warning, as the reference does. The file's embedding tables go into
     `embedding_store` when it is given."""
     model = load_model_file(path)
     if embedding_store is not None and model.embeddings:
         embedding_store.restore(model.embeddings)
     opt_state = model.opt_state
-    if opt_state and opt_state.get("kind") == "single":
+    kind = opt_state.get("kind") if opt_state else None
+    restored = False
+    if ps_group is not None:
+        ps_group.ensure_init(codec.ravel_np(model.params), model.version)
+        if kind == "sharded":
+            try:
+                ps_group.restore_opt(opt_state["shards"])
+                restored = True
+            except ValueError as e:
+                logger.warning("optimizer state not restored (%s)", e)
+    elif kind == "single":
         optimizer.restore_state(model.params, opt_state["leaves"])
-        logger.info("Initialized model v%d and its optimizer state from %s",
-                    model.version, path)
+        restored = True
+    if restored:
+        logger.info("Initialized model v%d and its optimizer state (%s) from %s",
+                    model.version, kind, path)
     else:
         logger.warning("Initialized model v%d from %s without its optimizer state "
-                       "(%r): the optimizer starts cold, the resume is not exact",
-                       model.version, path, opt_state and opt_state.get("kind"))
+                       "(%r, on %s): the optimizer starts cold, the resume is not exact",
+                       model.version, path, kind,
+                       "PS shards" if ps_group is not None else "the single PS")
     return model.params, model.aux, model.version
 
 

@@ -6,17 +6,15 @@ job's lifetime:
 - ``inproc``: each shard a `KVShardServicer` behind an `RpcServer` in
   the master's process (tests, one host);
 - ``process``: each shard a `python -m
-  elasticdl_tpu_torch.master.kv_shard_main` subprocess that binds an
-  ephemeral port and publishes it through a port file (no bind races).
-  The environment passes on, the transport tier included, with the
-  socket directory pinned, so master, shards and workers meet in one
-  place.
+  elasticdl_tpu_torch.master.kv_shard_main` subprocess, booted and
+  stopped by `shard_host` (ephemeral ports published through port
+  files; the environment, the transport tier included, passes on with
+  the socket directory pinned).
 
 `start()` -> the endpoints; `store()` -> the master's
 `ShardedEmbeddingStore` over them (the sparse optimizer's and the
-checkpoints'); `stop()` closes the store, stops the servers, terminates
-the processes (SIGKILL after a grace period) and removes the port
-files' directory.
+checkpoints'); `stop()` closes the store, stops the servers and
+terminates the processes (SIGKILL after a grace period).
 
 Not ported yet: the k8s mode, replica mirroring, fencing generations,
 the refence and `relaunch_shard` (the recovery plane), and the shards'
@@ -25,23 +23,16 @@ metrics scrape.
 
 from __future__ import annotations
 
-import os
-import shutil
 import subprocess
-import sys
-import tempfile
-import time
 from typing import List, Optional
 
-from elasticdl_tpu_torch.common.constants import ENV_UDS_DIR
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.master.shard_host import stop_shard_processes
 from elasticdl_tpu_torch.rpc.kv_client import ShardedEmbeddingStore
 
 logger = get_logger(__name__)
 
 ENTRY_MODULE = "elasticdl_tpu_torch.master.kv_shard_main"
-# seconds a terminated shard process gets before it is killed
-STOP_GRACE_SECONDS = 5.0
 
 
 class KVShardGroup:
@@ -59,7 +50,6 @@ class KVShardGroup:
         self.servicers: list = []  # inproc only
         self._servers: list = []
         self.procs: List[subprocess.Popen] = []
-        self._port_dir: Optional[str] = None
         self._store: Optional[ShardedEmbeddingStore] = None
 
     @property
@@ -90,39 +80,13 @@ class KVShardGroup:
         return self.endpoints
 
     def _start_processes(self):
-        from elasticdl_tpu_torch.rpc import transport
+        from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes
 
-        self._port_dir = tempfile.mkdtemp(prefix="edlt_kv_")
-        env = dict(os.environ)
-        # the fast tiers' sockets must be where the master's clients
-        # and the workers look for them
-        env.setdefault(ENV_UDS_DIR, transport.uds_dir())
-        pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env["PYTHONPATH"] = pkg_root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-        port_files = []
-        for i in range(self._n):
-            pf = os.path.join(self._port_dir, f"shard-{i}.port")
-            port_files.append(pf)
-            argv = [sys.executable, "-m", ENTRY_MODULE, "--shard_id", str(i),
-                    "--num_shards", str(self._n), "--port", "0", "--port_file", pf]
-            self.procs.append(subprocess.Popen(argv, env=env))
-        deadline = time.monotonic() + self._boot_timeout
-        try:
-            for i, pf in enumerate(port_files):
-                while not os.path.exists(pf):
-                    if self.procs[i].poll() is not None:
-                        raise RuntimeError(
-                            f"KV shard {i} exited rc={self.procs[i].returncode} "
-                            "before publishing its port"
-                        )
-                    if time.monotonic() > deadline:
-                        raise TimeoutError(f"KV shard {i} did not publish a port")
-                    time.sleep(0.05)
-                with open(pf) as f:
-                    self.endpoints.append(f"localhost:{int(f.read().strip())}")
-        except Exception:
-            self._stop_processes()
-            raise
+        self.procs, self.endpoints = spawn_shard_processes(
+            self._n, ENTRY_MODULE,
+            lambda i: ["--shard_id", str(i), "--num_shards", str(self._n)],
+            "edlt_kv_", self._boot_timeout,
+        )
 
     def store(self) -> ShardedEmbeddingStore:
         """The master's store client over the shards, once they listen."""
@@ -130,20 +94,6 @@ class KVShardGroup:
             self._store = ShardedEmbeddingStore(self.endpoints)
             self._store.wait_ready(self._boot_timeout)
         return self._store
-
-    def _stop_processes(self):
-        for p in self.procs:
-            if p.poll() is None:
-                p.terminate()
-        for p in self.procs:
-            try:
-                p.wait(timeout=STOP_GRACE_SECONDS)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-        if self._port_dir is not None:
-            shutil.rmtree(self._port_dir, ignore_errors=True)
-            self._port_dir = None
 
     def stop(self):
         if self._store is not None:
@@ -153,5 +103,6 @@ class KVShardGroup:
             s.stop()
         self._servers = []
         self.servicers = []
-        self._stop_processes()
+        stop_shard_processes(self.procs)
+        self.procs = []
         self.endpoints = []

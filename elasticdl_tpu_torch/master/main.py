@@ -23,7 +23,12 @@ prediction jobs:
    `--checkpoint_filename_for_init` when given: params, aux and version,
    the optimizer's state from the file's `opt_state` (exact resume),
    and the file's embedding tables into the store; evaluation and
-   prediction jobs need it;
+   prediction jobs need it. With `--num_ps N` (`--ps_mode` process or
+   inproc) the dense model lives on N PS shards (`ps_group`), booted
+   here, seeded from the checkpoint (each shard takes its slice and,
+   from a sharded file of the same N, its optimizer state; any other
+   pairing warns and starts the optimizer cold) or from the first
+   worker's ReportVariable, and stopped on every exit path;
 4. wire the job services: the checkpoint service (`--checkpoint_dir`,
    `--checkpoint_steps`, `--keep_checkpoint_max`), the evaluation
    service (`--evaluation_data_dir`: every `--eval_steps` versions or,
@@ -40,14 +45,16 @@ prediction jobs:
 7. poll until the job finishes and no evaluation job is pending, flush
    the checkpoint writer, save `--output` (with the embedding tables),
    tear down: manager, backend, server, checkpoint writer, metrics
-   sink, KV shards.
+   sink, PS and KV shards.
 
 Exit codes: 0 success; 1 boot or config error; 2 the job completed with
 dropped (poison) tasks, or every worker exited with tasks outstanding.
 
 At exit the master logs one line, `master summary: {json}`, with the
 job type, the server's seconds per method (handler and codec), the
-job's exactness block, the sparse plane (the store that served, its
+job's exactness block, each PS shard's counters (`ps_shards`: version,
+applied and duplicate pushes, apply and lock-wait seconds, pulls), the
+sparse plane (the store that served, its
 rows, the sparse apply's seconds), the relaunches and promotions, the completed evaluation
 jobs (`[version, metrics]`, and each one's seconds from its creation to
 its last task); `run(argv)` returns the same summary to an
@@ -56,7 +63,7 @@ in-process caller.
 The workers reach the master over the tier `EDL_TRANSPORT` selects (the
 environment passes to them as it is).
 
-Not ported yet: the sharded PS and aggregators, the k8s KV mode, the policy
+Not ported yet: the aggregators, the k8s KV mode, the policy
 and observability planes, the tensorboard process,
 speculation, master migration and the k8s backend.
 """
@@ -72,7 +79,9 @@ import time
 from elasticdl_tpu_torch.common.args import (
     master_parser,
     parse_envs,
+    ps_shard_forward_args,
     validate_master_args,
+    validate_ps_args,
     worker_forward_args,
 )
 from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
@@ -135,9 +144,10 @@ def make_sample_batch_fn(training_data_dir: str):
 
 def build_master(args, job_type=None):
     """(spec, dispatcher, servicer, evaluation service or None,
-    checkpoint service) on the single PS, shared by run() and tests; the
-    metrics sink, when there is one, is `servicer.tb_service` (its owner
-    tears it down), the KV shards, when there are, `servicer.kv_group`.
+    checkpoint service), shared by run() and tests; the metrics sink,
+    when there is one, is `servicer.tb_service` (its owner tears it
+    down), the KV and PS shards, when there are, `servicer.kv_group` and
+    `servicer.ps_group`.
     `job_type` defaults to the one the flags give."""
     from elasticdl_tpu_torch.api.model_spec import get_model_spec
     from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
@@ -154,12 +164,31 @@ def build_master(args, job_type=None):
         eval_metrics_fn=args.eval_metrics_fn,
         prediction_outputs_processor=args.prediction_outputs_processor,
     )
+    validate_ps_args(args)
     ps_opt = PSOptimizer(spec.optimizer())
     store, sparse_opt, kv_group = build_sparse_plane(spec, args.num_kv_shards, args.kv_mode)
+    ps_group = None
     try:
-        return _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group)
-    except Exception:
+        if args.num_ps > 0:
+            from elasticdl_tpu_torch.master.ps_group import PSShardGroup
+
+            ps_group = PSShardGroup(
+                args.num_ps,
+                mode=args.ps_mode,
+                optimizer_factory=spec.optimizer,
+                shard_argv=ps_shard_forward_args(args),
+                grads_to_wait=args.grads_to_wait,
+                use_async=args.use_async,
+                lr_staleness_modulation=args.lr_staleness_modulation,
+                staleness_window=args.staleness_window,
+                num_workers=args.num_workers + args.num_standby_workers,
+            )
+            ps_group.start()
+        return _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group, ps_group)
+    except BaseException:
         # no shard process may outlive a failed boot
+        if ps_group is not None:
+            ps_group.stop()
         if kv_group is not None:
             kv_group.stop()
         raise
@@ -192,7 +221,7 @@ def build_sparse_plane(spec, num_kv_shards: int = 0, kv_mode: str = "process", s
     return store, SparseOptimizer(store, **(spec.sparse_optimizer or {})), kv_group
 
 
-def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group):
+def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group, ps_group=None):
     from elasticdl_tpu_torch.common.constants import JobType
     from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
     from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
@@ -203,7 +232,7 @@ def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group):
     init_version = 0
     if args.checkpoint_filename_for_init:
         init_params, init_aux, init_version = restore_for_init(
-            args.checkpoint_filename_for_init, ps_opt, store
+            args.checkpoint_filename_for_init, ps_opt, store, ps_group
         )
     dispatcher = TaskDispatcher(
         collect_shards(args.training_data_dir),
@@ -233,6 +262,7 @@ def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group):
         embedding_store=store,
         sparse_optimizer=sparse_opt,
         kv_group=kv_group,
+        ps_group=ps_group,
     )
     tb_service = None
     if args.tensorboard_log_dir:
@@ -258,6 +288,15 @@ def _finish_build(args, job_type, spec, ps_opt, store, sparse_opt, kv_group):
         servicer.set_evaluation_service(eval_service)
     servicer.tb_service = tb_service
     return spec, dispatcher, servicer, eval_service, ckpt
+
+
+def stop_shard_groups(servicer):
+    """Stop the job's PS and KV shard groups (the PS first: its pushes
+    need no embedding rows)."""
+    if servicer.ps_group is not None:
+        servicer.ps_group.stop()
+    if servicer.kv_group is not None:
+        servicer.kv_group.stop()
 
 
 def make_backend(args):
@@ -298,30 +337,35 @@ def run(argv=None):
         logger.error("master boot failed: %s", e)
         backend.stop()
         return 1, None
-    if job_type == JobType.EVALUATION_ONLY:
-        eval_service.start_standalone_job(
-            servicer.version, dispatcher.pending_count(TaskType.EVALUATION)
-        )
+    try:
+        if job_type == JobType.EVALUATION_ONLY:
+            eval_service.start_standalone_job(
+                servicer.version, dispatcher.pending_count(TaskType.EVALUATION)
+            )
 
-    server = RpcServer(servicer.handlers(), port=args.port)
-    server.start()
-    addr = f"localhost:{server.port}"
-    logger.info("Master (%s job) listening on %s", job_type, addr)
-    manager = WorkerManager(
-        backend,
-        dispatcher,
-        num_workers=args.num_workers,
-        worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
-        envs=parse_envs(args.envs),
-        max_relaunches=args.max_worker_relaunches,
-        num_standby=args.num_standby_workers,
-    )
-    if args.num_standby_workers:
-        servicer.set_standby_fn(manager.is_standby)
-        if args.training_data_dir:
-            servicer.set_sample_batch_fn(make_sample_batch_fn(args.training_data_dir))
-    t0 = time.perf_counter()
-    manager.start_workers()
+        server = RpcServer(servicer.handlers(), port=args.port)
+        server.start()
+        addr = f"localhost:{server.port}"
+        logger.info("Master (%s job) listening on %s", job_type, addr)
+        manager = WorkerManager(
+            backend,
+            dispatcher,
+            num_workers=args.num_workers,
+            worker_argv_fn=lambda wid: worker_forward_args(args, wid, addr),
+            envs=parse_envs(args.envs),
+            max_relaunches=args.max_worker_relaunches,
+            num_standby=args.num_standby_workers,
+        )
+        if args.num_standby_workers:
+            servicer.set_standby_fn(manager.is_standby)
+            if args.training_data_dir:
+                servicer.set_sample_batch_fn(make_sample_batch_fn(args.training_data_dir))
+        t0 = time.perf_counter()
+        manager.start_workers()
+    except BaseException:
+        # no shard process may outlive a failed start
+        stop_shard_groups(servicer)
+        raise
 
     exit_code = 0
     try:
@@ -357,14 +401,17 @@ def run(argv=None):
         if servicer.tb_service is not None:
             servicer.tb_service.close()
         sparse = servicer.sparse_summary()
-        if servicer.kv_group is not None:
-            servicer.kv_group.stop()
+        try:
+            shards = servicer.ps_summary()
+        finally:
+            stop_shard_groups(servicer)
     summary = {
         "exit_code": exit_code,
         "job_type": job_type,
         "seconds": time.perf_counter() - t0,
         **servicer.exactness(),
         "sparse": sparse,
+        "ps_shards": shards,
         "relaunches": manager.relaunches(),
         "promotions": manager.promotions(),
         "evaluations": [

@@ -1,0 +1,199 @@
+"""The master's lifecycle manager for the sharded PS endpoints.
+
+The reference's `elasticdl_tpu/master/ps_group.py` (its core). Two
+hosting modes, for the job's lifetime:
+
+- ``inproc``: each shard a `PSShardServicer` behind an `RpcServer` on
+  threads of the master's process (tests, one host: still N sockets and
+  N locks);
+- ``process``: each shard a `python -m
+  elasticdl_tpu_torch.master.ps_shard_main` subprocess with its own
+  interpreter, booted and stopped by `shard_host` (the environment, the
+  transport tier included, passes on with the socket directory pinned,
+  so master, shards and workers meet on one tier; each shard's shm
+  segments are scoped by its own port).
+
+Each shard gets the zoo's optimizer (inproc: `optimizer_factory()`;
+process: the model-spec flags, from which the shard resolves it), the
+job's sync settings and a dedup ring sized by `dedup_cap_for`.
+
+The model plane: `client(n_params)` is the master's `ShardedPS` over
+the shards; `ensure_init` seeds them (SETNX), `export_opt` /
+`restore_opt` carry the per-shard optimizer state of a checkpoint (the
+same shard count only: slices do not re-split), `assemble` pulls the
+whole model (a relaxed snapshot: the slices may straddle a step), and
+`stats` reads each shard's counters for the master's summary. `stop()`
+closes the client, stops the servers and terminates the processes.
+
+Not ported yet: the k8s pods, `poll_dead`, `relaunch_shard`, `refence`
+and the metrics scrape (the recovery and migration planes).
+"""
+
+from __future__ import annotations
+
+import subprocess
+from typing import List, Optional
+
+import numpy as np
+
+from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes, stop_shard_processes
+from elasticdl_tpu_torch.rpc.ps_client import ShardedPS
+
+logger = get_logger(__name__)
+
+ENTRY_MODULE = "elasticdl_tpu_torch.master.ps_shard_main"
+# seconds the shards get to publish their ports and to listen
+BOOT_TIMEOUT_SECONDS = 60.0
+
+
+class PSShardGroup:
+    """Owns N PS shard endpoints for one job."""
+
+    def __init__(
+        self,
+        num_shards: int,
+        mode: str = "inproc",
+        optimizer_factory=None,  # () -> the zoo's optimizer (inproc)
+        shard_argv: Optional[List[str]] = None,  # model-spec flags (process)
+        grads_to_wait: int = 1,
+        use_async: bool = False,
+        lr_staleness_modulation: bool = False,
+        staleness_window: int = 0,
+        num_workers: int = 1,
+    ):
+        if num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        if mode not in ("inproc", "process"):
+            raise ValueError(f"unknown ps group mode {mode!r} (inproc|process)")
+        if mode == "process" and shard_argv is None:
+            raise ValueError("process mode needs the model-spec argv")
+        self._n = num_shards
+        self._mode = mode
+        self._opt_factory = optimizer_factory
+        self._shard_argv = list(shard_argv or [])
+        self._sync_flags = dict(
+            grads_to_wait=grads_to_wait,
+            use_async=use_async,
+            lr_staleness_modulation=lr_staleness_modulation,
+            staleness_window=staleness_window,
+        )
+        self._dedup_cap = self.dedup_cap_for(num_workers)
+        self.endpoints: List[str] = []
+        self._servers: list = []  # inproc only
+        self.procs: List[subprocess.Popen] = []
+        self._client: Optional[ShardedPS] = None
+
+    @staticmethod
+    def dedup_cap_for(num_workers: int, max_inflight_syncs: int = 8) -> int:
+        """Dedup ring capacity: only a key whose sync is still in flight
+        can be re-sent, so the ring must hold num_workers x syncs in
+        flight a worker; x4 headroom, and the 512 floor of a servicer
+        built alone."""
+        return max(512, int(num_workers) * int(max_inflight_syncs) * 4)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> List[str]:
+        if self.endpoints:
+            return self.endpoints
+        if self._mode == "inproc":
+            self._start_inproc()
+        else:
+            self.procs, self.endpoints = spawn_shard_processes(
+                self._n, ENTRY_MODULE, self._shard_cli_flags, "edlt_ps_", BOOT_TIMEOUT_SECONDS
+            )
+        logger.info("PS shard group up (%s): %s", self._mode, ", ".join(self.endpoints))
+        return self.endpoints
+
+    def _shard_cli_flags(self, shard_id: int) -> List[str]:
+        flags = [
+            "--shard_id", str(shard_id),
+            "--num_shards", str(self._n),
+            "--dedup_cap", str(self._dedup_cap),
+            "--grads_to_wait", str(self._sync_flags["grads_to_wait"]),
+            "--staleness_window", str(self._sync_flags["staleness_window"]),
+        ] + self._shard_argv
+        if self._sync_flags["use_async"]:
+            flags.append("--use_async")
+        if self._sync_flags["lr_staleness_modulation"]:
+            flags.append("--lr_staleness_modulation")
+        return flags
+
+    def _start_inproc(self):
+        from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
+        from elasticdl_tpu_torch.master.ps_shard import PSShardServicer
+        from elasticdl_tpu_torch.rpc.server import RpcServer
+
+        try:
+            for i in range(self._n):
+                opt = PSOptimizer(self._opt_factory()) if self._opt_factory is not None else None
+                servicer = PSShardServicer(i, self._n, optimizer=opt, dedup_cap=self._dedup_cap,
+                                           **self._sync_flags)
+                server = RpcServer(servicer.handlers(), port=0)
+                server.start()
+                self._servers.append(server)
+                self.endpoints.append(f"localhost:{server.port}")
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self):
+        if self._client is not None:
+            self._client.close()
+            self._client = None
+        for s in self._servers:
+            s.stop()
+        self._servers = []
+        stop_shard_processes(self.procs)
+        self.procs = []
+        self.endpoints = []
+
+    # -- the model plane -----------------------------------------------------
+
+    def client(self, n_params: Optional[int] = None) -> ShardedPS:
+        """The master's fan-out client; the first call names the model's
+        size and waits for every shard to listen."""
+        if self._client is None:
+            if n_params is None:
+                raise RuntimeError("the PS group's client needs n_params once")
+            client = ShardedPS(self.endpoints, int(n_params))
+            try:
+                client.wait_ready(BOOT_TIMEOUT_SECONDS)
+            except BaseException:
+                client.close()
+                raise
+            self._client = client
+        return self._client
+
+    @property
+    def initialized(self) -> bool:
+        return self._client is not None
+
+    def ensure_init(self, vec: np.ndarray, version: int = 0) -> List[int]:
+        """Seed every shard with its slice (SETNX: idempotent)."""
+        vec = np.asarray(vec, dtype=np.float32)
+        return self.client(vec.size).init_model(vec, version)
+
+    def export_opt(self) -> Optional[List[Optional[list]]]:
+        """Each shard's optimizer-state leaves, for a checkpoint."""
+        if self._client is None:
+            return None
+        return self._client.export_opt()
+
+    def restore_opt(self, shards):
+        """Adopt a checkpoint's per-shard optimizer state (after
+        ensure_init); raises ValueError on another shard count."""
+        self.client().restore_opt(shards)
+
+    def assemble(self, model_dtype: Optional[str] = None):
+        """(shard versions, the whole flat model)."""
+        if self._client is None:
+            raise RuntimeError("PS group not initialized")
+        return self._client.pull(model_dtype=model_dtype)
+
+    def stats(self) -> List[dict]:
+        """Each shard's counters ([] before the model is seeded)."""
+        if self._client is None:
+            return []
+        return self._client.stats()

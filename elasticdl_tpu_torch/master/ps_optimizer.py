@@ -32,6 +32,11 @@ up with the reference's `state_snapshot()` leaf for leaf.
 and scratch, with no host sync, so the same code is the PS's host apply
 and window mode's on-device optimizer over the worker's flat buffer (as
 the reference runs `tx.update` over its flat vector).
+
+A PS shard (`master/ps_shard.py`) runs `PSOptimizer.step` over its 1-D
+slice as one leaf, as the reference's shard does: an elementwise
+optimizer applies as over the whole vector, and `ClipByGlobalNorm` (or
+`ClipAdam`'s clip) clips the slice by its own norm.
 """
 
 from __future__ import annotations

@@ -65,6 +65,23 @@ is released, under its own lock, before the response and before the
 version-bump hooks (so a cadence checkpoint's embedding snapshot holds
 the step's rows); its seconds accumulate in `sparse_apply_seconds`.
 
+The sharded PS (`ps_group`, `--num_ps`): the dense model lives behind
+N shard endpoints (`master/ps_shard.py`) and workers push and pull
+slices there; the master keeps the tree only as the template (structure
+and shapes), the control plane and a version mirror. ReportVariable
+seeds the shards from the first tree; ReportGradient and
+ReportLocalUpdate are refused (pushes go to the shards); workers send
+each push's metadata with ReportWindowMeta instead: the shard versions
+(the mirror advances to their minimum, and the advance counts as
+applied steps), the loss, the aux state and the window's `edl_gradient`,
+which drive the checkpoint and evaluation cadence, the metrics sink and
+the sparse apply. GetModel assembles the model from the shards, or, with
+`shapes`, answers the template's shapes only (a worker's boot: the
+values come from the shards); FIXED pulls come from snapshots only;
+checkpoints carry each shard's optimizer state (`{"kind": "sharded",
+"shards": [...]}`); GetPSConfig advertises the endpoints and the model's
+size.
+
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
 
@@ -143,8 +160,11 @@ class MasterServicer:
         embedding_store=None,
         sparse_optimizer=None,
         kv_group=None,
+        ps_group=None,
     ):
         self._lock = threading.Lock()
+        # the PS shards holding the dense model, when it is sharded
+        self.ps_group = ps_group
         self._embedding_store = embedding_store
         self._sparse_opt = sparse_optimizer
         # the KV shards behind the store, when the tables live there
@@ -191,6 +211,7 @@ class MasterServicer:
             "ReportEvaluationMetrics": self.report_evaluation_metrics,
             "GetPSConfig": self.get_ps_config,
             "GetSampleBatch": self.get_sample_batch,
+            "ReportWindowMeta": self.report_window_meta,
             "EmbeddingLookup": self.embedding_lookup,
             "EmbeddingUpdate": self.embedding_update,
         }
@@ -229,7 +250,24 @@ class MasterServicer:
         with self._lock:
             return self._params is not None
 
+    def ps_summary(self) -> Optional[list]:
+        """Each PS shard's counters (None without shards)."""
+        return self.ps_group.stats() if self.ps_group is not None else None
+
+    def _n_params(self) -> int:  # edl-lint: disable=lock-discipline -- caller holds self._lock
+        return sum(int(np.asarray(p).size) for p in codec.tree_leaves(self._params))
+
     def get_params_copy(self):
+        """(params, aux, version). Sharded: the model assembled from the
+        shards at the lowest shard version (the slices may straddle a
+        step); before the shards are seeded, the template is the model."""
+        if self.ps_group is not None and self.ps_group.initialized:
+            versions, vec = self.ps_group.assemble()
+            if vec is not None:
+                with self._lock:
+                    aux = _copy(self._aux)
+                    params = self._unravel(vec)
+                return params, aux, min(versions)
         with self._lock:
             return (
                 _copy(self._params) if self._params is not None else None,
@@ -243,6 +281,11 @@ class MasterServicer:
         from elasticdl_tpu_torch.master.checkpoint import save_model_file
 
         emb = self._embedding_store.snapshot() if self._embedding_store is not None else None
+        if self.ps_group is not None:
+            params, aux, version = self.get_params_copy()
+            save_model_file(output_path, params, version, aux=aux, embeddings=emb,
+                            opt_state=self._sharded_opt_state())
+            return
         with self._lock:
             save_model_file(output_path, self._params, self._version, aux=self._aux,
                             embeddings=emb, opt_state=self._opt_state_snapshot())
@@ -308,11 +351,15 @@ class MasterServicer:
         return {}
 
     def get_ps_config(self, req: dict) -> dict:
-        """Shard discovery for a booting worker: the master is the single
-        PS (no PS shard endpoints); the KV shards' endpoints when the
-        embedding tables live there."""
+        """Shard discovery for a booting worker: the PS shards' endpoints
+        and the model's size (none, and -1, on the single PS), and the KV
+        shards' endpoints when the embedding tables live there."""
         kv = list(self.kv_group.endpoints) if self.kv_group is not None else []
-        return {"endpoints": [], "kv_endpoints": kv}
+        if self.ps_group is None:
+            return {"endpoints": [], "n_params": -1, "kv_endpoints": kv}
+        with self._lock:
+            n = self._n_params() if self._params is not None else -1
+        return {"endpoints": list(self.ps_group.endpoints), "n_params": n, "kv_endpoints": kv}
 
     # -- RPC: the embedding plane -------------------------------------------
 
@@ -346,6 +393,8 @@ class MasterServicer:
         snapshot or a durable checkpoint. Tree form, or flat on `flat`."""
         if req.get("method", MethodType.MINIMUM) == MethodType.FIXED:
             return self._get_fixed_model(int(req.get("version", 0)), req.get("flat"))
+        if self.ps_group is not None:
+            return self._get_sharded_model(req)
         with self._lock:
             if self._params is None:
                 return {"version": -1, "params": None, "aux": None}
@@ -363,9 +412,32 @@ class MasterServicer:
                 "aux": _copy(self._aux),
             }
 
+    def _get_sharded_model(self, req: dict) -> dict:
+        """MINIMUM in sharded mode: `shapes` answers the template's leaf
+        shapes (int64 arrays in the tree) and aux at the mirror's version;
+        else the model assembled from the shards."""
+        with self._lock:
+            if self._params is None or not self.ps_group.initialized:
+                return {"version": -1, "params": None, "aux": None}
+            aux = _copy(self._aux)
+            if req.get("shapes"):
+                shapes = codec.tree_map(lambda a: np.asarray(np.shape(a), np.int64), self._params)
+                return {"version": self._version, "shapes": shapes, "aux": aux}
+        versions, vec = self.ps_group.assemble()
+        if vec is None:  # a shard not seeded yet
+            return {"version": -1, "params": None, "aux": None}
+        if req.get("flat"):
+            return {"version": min(versions), "params_flat": vec, "aux": aux}
+        with self._lock:
+            params = self._unravel(vec)
+        return {"version": min(versions), "params": params, "aux": aux}
+
     def _get_fixed_model(self, version: int, flat) -> dict:
         with self._lock:
-            if version == self._version and self._params is not None:
+            # sharded: the template is no model; exact versions come from
+            # the snapshots
+            if (self.ps_group is None and version == self._version
+                    and self._params is not None):
                 params, aux = _copy(self._params), _copy(self._aux)
             else:
                 params = None
@@ -388,18 +460,64 @@ class MasterServicer:
             return {"aux": _copy(self._aux), "version": self._version}
 
     def report_variable(self, req: dict) -> dict:
-        """Lazy model init from the first worker (SETNX: first wins)."""
+        """Lazy model init from the first worker (SETNX: first wins).
+        Sharded: the tree becomes the template, and the shards are seeded
+        from it (their SETNX makes racing seeds harmless)."""
+        seed = None
         with self._lock:
             if self._params is None:
                 self._params = _to_f32(req["params"])
                 if req.get("aux") is not None:
                     self._aux = _own(req["aux"])
+                if self.ps_group is not None:
+                    seed = codec.ravel_np(self._params)
+            version = self._version
+        if seed is not None:
+            self.ps_group.ensure_init(seed, version)
         return {}
+
+    def report_window_meta(self, req: dict) -> dict:  # edl-lint: disable=exactness-lineage -- metadata mirror of pushes the shards already applied under their report keys: the mirror moves to the max of the shards' minimum, so a resend re-reports the same version and changes nothing
+        """Sharded mode's report of a push that went to the shards: the
+        version mirror advances to the lowest shard version (the advance
+        counts as applied steps), the aux state replaces the master's
+        (last writer wins), the window's `edl_gradient` goes to the sparse
+        optimizer, and the loss to the metrics sink; a crossed checkpoint
+        cadence saves the model assembled from the shards with their
+        optimizer state. `want_aux` asks for the aux state back (the
+        pusher absorbed merged slices)."""
+        versions = [int(v) for v in req.get("versions") or []]
+        version = min(versions) if versions else -1
+        resp = {}
+        with self._lock:
+            prev = self._version
+            advanced = version > prev
+            if advanced:
+                self._version = version
+                self._applied_update_steps += version - prev
+            if req.get("aux_state") is not None:
+                self._aux = _own(req["aux_state"])
+            if req.get("want_aux"):
+                resp["aux"] = _copy(self._aux)
+        self._apply_sparse(req.get("edl_gradient") or {})
+        if advanced:
+            ckpt_snapshot = None
+            ckpt = self._checkpoint_service
+            if ckpt is not None and ckpt.crossed(prev, version):
+                params, aux, v = self.get_params_copy()
+                ckpt_snapshot = (params, aux, self._sharded_opt_state())
+                version = max(version, v)
+            self._on_version_bump(version, ckpt_snapshot, prev)
+        self._report_train_loss(max(version, prev), req.get("loss"))
+        return resp
 
     # -- RPC: gradients (the hot path) --------------------------------------
 
     def report_gradient(self, req: dict) -> dict:
         """Returns {accepted, version[, params_flat, aux]}."""
+        if self.ps_group is not None:
+            raise ValueError(
+                "sharded PS: gradients go to the shard endpoints (PSPushGrad), not the master"
+            )
         report_version = req.get("version", -1)
         aux_state = _own(req.get("aux_state"))
         edl_grads = req.get("edl_gradient") or {}
@@ -480,6 +598,10 @@ class MasterServicer:
         version`: another worker synced in between) or it asks for it.
         A `report_key` seen before (a resend) changes nothing and
         answers `duplicate: True` with the merged model."""
+        if self.ps_group is not None:
+            raise ValueError(
+                "sharded PS: deltas go to the shard endpoints (PSPushDelta), not the master"
+            )
         steps = int(req["steps"])
         base_version = int(req["base_version"])
         report_key = req.get("report_key") or ""
@@ -543,12 +665,7 @@ class MasterServicer:
     def _flat_model(self, model_dtype=None):  # caller holds self._lock
         """The raveled params, narrowed to the worker's wire dtype when
         it asks for bfloat16 (the worker widens it again)."""
-        vec = codec.ravel_np(self._params)
-        if model_dtype == "bfloat16":
-            return codec.BF16Bits.from_f32(vec)
-        if model_dtype and model_dtype != "float32":
-            raise ValueError(f"unsupported model_dtype {model_dtype!r}")
-        return vec
+        return codec.narrow(codec.ravel_np(self._params), model_dtype)
 
     def _apply(self, flat_grad: np.ndarray, dense_scale: float = 1.0, aux_state=None):  # caller holds self._lock
         if aux_state is not None:
@@ -563,6 +680,17 @@ class MasterServicer:
         self._applied_update_steps += 1
 
     # -- job-service hooks --------------------------------------------------
+
+    def _unravel(self, vec):  # edl-lint: disable=lock-discipline -- caller holds self._lock
+        """A flat vector as a tree of the template's structure."""
+        if self._unraveler is None:
+            self._unraveler = codec.make_unraveler(self._params)
+        return self._unraveler(vec)
+
+    def _sharded_opt_state(self):
+        """Each shard's optimizer-state leaves, for a checkpoint."""
+        shards = self.ps_group.export_opt()
+        return {"kind": "sharded", "shards": shards} if shards is not None else None
 
     def _opt_state_snapshot(self):  # caller holds self._lock
         """The dense optimizer's state leaves for exact resume (None

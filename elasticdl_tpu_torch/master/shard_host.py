@@ -1,0 +1,98 @@
+"""Shard processes: the lifecycle the PS and KV shard groups share.
+
+The reference's `elasticdl_tpu/master/shard_host.py` for the process
+mode: both groups (`ps_group.PSShardGroup`, `kv_group.KVShardGroup`) run
+N `python -m <entry module>` subprocesses that bind an ephemeral port and
+publish it through `--port_file` (no bind races), and differ only in the
+entry module and its flags. The lifecycle lives here so that a fix (port
+file polling, reaping a partial boot, terminate then kill) cannot drift
+between the two.
+
+Each child gets the parent's environment, the transport tier included,
+with the socket directory pinned (`EDL_UDS_DIR`), so master, shards and
+workers meet in one place, and this checkout on `PYTHONPATH`. The port
+files' directory is removed once every shard has published, or when the
+boot fails.
+
+Not ported yet: the k8s pods and the chaos scoping of the children.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Callable, List, Tuple
+
+from elasticdl_tpu_torch.common.constants import ENV_UDS_DIR
+
+# seconds a terminated shard process gets before it is killed
+STOP_GRACE_SECONDS = 5.0
+
+
+def shard_env() -> dict:
+    """A shard process's environment: the parent's, with the fast tiers'
+    socket directory pinned and this checkout importable."""
+    from elasticdl_tpu_torch.rpc import transport
+
+    env = dict(os.environ)
+    env.setdefault(ENV_UDS_DIR, transport.uds_dir())
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = pkg_root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def spawn_shard_processes(
+    n: int,
+    entry_module: str,
+    flags_fn: Callable[[int], List[str]],
+    prefix: str,
+    boot_timeout: float,
+) -> Tuple[List[subprocess.Popen], List[str]]:
+    """Boot n shard subprocesses of `entry_module` (shard i gets
+    `flags_fn(i)`); returns (processes, endpoints). A boot failure stops
+    every process already spawned before it raises."""
+    port_dir = tempfile.mkdtemp(prefix=prefix)
+    env = shard_env()
+    procs: List[subprocess.Popen] = []
+    endpoints: List[str] = []
+    try:
+        port_files = []
+        for i in range(n):
+            pf = os.path.join(port_dir, f"shard-{i}.port")
+            port_files.append(pf)
+            argv = [sys.executable, "-m", entry_module, "--port", "0", "--port_file", pf]
+            procs.append(subprocess.Popen(argv + flags_fn(i), env=env))
+        deadline = time.monotonic() + boot_timeout
+        for i, pf in enumerate(port_files):
+            while not os.path.exists(pf):
+                if procs[i].poll() is not None:
+                    raise RuntimeError(f"shard {i} ({entry_module}) exited "
+                                       f"rc={procs[i].returncode} before publishing its port")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"shard {i} ({entry_module}) did not publish a port")
+                time.sleep(0.05)
+            with open(pf) as f:
+                endpoints.append(f"localhost:{int(f.read().strip())}")
+    except BaseException:
+        stop_shard_processes(procs)
+        raise
+    finally:
+        shutil.rmtree(port_dir, ignore_errors=True)
+    return procs, endpoints
+
+
+def stop_shard_processes(procs: List[subprocess.Popen]):
+    """Terminate, wait out the grace period, then kill."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=STOP_GRACE_SECONDS)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()

@@ -52,12 +52,24 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
 #: among them), the task report that the dispatcher dedups (a stale or
 #: repeated report is dropped), and the window sync, which the servicer
 #: dedups by its `report_key` (a resend is absorbed and answered with the
-#: merged model). EmbeddingUpdate is not, as in the reference. The KV
-#: shards' methods are classified where their client calls them
-#: (`rpc/kv_client.py`).
+#: merged model). EmbeddingUpdate is not, as in the reference. The PS
+#: shards' methods are: reads, the SETNX init, the optimizer-state
+#: restore (an overwrite) and the pushes, which the shard dedups by their
+#: `report_key` (`DEDUP_KEYED_METHODS`); the port's own stats read,
+#: PSStats, is not re-sent. ReportWindowMeta is not (a
+#: mirror of pushes already applied; a lost one falls through to the task
+#: requeue, as in the reference). The KV shards' methods are classified
+#: where their client calls them (`rpc/kv_client.py`).
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
     {"GetModel", "GetAux", "GetPSConfig", "GetSampleBatch", "ReportTaskResult",
-     "EmbeddingLookup", "ReportLocalUpdate"}
+     "EmbeddingLookup", "ReportLocalUpdate",
+     "PSInit", "PSPull", "PSPushGrad", "PSPushDelta", "PSOptState", "PSOptRestore"}
+)
+
+#: Mutations that are safe to re-send only because the receiver dedups
+#: them by the request's `report_key`: every call of one carries a key.
+DEDUP_KEYED_METHODS: FrozenSet[str] = frozenset(
+    {"PSPushGrad", "PSPushDelta", "ReportLocalUpdate"}
 )
 
 

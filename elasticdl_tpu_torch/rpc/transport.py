@@ -380,6 +380,7 @@ class _FrameServer:
                 conn.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+        _wake_accept(self._sock)
         try:
             # wakes the thread blocked in accept(); close() alone does not
             self._sock.shutdown(socket.SHUT_RDWR)
@@ -388,6 +389,20 @@ class _FrameServer:
         self._sock.close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+
+
+def _wake_accept(sock: socket.socket):
+    """Connect to a listener once, so that a thread blocked in its
+    accept() returns and sees the server closed: on some kernels (the
+    card machine's) shutdown() of a listening AF_UNIX socket does not wake
+    it, and the accept thread's join would wait out its timeout."""
+    try:
+        address = sock.getsockname()
+        with socket.socket(sock.family, socket.SOCK_STREAM) as s:
+            s.settimeout(1.0)
+            s.connect(address)
+    except OSError:
+        pass
 
 
 def _listening(family: int, address, reuse: bool = False) -> socket.socket:
@@ -877,6 +892,7 @@ class ShmServer:
                 conn.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+        _wake_accept(self._sock)
         try:
             self._sock.shutdown(socket.SHUT_RDWR)
         except OSError:

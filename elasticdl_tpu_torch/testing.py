@@ -66,6 +66,7 @@ def build_job(
     init_params=None,
     init_aux=None,
     embedding_store=None,
+    ps_group=None,
 ):
     """Wire a MasterServicer and its services from a ModelSpec over
     `dispatcher`, as the master's boot does, the boot from a checkpoint
@@ -78,7 +79,10 @@ def build_job(
     Worker's (`local_updates`, `sync_dtype`, ...). A model with
     `embedding_specs` gets its embedding store (`embedding_store`, e.g.
     a ShardedEmbeddingStore over KV shards, or a new in-process one) and
-    the sparse optimizer over it; a checkpoint's tables go into it."""
+    the sparse optimizer over it; a checkpoint's tables go into it.
+    `ps_group`, a started `PSShardGroup`, makes the PS sharded: the
+    checkpoint or `init_params` seed its shards (else the first worker's
+    ReportVariable does), and the caller stops it."""
     from elasticdl_tpu_torch.master.checkpoint import CheckpointService, restore_for_init
     from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
     from elasticdl_tpu_torch.master.main import build_sparse_plane
@@ -90,8 +94,12 @@ def build_job(
     init_version = 0
     if checkpoint_filename_for_init:
         init_params, init_aux, init_version = restore_for_init(
-            checkpoint_filename_for_init, ps_opt, store
+            checkpoint_filename_for_init, ps_opt, store, ps_group
         )
+    elif ps_group is not None and init_params is not None:
+        from elasticdl_tpu_torch.common import codec
+
+        ps_group.ensure_init(codec.ravel_np(init_params), init_version)
     ckpt = CheckpointService(
         checkpoint_dir=checkpoint_dir,
         checkpoint_steps=checkpoint_steps,
@@ -111,6 +119,7 @@ def build_job(
         staleness_window=staleness_window,
         embedding_store=store,
         sparse_optimizer=sparse_opt,
+        ps_group=ps_group,
     )
     eval_service = None
     if eval_steps:

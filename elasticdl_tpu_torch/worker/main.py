@@ -8,8 +8,10 @@ The reference's worker main (`elasticdl_tpu/worker/main.py`): resolve
 the device (CUDA unless `--device cpu`: without a card the worker exits
 with the "no CUDA device" error before anything else), load the model
 spec, wait for the master, fetch its PS config (the boot handshake:
-the KV shards' endpoints, when the embedding tables live there, which the
-worker then looks rows up from directly), run the task loop.
+the PS shards' endpoints when the dense model is sharded, and the KV
+shards' endpoints when the embedding tables live there, which the
+worker then pushes to and looks rows up from directly), run the task
+loop.
 
 Exit codes: 0 the job finished cleanly; 1 a crash;
 EXIT_CODE_JOB_FAILED (2) the master reported dropped (poison) tasks;
@@ -33,7 +35,8 @@ client's seconds per method and the tier its link runs on, the three
 attention kernels' launches by head dim (`launch_counts`) and the
 dispatcher's attention fallbacks, the sparse plane's counters (the
 KV links' tiers, the rows this worker lazily initialized, the
-`edl_gradient` bytes it sent), the device's peak allocated bytes,
+`edl_gradient` bytes it sent), the sharded PS's (the shard links' tiers,
+their seconds per method, the shard versions last seen), the device's peak allocated bytes,
 whether it stood by as a standby (pre-warmed, or failed to) and when it
 was promoted, and each accepted step's (or landed window's) time
 (`time.perf_counter()`) and loss.
@@ -82,8 +85,7 @@ def _is_unreachable(e: BaseException) -> bool:
 
 def _boot_handshake(client) -> dict:
     """First master contact: wait for the listener, then ask for the PS
-    config (no PS shards on the port's single PS; the KV shards'
-    endpoints, or none)."""
+    config (the PS and KV shards' endpoints, or none)."""
     client.wait_ready(timeout=BOOT_WAIT_SECONDS)
     return client.call("GetPSConfig", {})
 
@@ -112,6 +114,11 @@ def _summary(worker_id, worker, client, device) -> dict:
         "rpc_codec_seconds": dict(client.codec_seconds),
         "tier": client.tier,
         "kv_tiers": worker.kv_tiers,
+        # the sharded PS: each shard link's tier, the fan-out's seconds
+        # per method summed over the links, and the shard versions last seen
+        "ps_tiers": worker.ps_tiers,
+        "ps_rpc_seconds": worker.ps_rpc_seconds(),
+        "shard_versions": worker.shard_versions,
         "lazy_init_rows": worker.lazy_init_rows,
         "edl_gradient_bytes": worker.edl_gradient_bytes,
         "peak_memory_bytes": (
@@ -193,6 +200,7 @@ def main(argv=None) -> int:
         sync_compress=args.sync_compress or None,
         overlap_sync=args.overlap_sync or None,
         kv_endpoints=ps_config.get("kv_endpoints") or None,
+        ps_endpoints=ps_config.get("endpoints") or None,
     )
     # teardown and preemption send SIGTERM: drain at the next task
     # boundary instead of dying with windows and reports in flight

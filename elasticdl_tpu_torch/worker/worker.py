@@ -115,8 +115,32 @@ TF32 is switched off when a worker is built for a CUDA device.
 The worker computes on `device` ("cuda" by default) and raises if that
 device is absent; the CPU runs only when the caller asks for it.
 
+The sharded PS (`ps_endpoints`, from GetPSConfig: the reference's
+`_ensure_ps`): the dense model lives on N PS shards and the worker talks
+to them through a `ShardedPS` (`rpc/ps_client.py`), built once the flat
+size is known. Its boot pull asks the master for the template's shapes
+only (GetModel `shapes`) and takes the values from the shards; every
+pull assembles the model from the shards, each skipping its slice when
+it is not newer than the worker's entry in `_shard_versions` (the aux
+state comes from GetAux). Per-step, the gradient fans out as PSPushGrad
+slices (async or a staleness window: strict sync is refused with
+shards) and the updated slices come back; in window mode the delta fans
+out as PSPushDelta slices under the window's report key, each with its
+shard's own base (`_shard_lineage` plus the worker's own steps since),
+and only the shards that ran ahead send a merged slice back, which the
+absorb splices over the window's snapshot (the shift is zero on every
+other slice). Each push's metadata (shard versions, loss, aux state,
+the `edl_gradient` rows) goes to the master with ReportWindowMeta,
+which drives the cadence and the sparse apply. `_version` is then the
+lowest shard version.
+
+`_fresh`, `_version` and `_shard_versions` are written by the sync
+threads and read by the main thread, always under `_report_lock`, in
+pairs where they are read together.
+
 Not ported yet: the local-steps ladder, the adaptive wire plane, the
-background model page-in, speculative backup tasks and the sharded PS.
+background model page-in, speculative backup tasks, and with the sharded
+PS the aggregation tree, bucketed pushes and shard recovery.
 """
 
 from __future__ import annotations
@@ -267,6 +291,7 @@ class Worker:
         sync_compress: Optional[str] = None,
         overlap_sync: Optional[str] = None,
         kv_endpoints=None,
+        ps_endpoints=None,
     ):
         self._id = worker_id
         self._master = master
@@ -370,6 +395,13 @@ class Worker:
         self.lazy_init_rows = 0  # rows this worker drew and offered (SETNX)
         self.edl_gradient_bytes = 0  # IndexedRows payload sent (values + ids)
 
+        # -- the sharded PS
+        self._ps_endpoints = list(ps_endpoints) if ps_endpoints else None
+        self._ps = None  # its ShardedPS, once the flat size is known
+        self._shard_versions: Optional[list] = None  # each shard's version
+        # each shard's version at the last fold (the window lineage)
+        self._shard_lineage: Optional[list] = None
+
         # -- window mode
         self._local_updates = local_updates
         self._tx = model_spec.optimizer()
@@ -426,6 +458,21 @@ class Worker:
         return self._kv.tiers if self._kv is not None else []
 
     @property
+    def ps_tiers(self) -> list:
+        """The transport tier of each PS shard link ([] on the single PS)."""
+        return self._ps.tiers if self._ps is not None else []
+
+    def ps_rpc_seconds(self) -> dict:
+        """The PS shard links' seconds per method, summed over the links."""
+        return self._ps.rpc_seconds() if self._ps is not None else {}
+
+    @property
+    def shard_versions(self) -> Optional[list]:
+        """Each PS shard's version as this worker last saw it."""
+        with self._report_lock:
+            return list(self._shard_versions) if self._shard_versions else None
+
+    @property
     def steps_accepted(self) -> int:
         """Steps the PS applied from this worker: accepted per-step
         reports plus the steps of every window sync that landed."""
@@ -470,6 +517,8 @@ class Worker:
                 self._init_flat_from_tree(resp["params"])
             self._set_aux(resp.get("aux"), "GetModelFixed")
             return True
+        if self._ps_endpoints:
+            return self._pull_sharded()
         with self._report_lock:
             version = self._version
         req = {
@@ -490,6 +539,47 @@ class Worker:
             self._version = resp["version"]
             self._fresh = True
             self._lineage_version = self._version
+            self._shard_lineage = None
+            self._lineage_anchor_abs = self._own_steps_abs
+        return True
+
+    def _ensure_ps(self):
+        """The sharded PS's client, built once the flat size is known
+        (None on the single PS)."""
+        if self._ps is None and self._ps_endpoints and self._flat is not None:
+            from elasticdl_tpu_torch.rpc.ps_client import ShardedPS
+
+            self._ps = ShardedPS(self._ps_endpoints, int(self._flat.numel()))
+        return self._ps
+
+    def _pull_sharded(self) -> bool:
+        """The model from the shards (False when the PS holds none yet).
+        The boot pull learns the template's shapes from the master first;
+        a shard not newer than this worker's entry for it sends no slice,
+        and when none is newer nothing is copied."""
+        if self._template is None:
+            resp = self._master.call("GetModel", {"method": MethodType.MINIMUM, "shapes": True})
+            if resp["version"] < 0:
+                return False
+            self._init_flat_from_shapes(resp["shapes"])
+            self._set_aux(resp.get("aux"), "GetModel")
+        ps = self._ensure_ps()
+        with self._report_lock:
+            known = self._shard_versions
+        versions, vec = ps.pull(versions=known, model_dtype=self._model_wire_dtype())
+        if any(v < 0 for v in versions):
+            return False
+        if vec is not None:
+            self._set_flat(vec)
+            if self._aux_flat is not None:
+                # the shards hold the dense vector only: the matching aux
+                self._set_aux(self._master.call("GetAux", {}).get("aux"), "GetAux")
+        with self._report_lock:
+            self._shard_versions = list(versions)
+            self._version = min(versions)
+            self._fresh = True
+            self._lineage_version = self._version
+            self._shard_lineage = list(versions)
             self._lineage_anchor_abs = self._own_steps_abs
         return True
 
@@ -500,9 +590,13 @@ class Worker:
         """One ReportGradient round with a host-side wire gradient, the
         step's new aux tree (None for a model without aux) and its BET
         gradients ({table: IndexedRows}, for a model with tables)."""
+        if self._ensure_ps() is not None:
+            return self._push_grad_sharded(grad_wire, loss, aux_state, edl_grads)
+        with self._report_lock:
+            version = self._version
         req = {
             "worker_id": self._id,
-            "version": self._version,
+            "version": version,
             "gradient_flat": grad_wire,
             "aux_state": aux_state,
             "loss": loss,
@@ -515,6 +609,38 @@ class Worker:
         if md:
             req["model_dtype"] = md
         return self._master.call("ReportGradient", req)
+
+    def _push_grad_sharded(self, grad_wire, loss: float, aux_state, edl_grads):
+        """The per-step report with shards: the gradient's slices to the
+        shards (each at this worker's version of it), the updated slices
+        back, and the metadata to the master (ReportWindowMeta). Answers
+        like a ReportGradient; a model that comes back carries the aux
+        this report wrote."""
+        n = self._ps.num_shards
+        with self._report_lock:
+            base = list(self._shard_versions) if self._shard_versions else [self._version] * n
+        versions, vec = self._ps.push_grad(
+            grad_wire, base, model_dtype=self._model_wire_dtype(), return_model=True,
+            report_key=uuid.uuid4().hex,
+        )
+        meta = {"worker_id": self._id, "versions": versions, "aux_state": aux_state,
+                "loss": loss}
+        if edl_grads:
+            meta["edl_gradient"] = edl_grads
+            with self._stats_lock:
+                self.edl_gradient_bytes += _rows_nbytes(edl_grads)
+        self._master.call("ReportWindowMeta", meta)
+        with self._report_lock:
+            # element-wise max: a shard's version never goes back
+            cur = self._shard_versions
+            self._shard_versions = (
+                list(versions) if cur is None else [max(a, b) for a, b in zip(cur, versions)]
+            )
+        resp = {"accepted": True, "version": min(versions)}
+        if vec is not None:
+            resp["params_flat"] = vec
+            resp["aux"] = aux_state
+        return resp
 
     def report_task_result(self, task_id: int, err: str = ""):
         self._master.call(
@@ -646,8 +772,21 @@ class Worker:
         """Learn the model's structure from a host tree, copy it into one
         device buffer and make every module parameter a view into it."""
         self._template = codec.tree_map(np.asarray, params)
+        self._bind_flat(_host_tensor(codec.ravel_np(self._template)).to(self._device))
+
+    def _init_flat_from_shapes(self, shapes):
+        """The same from a tree of leaf shapes (int64 arrays: the sharded
+        boot's template), over an uninitialized buffer the pull fills."""
+        self._template = codec.tree_map(
+            lambda s: np.empty(tuple(int(d) for d in s), np.float32), shapes
+        )
+        _, sizes, _ = codec.template_meta(self._template)
+        self._bind_flat(torch.empty(sum(sizes), dtype=torch.float32, device=self._device))
+
+    def _bind_flat(self, flat: torch.Tensor):
+        """Make every module parameter a view into `flat`, in the
+        template's leaf order, and set up the aux buffer."""
         shapes, sizes, _ = codec.template_meta(self._template)
-        flat = _host_tensor(codec.ravel_np(self._template)).to(self._device)
         self._params = []
         off = 0
         for path, shape, n in zip(codec.tree_paths(self._template), shapes, sizes):
@@ -719,7 +858,9 @@ class Worker:
     # ------------------------------------------------- per-step training
 
     def _ensure_step_ready(self, task: Task):
-        if not self._fresh or self._version < task.model_version:
+        with self._report_lock:
+            fresh, version = self._fresh, self._version
+        if not fresh or version < task.model_version:
             if not self.pull_model():
                 self._lazy_init_model()
 
@@ -781,15 +922,16 @@ class Worker:
         """Track freshness and absorb a piggybacked model. Monotonic: an
         older response never rolls the local model back."""
         v = resp["version"]
-        if resp.get("params_flat") is not None and v > self._version:
-            self._set_flat(resp["params_flat"])
-            self._set_aux(resp.get("aux"), "ReportGradient")
-            self._version = v
-            self._fresh = True
-        elif v == self._version:
-            self._fresh = True
-        elif v > self._version:
-            self._fresh = False  # the PS ran ahead without a piggyback
+        with self._report_lock:
+            if resp.get("params_flat") is not None and v > self._version:
+                self._set_flat(resp["params_flat"])
+                self._set_aux(resp.get("aux"), "ReportGradient")
+                self._version = v
+                self._fresh = True
+            elif v == self._version:
+                self._fresh = True
+            elif v > self._version:
+                self._fresh = False  # the PS ran ahead without a piggyback
 
     def _process_minibatch(self, features, labels, task: Task) -> float:
         """Sync-SGD retry loop: one ReportGradient per minibatch in the
@@ -1033,6 +1175,7 @@ class Worker:
             event = torch.cuda.Event()
             event.record()
         self._pending_steps = 0
+        ps = self._ps  # the shards' client, when the PS is sharded
         prev = self._sync_thread
         with self._report_lock:
             self._sync_seq += 1
@@ -1041,8 +1184,11 @@ class Worker:
             # for absorbing this sync's merged model
             self._base_snapshots[seq] = snapshot
             # a model was pulled before the first step, so the lineage is set
-            spawn_base_version = (
-                self._lineage_version + self._own_steps_abs - self._lineage_anchor_abs
+            own_ahead = self._own_steps_abs - self._lineage_anchor_abs
+            spawn_base_version = self._lineage_version + own_ahead
+            # with shards, each shard's base the same way
+            spawn_shard_bases = (
+                [v + own_ahead for v in self._shard_lineage] if self._shard_lineage else None
             )
             self._own_steps_abs += steps
             self._spawn_abs[seq] = self._own_steps_abs
@@ -1084,7 +1230,11 @@ class Worker:
                 with self._stats_lock:
                     self.edl_gradient_bytes += _rows_nbytes(req["edl_gradient"])
             t2 = time.perf_counter()
-            resp = self._master.call("ReportLocalUpdate", req)
+            versions = None
+            if ps is not None:
+                versions, resp = self._push_delta_sharded(ps, req, spawn_shard_bases)
+            else:
+                resp = self._master.call("ReportLocalUpdate", req)
             t3 = time.perf_counter()
             self._add_sync_seconds("encode", t2 - t1)
             self._add_sync_seconds("rpc", t3 - t2)
@@ -1094,6 +1244,8 @@ class Worker:
                 duplicate = bool(resp.get("duplicate"))
                 self._synced_seq = max(self._synced_seq, seq)
                 self._version = resp["version"]
+                if versions is not None:
+                    self._shard_versions = list(versions)
                 self._fresh = True
                 if resp.get("params_flat") is not None:
                     # another worker advanced the PS, or this window had
@@ -1101,11 +1253,12 @@ class Worker:
                     # holds it): the main thread folds the merged model in
                     # (_absorb_sync_result), and the lineage advances there
                     self._sync_result = (
-                        seq, resp["params_flat"], resp.get("aux"), resp["version"]
+                        seq, resp["params_flat"], resp.get("aux"), resp["version"], versions
                     )
                 else:
                     # nobody else advanced: the local trajectory is the PS
                     self._lineage_version = resp["version"]
+                    self._shard_lineage = list(versions) if versions is not None else None
                     self._lineage_anchor_abs = self._spawn_abs.get(seq, self._own_steps_abs)
                 for k in [k for k in self._spawn_abs if k < seq]:
                     del self._spawn_abs[k]
@@ -1147,6 +1300,30 @@ class Worker:
         while len(self._sync_inflight) > self._max_inflight_syncs:
             with self._phase("sync_wait"):
                 self._sync_inflight.popleft().join()
+
+    def _push_delta_sharded(self, ps, req: dict, shard_bases):
+        """A window sync with shards: the delta's slices to the shards
+        under the window's report key, each at its shard's base, then the
+        metadata to the master (ReportWindowMeta). Returns (shard
+        versions, a ReportLocalUpdate-like response whose `params_flat`
+        is {shard index: merged slice} when any shard ran ahead)."""
+        n = ps.num_shards
+        bases = shard_bases if shard_bases is not None else [req["base_version"]] * n
+        dup: list = []
+        versions, merged = ps.push_delta(
+            req["delta_flat"], req["steps"], bases, model_dtype=req.get("model_dtype"),
+            report_key=req["report_key"], duplicates=dup,
+        )
+        meta = {"worker_id": self._id, "versions": versions, "steps": req["steps"],
+                "aux_state": req["aux_state"], "loss": req["loss"], "want_aux": bool(merged)}
+        if req.get("edl_gradient"):
+            meta["edl_gradient"] = req["edl_gradient"]
+        meta_resp = self._master.call("ReportWindowMeta", meta)
+        resp = {"version": min(versions), "duplicate": all(dup)}
+        if merged:
+            resp["params_flat"] = merged
+            resp["aux"] = meta_resp.get("aux")
+        return versions, resp
 
     def _record_synced_losses(self, losses, loss_h, version):
         """Task losses resolve with the window's copy to the host, so the
@@ -1191,6 +1368,10 @@ class Worker:
             self._sync_result = None
             self._base_snapshots.clear()
             self._lineage_version = -1
+            # the shards' only_if_newer pull keys off these: a reset must
+            # pull every slice again, whether the shards advanced or not
+            self._shard_versions = None
+            self._shard_lineage = None
             self._spawn_abs.clear()
             self._lineage_anchor_abs = self._own_steps_abs
         self._opt_state = None
@@ -1217,7 +1398,7 @@ class Worker:
             res = self._sync_result
             if res is None:
                 return
-            seq, params_flat, aux, new_version = res
+            seq, params_flat, aux, new_version, new_shard_versions = res
             self._sync_result = None
             snap = self._base_snapshots.get(seq)
             for k in [k for k in self._base_snapshots if k <= seq]:
@@ -1226,14 +1407,27 @@ class Worker:
                 return  # a reset raced the response
             # deltas spawned from here on are computed from new_version
             self._lineage_version = new_version
+            self._shard_lineage = (
+                list(new_shard_versions) if new_shard_versions is not None else None
+            )
             self._lineage_anchor_abs = self._spawn_abs.get(seq, self._own_steps_abs)
             for k in [k for k in self._spawn_abs if k <= seq]:
                 del self._spawn_abs[k]
-            shift = _host_tensor(codec.as_f32(params_flat)).to(self._device) - snap
-            for younger in self._base_snapshots.values():
-                younger.add_(shift)
-        self._flat.add_(shift)
-        self._base_flat.add_(shift)
+            if isinstance(params_flat, dict):
+                # shards: merged slices from the shards that ran ahead
+                # only; the shift is zero on every other slice
+                ranges = [(self._ps.bounds[i], sl) for i, sl in sorted(params_flat.items())]
+            else:
+                ranges = [((0, self._flat.numel()), params_flat)]
+            shifts = []
+            for (a, b), sl in ranges:
+                shift = _host_tensor(codec.as_f32(sl)).to(self._device) - snap[a:b]
+                for younger in self._base_snapshots.values():
+                    younger[a:b].add_(shift)
+                shifts.append((a, b, shift))
+        for a, b, shift in shifts:
+            self._flat[a:b].add_(shift)
+            self._base_flat[a:b].add_(shift)
         self._set_aux(aux, "ReportLocalUpdate")
         self.merged_back += 1
         self._add_sync_seconds("absorb", time.perf_counter() - t0)
@@ -1278,7 +1472,9 @@ class Worker:
         if self._pending_losses:
             losses, self._pending_losses = self._pending_losses, []
             loss_h = torch.stack([l for _, l in losses]).cpu().numpy()
-            self._record_synced_losses(losses, loss_h, self._version)
+            with self._report_lock:
+                version = self._version
+            self._record_synced_losses(losses, loss_h, version)
         self._flush_deferred_reports()
 
     def _drop_pending_steps(self):
@@ -1469,9 +1665,11 @@ class Worker:
             return True
         if loss is not None:
             self.task_losses.append(loss)
+            with self._report_lock:
+                version = self._version
             logger.info(
                 "Worker %d task %d done (last loss %.4f, v%d)",
-                self._id, task.task_id, loss, self._version,
+                self._id, task.task_id, loss, version,
             )
         return False
 
@@ -1547,4 +1745,6 @@ class Worker:
                 self._emb_prefetch_pool.shutdown(wait=True)
             if self._kv is not None:
                 self._kv.close()
+            if self._ps is not None:
+                self._ps.close()
             self._readers.close()

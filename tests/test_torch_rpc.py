@@ -25,6 +25,7 @@ from elasticdl_tpu_torch.common.codec import BF16Bits, SparseDelta, quantize_int
 from elasticdl_tpu_torch.master.embedding_store import EmbeddingStore
 from elasticdl_tpu_torch.master.main import collect_shards
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
+from elasticdl_tpu_torch.master.ps_shard import PSShardServicer
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.models import transformer_lm_zoo as tzoo
@@ -50,8 +51,9 @@ def _servicer():
 def _calls():
     """A call sequence over every ported method: lazy init (an f32 tree
     with a bf16 aux), pulls, an accepted f32 gradient, a stale bf16 one,
-    an accepted bf16 one, task reports (one failed), an embedding row
-    write (SETNX) and a lookup with a miss."""
+    an accepted bf16 one, window syncs, a sharded push's metadata, task
+    reports (one failed), an embedding row write (SETNX) and a lookup
+    with a miss."""
     rng = np.random.default_rng(0)
     params = {
         "dense": {
@@ -93,6 +95,10 @@ def _calls():
         ("ReportLocalUpdate", {"delta_flat": grad * 1e-3, "steps": 1, "base_version": 0,
                                "report_key": "w1.0", "aux_state": None,
                                "model_dtype": "bfloat16"}),
+        # a sharded push's metadata at the current version (no advance),
+        # asking for the aux back
+        ("ReportWindowMeta", {"worker_id": 0, "versions": [5, 5], "loss": 0.75,
+                              "want_aux": True}),
         ("ReportTaskResult", {"task_id": 1, "err_message": "", "worker_id": 0}),
         ("GetTask", {"worker_id": 0}),
         ("ReportTaskResult", {"task_id": 2, "err_message": "boom", "worker_id": 0}),
@@ -273,7 +279,7 @@ def test_backoff_schedule_equals_the_reference(seed):
 
 
 def test_idempotent_set_is_the_references_over_the_ported_methods():
-    ported = set(_servicer().handlers())
+    ported = set(_servicer().handlers()) | set(PSShardServicer(0, 1).handlers())
     assert policy.IDEMPOTENT_METHODS == jpolicy.IDEMPOTENT_METHODS & ported
 
 

@@ -226,7 +226,7 @@ def test_absorb_shifts_like_the_reference():
         w._spawn_abs = {2: 8, 3: 12}
         w._own_steps_abs, w._lineage_anchor_abs, w._lineage_version = 12, 0, 0
         w._shard_lineage, w._ps, w._aux = None, None, {}
-        w._sync_result = (2, merged, None, 16) if w is port else (2, merged, None, 16, None)
+        w._sync_result = (2, merged, None, 16, None)
     JWorker._absorb_sync_result_traced(ref)
     port._absorb_sync_result()
     assert port.merged_back == 1
