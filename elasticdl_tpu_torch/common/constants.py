@@ -59,6 +59,10 @@ ENV_TRANSPORT_SHM_DOORBELL_TIMEOUT = "EDL_TRANSPORT_SHM_DOORBELL_TIMEOUT"
 ENV_BET_PREFETCH = "EDL_BET_PREFETCH"
 ENV_NO_NATIVE_KV = "EDL_TPU_NO_NATIVE_KV"
 
+# The shard recovery plane (master/recovery.py): seconds between the
+# snapshots of each PS shard's optimizer state (default 2.0)
+ENV_OPT_MIRROR_SECS = "EDL_OPT_MIRROR_SECS"
+
 # Every environment variable the port reads, with its help text. The PS
 # and KV shard processes read the transport tier's (EDL_TRANSPORT,
 # EDL_UDS_DIR and the shm ring's), which their group passes on.
@@ -88,6 +92,11 @@ ENV_REGISTRY = {
     ENV_NO_NATIVE_KV: (
         "1 disables the C++ embedding-store arena, forcing the "
         "lock-striped Python store"
+    ),
+    ENV_OPT_MIRROR_SECS: (
+        "recovery plane: seconds between PS optimizer-state mirror "
+        "snapshots (bounded-staleness restore ring, master/recovery.py; "
+        "default 2.0)"
     ),
     ENV_TRANSPORT: (
         "RPC transport tier: grpc (default), uds (Unix-domain-socket "

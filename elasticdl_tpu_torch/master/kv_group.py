@@ -1,7 +1,7 @@
 """The master's lifecycle manager for the embedding KV shard endpoints.
 
-The reference's `elasticdl_tpu/master/kv_group.py` (its core), for the
-job's lifetime:
+The reference's `elasticdl_tpu/master/kv_group.py`, for the job's
+lifetime:
 
 - ``inproc``: each shard a `KVShardServicer` behind an `RpcServer` in
   the master's process (tests, one host);
@@ -16,18 +16,28 @@ job's lifetime:
 checkpoints'); `stop()` closes the store, stops the servers and
 terminates the processes (SIGKILL after a grace period).
 
-Not ported yet: the k8s mode, replica mirroring, fencing generations,
-the refence and `relaunch_shard` (the recovery plane), and the shards'
-metrics scrape.
+The recovery plane's hooks (`master/recovery.py`): `generations` holds
+each slot's fencing epoch, which the clients stamp on their requests;
+`wire_mirrors` points each shard at its ring pair ((i + 1) % N), whose
+mirror of its rows is its restore source; `poll_dead` reports each dead
+shard process once; `relaunch_shard` boots a slot again, empty, at the
+next generation, and moves the master's store client to it; `refence`
+moves every slot's generation in place. Each slot's shm segments are
+scoped by a job nonce and the slot, so that a relaunch sweeps its
+SIGKILLed predecessor's.
+
+Not ported yet: the k8s mode, `refence`'s caller (master migration) and
+the shards' metrics scrape.
 """
 
 from __future__ import annotations
 
 import subprocess
+import uuid
 from typing import List, Optional
 
 from elasticdl_tpu_torch.common.log_util import get_logger
-from elasticdl_tpu_torch.master.shard_host import stop_shard_processes
+from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes, stop_shard_processes
 from elasticdl_tpu_torch.rpc.kv_client import ShardedEmbeddingStore
 
 logger = get_logger(__name__)
@@ -47,10 +57,15 @@ class KVShardGroup:
         self._mode = mode
         self._boot_timeout = boot_timeout
         self.endpoints: List[str] = []
+        # each slot's fencing generation, bumped on every relaunch
+        self.generations: List[int] = [0] * num_shards
+        # the shm segments' namespace: one nonce a job, stable a slot
+        self._shm_ns = uuid.uuid4().hex[:8]
         self.servicers: list = []  # inproc only
         self._servers: list = []
         self.procs: List[subprocess.Popen] = []
         self._store: Optional[ShardedEmbeddingStore] = None
+        self._reported_dead: set = set()  # poll_dead: dead Popen objects
 
     @property
     def num_shards(self) -> int:
@@ -64,34 +79,121 @@ class KVShardGroup:
         if self.endpoints:
             return self.endpoints
         if self._mode == "inproc":
-            from elasticdl_tpu_torch.master.kv_shard import KVShardServicer
-            from elasticdl_tpu_torch.rpc.server import RpcServer
-
             for i in range(self._n):
-                servicer = KVShardServicer(i, self._n)
-                server = RpcServer(servicer.handlers(), port=0)
-                server.start()
+                servicer, server = self._build_inproc_shard(i)
                 self.servicers.append(servicer)
                 self._servers.append(server)
                 self.endpoints.append(f"localhost:{server.port}")
         else:
-            self._start_processes()
+            self.procs, self.endpoints = spawn_shard_processes(
+                self._n, ENTRY_MODULE, self._shard_cli_flags, "edlt_kv_", self._boot_timeout
+            )
         logger.info("KV shard group up (%s): %s", self._mode, ", ".join(self.endpoints))
         return self.endpoints
 
-    def _start_processes(self):
-        from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes
+    def _build_inproc_shard(self, i: int):
+        from elasticdl_tpu_torch.master.kv_shard import KVShardServicer
+        from elasticdl_tpu_torch.rpc.server import RpcServer
 
-        self.procs, self.endpoints = spawn_shard_processes(
-            self._n, ENTRY_MODULE,
-            lambda i: ["--shard_id", str(i), "--num_shards", str(self._n)],
-            "edlt_kv_", self._boot_timeout,
-        )
+        servicer = KVShardServicer(i, self._n, generation=self.generations[i])
+        server = RpcServer(servicer.handlers(), port=0, shm_scope=f"{self._shm_ns}.kv{i}",
+                           shm_generation=self.generations[i])
+        server.start()
+        return servicer, server
+
+    def _shard_cli_flags(self, i: int) -> List[str]:
+        return [
+            "--shard_id", str(i),
+            "--num_shards", str(self._n),
+            "--generation", str(self.generations[i]),
+            "--shm_scope", f"{self._shm_ns}.kv{i}",
+        ]
+
+    # -- replica mirroring and the recovery hooks ------------------------------
+
+    def wire_mirrors(self):
+        """Ring mirroring: shard i forwards its writes to (i + 1) % N, so
+        each shard's rows live on one pair (nothing to do with one
+        shard). Idempotent: after a relaunch it points the ring at the
+        new endpoint."""
+        if self._n < 2:
+            return
+        from elasticdl_tpu_torch.rpc.client import RpcClient
+
+        for i in range(self._n):
+            c = RpcClient(self.endpoints[i])
+            try:
+                c.call("KVSetMirror", {"endpoint": self.endpoints[self.mirror_pair_of(i)]},
+                       timeout=30.0)
+            finally:
+                c.close()
+
+    def mirror_pair_of(self, shard_id: int) -> int:
+        return (int(shard_id) + 1) % self._n
+
+    def poll_dead(self) -> List[tuple]:
+        """[(shard_id, exit code)] of shard processes that died, each dead
+        process reported once: keyed by its Popen object, not by (shard,
+        generation), for the reasons `PSShardGroup.poll_dead` gives."""
+        out = []
+        for i, p in enumerate(self.procs):
+            if p is None or p.poll() is None or p in self._reported_dead:
+                continue
+            self._reported_dead.add(p)
+            out.append((i, p.returncode))
+        return out
+
+    def relaunch_shard(self, shard_id: int) -> str:
+        """Boot slot `shard_id` again at the next generation; it boots
+        empty (the recovery plane restores its rows from the pair, then
+        `wire_mirrors` re-points the ring). Returns the new endpoint."""
+        i = int(shard_id)
+        self.generations[i] += 1
+        if self._mode == "inproc":
+            self._servers[i].stop()
+            self.servicers[i].close()
+            servicer, server = self._build_inproc_shard(i)
+            self.servicers[i] = servicer
+            self._servers[i] = server
+            self.endpoints[i] = f"localhost:{server.port}"
+        else:
+            if self.procs[i].poll() is None:
+                stop_shard_processes([self.procs[i]])  # fence a zombie
+            procs, endpoints = spawn_shard_processes(
+                1, ENTRY_MODULE, self._shard_cli_flags, "edlt_kv_", self._boot_timeout,
+                shard_ids=[i],
+            )
+            self.procs[i] = procs[0]
+            self.endpoints[i] = endpoints[0]
+        if self._store is not None:
+            self._store.update_endpoints(self.endpoints, self.generations)
+        logger.info("KV shard %d relaunched at generation %d on %s", i,
+                    self.generations[i], self.endpoints[i])
+        return self.endpoints[i]
+
+    def refence(self) -> List[int]:
+        """Bump every slot's generation in place (KVRefence): the rows
+        and the mirror wiring survive, and every client still stamping
+        the old generation bounces. Idempotent by target."""
+        from elasticdl_tpu_torch.rpc.client import RpcClient
+
+        for i, endpoint in enumerate(self.endpoints):
+            target = self.generations[i] + 1
+            c = RpcClient(endpoint)
+            try:
+                c.call("KVRefence", {"generation": target}, timeout=10.0)
+            finally:
+                c.close()
+            self.generations[i] = target
+        if self._store is not None:
+            self._store.update_endpoints(self.endpoints, self.generations)
+        logger.info("KV shard group refenced: generations=%s", self.generations)
+        return list(self.generations)
 
     def store(self) -> ShardedEmbeddingStore:
         """The master's store client over the shards, once they listen."""
         if self._store is None:
-            self._store = ShardedEmbeddingStore(self.endpoints)
+            self._store = ShardedEmbeddingStore(self.endpoints, generations=self.generations)
             self._store.wait_ready(self._boot_timeout)
         return self._store
 
@@ -99,10 +201,12 @@ class KVShardGroup:
         if self._store is not None:
             self._store.close()
             self._store = None
+        for sv in self.servicers:
+            sv.close()
+        self.servicers = []
         for s in self._servers:
             s.stop()
         self._servers = []
-        self.servicers = []
         stop_shard_processes(self.procs)
         self.procs = []
         self.endpoints = []

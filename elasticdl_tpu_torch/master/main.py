@@ -47,15 +47,23 @@ prediction jobs:
    tear down: manager, backend, server, checkpoint writer, metrics
    sink, PS and KV shards.
 
+Whenever the job has PS or KV shards, the shard recovery plane
+(`master/recovery.py`) is armed before the workers start: a dead shard
+is fenced, relaunched at the next generation and restored, and the job
+goes on; the plane stops on every exit path, before the shards.
+
 Exit codes: 0 success; 1 boot or config error; 2 the job completed with
-dropped (poison) tasks, or every worker exited with tasks outstanding.
+dropped (poison) tasks, every worker exited with tasks outstanding, or a
+PS or KV shard was unrecoverable.
 
 At exit the master logs one line, `master summary: {json}`, with the
 job type, the server's seconds per method (handler and codec), the
 job's exactness block, each PS shard's counters (`ps_shards`: version,
 applied and duplicate pushes, apply and lock-wait seconds, pulls), the
 sparse plane (the store that served, its
-rows, the sparse apply's seconds), the relaunches and promotions, the completed evaluation
+rows, the sparse apply's seconds), the shard recovery plane
+(`recoveries` as [kind, shard, generation], `unrecoverable`, the
+groups' `generations` and each recovery's timeline), the relaunches and promotions, the completed evaluation
 jobs (`[version, metrics]`, and each one's seconds from its creation to
 its last task); `run(argv)` returns the same summary to an
 in-process caller.
@@ -65,7 +73,9 @@ environment passes to them as it is).
 
 Not ported yet: the aggregators, the k8s KV mode, the policy
 and observability planes, the tensorboard process,
-speculation, master migration and the k8s backend.
+speculation, master migration and the k8s backend (and with it the pod
+events that route a shard's death to the recovery plane: the plane
+polls the shard processes).
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ import json
 import logging
 import os
 import sys
+import threading
 import time
 
 from elasticdl_tpu_torch.common.args import (
@@ -299,6 +310,32 @@ def stop_shard_groups(servicer):
         servicer.kv_group.stop()
 
 
+def arm_recovery_plane(servicer, on_unrecoverable):
+    """The shard recovery plane, started, when the job has PS or KV
+    shards (else None)."""
+    if servicer.ps_group is None and servicer.kv_group is None:
+        return None
+    from elasticdl_tpu_torch.master.recovery import RecoveryPlane
+
+    plane = RecoveryPlane(servicer, ps_group=servicer.ps_group, kv_group=servicer.kv_group,
+                          on_unrecoverable=on_unrecoverable)
+    servicer.set_recovery_plane(plane)
+    plane.start()
+    return plane
+
+
+def recovery_summary(servicer, plane) -> dict:
+    return {
+        "recoveries": [list(r) for r in plane.recoveries()] if plane else [],
+        "unrecoverable": [list(u) for u in plane.unrecoverable()] if plane else [],
+        "recovery_timelines": plane.timelines() if plane else [],
+        "generations": {
+            "ps": list(servicer.ps_group.generations) if servicer.ps_group else [],
+            "kv": list(servicer.kv_group.generations) if servicer.kv_group else [],
+        },
+    }
+
+
 def make_backend(args):
     """The worker backend; raises ValueError for one not ported yet."""
     if args.worker_backend != "process":
@@ -311,9 +348,12 @@ def make_backend(args):
     return ProcessBackend(log_dir=os.environ.get(ENV_WORKER_LOG_DIR, ""))
 
 
-def run(argv=None):
+def run(argv=None, on_start=None):
     """(exit code, summary): the summary is None when the job did not
-    start."""
+    start. `on_start(servicer)`, for an in-process caller that watches
+    or perturbs the running job (its shard groups hang on the servicer),
+    runs once the server listens and the recovery plane is armed, before
+    the workers start."""
     args = master_parser().parse_args(argv)
     try:
         job_type = validate_master_args(args)
@@ -337,6 +377,8 @@ def run(argv=None):
         logger.error("master boot failed: %s", e)
         backend.stop()
         return 1, None
+    shard_lost = threading.Event()
+    plane = None
     try:
         if job_type == JobType.EVALUATION_ONLY:
             eval_service.start_standalone_job(
@@ -360,10 +402,15 @@ def run(argv=None):
             servicer.set_standby_fn(manager.is_standby)
             if args.training_data_dir:
                 servicer.set_sample_batch_fn(make_sample_batch_fn(args.training_data_dir))
+        plane = arm_recovery_plane(servicer, lambda kind, shard: shard_lost.set())
+        if on_start is not None:
+            on_start(servicer)
         t0 = time.perf_counter()
         manager.start_workers()
     except BaseException:
         # no shard process may outlive a failed start
+        if plane is not None:
+            plane.stop()
         stop_shard_groups(servicer)
         raise
 
@@ -372,6 +419,10 @@ def run(argv=None):
         while not dispatcher.finished() or (
             eval_service is not None and eval_service.has_pending()
         ):
+            if shard_lost.is_set():
+                logger.error("a PS or KV shard is unrecoverable: aborting the job")
+                exit_code = 2
+                break
             if manager.all_exited():
                 logger.error(
                     "all workers exited (relaunch budget spent) with "
@@ -388,10 +439,13 @@ def run(argv=None):
         if exit_code == 0 and args.output and servicer.model_initialized():
             servicer.save_latest_checkpoint(args.output)
             logger.info("Final model saved to %s", args.output)
-        deadline = time.monotonic() + EXIT_GRACE_SECONDS
+        # an aborted job's workers do not finish by themselves
+        deadline = time.monotonic() + (0.0 if shard_lost.is_set() else EXIT_GRACE_SECONDS)
         while not manager.all_exited() and time.monotonic() < deadline:
             time.sleep(0.1)
     finally:
+        if plane is not None:
+            plane.stop()
         manager.stop_relaunch_and_remove_workers()
         backend.stop()
         server.stop()
@@ -412,6 +466,7 @@ def run(argv=None):
         **servicer.exactness(),
         "sparse": sparse,
         "ps_shards": shards,
+        **recovery_summary(servicer, plane),
         "relaunches": manager.relaunches(),
         "promotions": manager.promotions(),
         "evaluations": [

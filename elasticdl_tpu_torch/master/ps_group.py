@@ -10,8 +10,7 @@ hosting modes, for the job's lifetime:
   elasticdl_tpu_torch.master.ps_shard_main` subprocess with its own
   interpreter, booted and stopped by `shard_host` (the environment, the
   transport tier included, passes on with the socket directory pinned,
-  so master, shards and workers meet on one tier; each shard's shm
-  segments are scoped by its own port).
+  so master, shards and workers meet on one tier).
 
 Each shard gets the zoo's optimizer (inproc: `optimizer_factory()`;
 process: the model-spec flags, from which the shard resolves it), the
@@ -25,13 +24,24 @@ whole model (a relaxed snapshot: the slices may straddle a step), and
 `stats` reads each shard's counters for the master's summary. `stop()`
 closes the client, stops the servers and terminates the processes.
 
-Not ported yet: the k8s pods, `poll_dead`, `relaunch_shard`, `refence`
-and the metrics scrape (the recovery and migration planes).
+A dead shard is not a job failure: the recovery plane
+(`master/recovery.py`) relaunches its slot. `generations` holds each
+slot's fencing epoch, which every client stamps on its requests;
+`poll_dead` reports each dead shard process once; `relaunch_shard` boots
+a slot again, empty, at the next generation, and moves the master's
+client to it (the plane then seeds it); `refence` moves every slot's
+generation in place (PSRefence). Each slot's shm segments are scoped by
+a job nonce and the slot, so that a relaunch sweeps its SIGKILLed
+predecessor's.
+
+Not ported yet: the k8s pods, `refence`'s caller (master migration) and
+the metrics scrape.
 """
 
 from __future__ import annotations
 
 import subprocess
+import uuid
 from typing import List, Optional
 
 import numpy as np
@@ -80,9 +90,15 @@ class PSShardGroup:
         )
         self._dedup_cap = self.dedup_cap_for(num_workers)
         self.endpoints: List[str] = []
+        # each slot's fencing generation, bumped on every relaunch
+        self.generations: List[int] = [0] * num_shards
+        # the shm segments' namespace: one nonce a job, stable a slot
+        self._shm_ns = uuid.uuid4().hex[:8]
         self._servers: list = []  # inproc only
+        self.servicers: list = []  # inproc only
         self.procs: List[subprocess.Popen] = []
         self._client: Optional[ShardedPS] = None
+        self._reported_dead: set = set()  # poll_dead: dead Popen objects
 
     @staticmethod
     def dedup_cap_for(num_workers: int, max_inflight_syncs: int = 8) -> int:
@@ -91,6 +107,10 @@ class PSShardGroup:
         flight a worker; x4 headroom, and the 512 floor of a servicer
         built alone."""
         return max(512, int(num_workers) * int(max_inflight_syncs) * 4)
+
+    @property
+    def num_shards(self) -> int:
+        return self._n
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -110,6 +130,8 @@ class PSShardGroup:
         flags = [
             "--shard_id", str(shard_id),
             "--num_shards", str(self._n),
+            "--generation", str(self.generations[shard_id]),
+            "--shm_scope", f"{self._shm_ns}.ps{shard_id}",
             "--dedup_cap", str(self._dedup_cap),
             "--grads_to_wait", str(self._sync_flags["grads_to_wait"]),
             "--staleness_window", str(self._sync_flags["staleness_window"]),
@@ -121,22 +143,94 @@ class PSShardGroup:
         return flags
 
     def _start_inproc(self):
-        from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
-        from elasticdl_tpu_torch.master.ps_shard import PSShardServicer
-        from elasticdl_tpu_torch.rpc.server import RpcServer
-
         try:
             for i in range(self._n):
-                opt = PSOptimizer(self._opt_factory()) if self._opt_factory is not None else None
-                servicer = PSShardServicer(i, self._n, optimizer=opt, dedup_cap=self._dedup_cap,
-                                           **self._sync_flags)
-                server = RpcServer(servicer.handlers(), port=0)
-                server.start()
+                servicer, server = self._build_inproc_shard(i)
+                self.servicers.append(servicer)
                 self._servers.append(server)
                 self.endpoints.append(f"localhost:{server.port}")
         except BaseException:
             self.stop()
             raise
+
+    def _build_inproc_shard(self, i: int):
+        from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
+        from elasticdl_tpu_torch.master.ps_shard import PSShardServicer
+        from elasticdl_tpu_torch.rpc.server import RpcServer
+
+        opt = PSOptimizer(self._opt_factory()) if self._opt_factory is not None else None
+        servicer = PSShardServicer(i, self._n, optimizer=opt, generation=self.generations[i],
+                                   dedup_cap=self._dedup_cap, **self._sync_flags)
+        server = RpcServer(servicer.handlers(), port=0, shm_scope=f"{self._shm_ns}.ps{i}",
+                           shm_generation=self.generations[i])
+        server.start()
+        return servicer, server
+
+    # -- the recovery plane's hooks --------------------------------------------
+
+    def poll_dead(self) -> List[tuple]:
+        """[(shard_id, exit code)] of shard processes that died, each dead
+        process reported once. The key is the Popen object, not (shard,
+        generation): the relaunch bumps the generation before the new
+        process takes the slot, so a generation key would report the old
+        corpse again under the new generation, and then miss a real
+        second death."""
+        out = []
+        for i, p in enumerate(self.procs):
+            if p is None or p.poll() is None or p in self._reported_dead:
+                continue
+            self._reported_dead.add(p)
+            out.append((i, p.returncode))
+        return out
+
+    def relaunch_shard(self, shard_id: int) -> str:
+        """Boot slot `shard_id` again at the next generation; it boots
+        empty, and the caller (the recovery plane) seeds it before the
+        endpoint is advertised to the workers. The master's client moves
+        to it. Returns the new endpoint."""
+        i = int(shard_id)
+        self.generations[i] += 1
+        if self._mode == "inproc":
+            self._servers[i].stop()
+            servicer, server = self._build_inproc_shard(i)
+            self.servicers[i] = servicer
+            self._servers[i] = server
+            self.endpoints[i] = f"localhost:{server.port}"
+        else:
+            if self.procs[i].poll() is None:
+                stop_shard_processes([self.procs[i]])  # fence a zombie
+            procs, endpoints = spawn_shard_processes(
+                1, ENTRY_MODULE, self._shard_cli_flags, "edlt_ps_", BOOT_TIMEOUT_SECONDS,
+                shard_ids=[i],
+            )
+            self.procs[i] = procs[0]
+            self.endpoints[i] = endpoints[0]
+        if self._client is not None:
+            self._client.update_endpoints(self.endpoints, self.generations)
+        logger.info("PS shard %d relaunched at generation %d on %s", i,
+                    self.generations[i], self.endpoints[i])
+        return self.endpoints[i]
+
+    def refence(self) -> List[int]:
+        """Bump every slot's generation in place (PSRefence): the slices
+        survive, and every client still stamping the old generation
+        bounces with FAILED_PRECONDITION. Idempotent by target: a re-sent
+        cutover re-sends the current generation, which the shard takes
+        as a no-op."""
+        from elasticdl_tpu_torch.rpc.client import RpcClient
+
+        for i, endpoint in enumerate(self.endpoints):
+            target = self.generations[i] + 1
+            c = RpcClient(endpoint)
+            try:
+                c.call("PSRefence", {"generation": target}, timeout=10.0)
+            finally:
+                c.close()
+            self.generations[i] = target
+        if self._client is not None:
+            self._client.update_endpoints(self.endpoints, self.generations)
+        logger.info("PS shard group refenced: generations=%s", self.generations)
+        return list(self.generations)
 
     def stop(self):
         if self._client is not None:
@@ -145,6 +239,7 @@ class PSShardGroup:
         for s in self._servers:
             s.stop()
         self._servers = []
+        self.servicers = []
         stop_shard_processes(self.procs)
         self.procs = []
         self.endpoints = []
@@ -157,7 +252,7 @@ class PSShardGroup:
         if self._client is None:
             if n_params is None:
                 raise RuntimeError("the PS group's client needs n_params once")
-            client = ShardedPS(self.endpoints, int(n_params))
+            client = ShardedPS(self.endpoints, int(n_params), generations=self.generations)
             try:
                 client.wait_ready(BOOT_TIMEOUT_SECONDS)
             except BaseException:

@@ -40,9 +40,17 @@ the response's `model_dtype` (bfloat16 halves the bytes) happens after
 the lock is released. `stats()` counts applied and duplicate pushes, the
 seconds spent applying under the lock and waiting for it, and the pulls.
 
+Fencing (`rpc/fencing.py`): the servicer carries its slot's
+`generation`, which the group bumps on every relaunch (a relaunch builds
+a new servicer) and `PSRefence` moves in place (the master-migration
+cutover). Every handler but `UNFENCED_HANDLERS` rejects a request whose
+`epoch` names another generation (FAILED_PRECONDITION on the wire,
+never re-sent). A relaunched shard boots empty; the recovery plane
+(`master/recovery.py`) seeds it through PSInit and PSOptRestore.
+
 Not ported yet: bucketed and combined pushes and the fan-in buffers, the
-fencing epoch and PSRefence, the pull prepack cache and the shm
-broadcast publisher, the trace and metrics reads.
+pull prepack cache and the shm broadcast publisher, the trace and
+metrics reads.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.rpc.fencing import EpochFencedError, check_epoch
 
 logger = get_logger(__name__)
 
@@ -87,10 +96,15 @@ class PSShardServicer:
         use_async: bool = False,
         lr_staleness_modulation: bool = False,
         staleness_window: int = 0,
+        generation: int = 0,
         dedup_cap: Optional[int] = None,
     ):
         self.shard_id = shard_id
         self.num_shards = num_shards
+        # the slot's fencing epoch: written under self._lock (PSRefence),
+        # read bare by _check_epoch (one int: a request racing the bump
+        # is rejected either way)
+        self.generation = int(generation)
         self._opt = optimizer
         self._grads_to_wait = grads_to_wait
         self._use_async = use_async
@@ -105,10 +119,17 @@ class PSShardServicer:
         self._seen_reports: "OrderedDict[str, None]" = OrderedDict()
         self._seen_cap = max(64, int(dedup_cap)) if dedup_cap else DEFAULT_DEDUP_CAP
         self._applied_pushes = 0
+        self._first_apply_at: Optional[float] = None  # time.time() of the first
         self._duplicate_pushes = 0
         self._pulls = 0
         self._apply_seconds = 0.0
         self._lock_wait_seconds = 0.0
+
+    #: Handlers that skip the epoch check: the stats read answers for the
+    #: process (what a postmortem wants from a fenced shard), and
+    #: PSRefence is the fence mover: it carries the NEW generation, and
+    #: its own monotonicity check is its fence.
+    UNFENCED_HANDLERS = frozenset({"PSStats", "PSRefence"})
 
     def handlers(self) -> Dict[str, Any]:
         return {
@@ -118,8 +139,28 @@ class PSShardServicer:
             "PSPushDelta": self.push_delta,
             "PSOptState": self.opt_state,
             "PSOptRestore": self.opt_restore,
+            "PSRefence": self.refence,
             "PSStats": lambda req: self.stats(),
         }
+
+    def _check_epoch(self, req: dict):  # edl-lint: disable=lock-discipline -- bare read of the one int epoch word: a request racing the refence is rejected either way
+        check_epoch(req, self.generation, "ps", self.shard_id)
+
+    def refence(self, req: dict) -> dict:
+        """Move the generation in place under the live slice (the
+        master-migration cutover): state survives, and every client
+        still stamping the old generation bounces from then on.
+        Monotonic and idempotent by target: the current generation
+        answers ok (a re-sent bump), an older one is fenced."""
+        target = int(req.get("generation", -1))
+        with self._lock:
+            if target < self.generation:
+                raise EpochFencedError("ps", self.shard_id, self.generation, target)
+            if target > self.generation:
+                logger.info("PS shard %d refenced: generation %d -> %d",
+                            self.shard_id, self.generation, target)
+                self.generation = target
+            return {"generation": self.generation}
 
     @property
     def version(self) -> int:
@@ -130,6 +171,7 @@ class PSShardServicer:
 
     def init_slice(self, req: dict) -> dict:
         """SETNX: the first initializer wins; later ones get the version."""
+        self._check_epoch(req)
         with self._lock:
             if self._vec is None:
                 self._vec = np.array(req["vec"], dtype=np.float32)
@@ -142,6 +184,7 @@ class PSShardServicer:
         """The slice and its version; None for the slice when the shard
         holds none yet (version -1) or, under `only_if_newer`, when it is
         not newer than the caller's `version`."""
+        self._check_epoch(req)
         with self._lock:
             if self._vec is None:
                 return {"version": -1, "vec": None}
@@ -155,6 +198,7 @@ class PSShardServicer:
     def push_grad(self, req: dict) -> dict:
         """A per-step gradient slice: applied at once (async), or summed
         until `grads_to_wait` reports (windowed sync)."""
+        self._check_epoch(req)
         grad = codec.delta_to_f32(req["grad"])  # decoded outside the lock
         t0 = time.perf_counter()
         with self._lock:
@@ -206,6 +250,7 @@ class PSShardServicer:
         """A window delta slice: added, the version advances by `steps`,
         and the merged slice goes back when the pusher's base fell behind
         (another worker synced in between) or it asks for it."""
+        self._check_epoch(req)
         delta = codec.delta_to_f32(req["delta"])  # decoded outside the lock
         t0 = time.perf_counter()
         with self._lock:
@@ -242,6 +287,7 @@ class PSShardServicer:
 
     def opt_state(self, req: dict) -> dict:
         """The slice's optimizer-state leaves (None before the first apply)."""
+        self._check_epoch(req)
         with self._lock:
             leaves = (
                 self._opt.state_snapshot()
@@ -251,7 +297,9 @@ class PSShardServicer:
         return {"leaves": leaves}
 
     def opt_restore(self, req: dict) -> dict:
-        """Adopt a checkpoint's optimizer-state leaves for this slice."""
+        """Adopt a checkpoint's (or the recovery plane's mirrored)
+        optimizer-state leaves for this slice."""
+        self._check_epoch(req)
         with self._lock:
             if self._vec is None:
                 raise ValueError("opt restore before slice init")
@@ -261,16 +309,19 @@ class PSShardServicer:
 
     def stats(self) -> dict:
         """Push accounting (applied + duplicate = pushes received), the
-        version, the slice length, the pulls served, the seconds the
-        pushes spent applying under the lock and waiting for it, and the
-        hosting process's pid."""
+        generation, the version, the slice length, the pulls served, the seconds the
+        pushes spent applying under the lock and waiting for it, the wall
+        clock of the first applied push (a relaunched shard's first one
+        closes its recovery's timeline), and the hosting process's pid."""
         with self._lock:
             return {
                 "shard_id": self.shard_id,
+                "generation": self.generation,
                 "pid": os.getpid(),
                 "version": self._version,
                 "size": int(self._vec.size) if self._vec is not None else 0,
                 "applied_pushes": self._applied_pushes,
+                "first_apply_at": self._first_apply_at,
                 "duplicate_pushes": self._duplicate_pushes,
                 "pulls": self._pulls,
                 "apply_seconds": self._apply_seconds,
@@ -302,6 +353,8 @@ class PSShardServicer:
 
     def _record_applied(self, req: dict):  # edl-lint: disable=lock-discipline -- caller holds self._lock
         self._applied_pushes += 1
+        if self._first_apply_at is None:
+            self._first_apply_at = time.time()
         key = req.get("report_key")
         if not key:
             return

@@ -2,7 +2,8 @@
 
     python -m elasticdl_tpu_torch.master.ps_shard_main --shard_id 0 \\
         --num_shards 2 --model_def transformer_lm_zoo.custom_model \\
-        --minibatch_size 8 [--port 0 --port_file <path>] [--use_async ...]
+        --minibatch_size 8 [--port 0 --port_file <path>] [--use_async ...] \\
+        [--generation 1 --shm_scope <job nonce>.ps0]
 
 The reference's `elasticdl_tpu/master/ps_shard_main.py`: one
 `PSShardServicer` (a contiguous slice of the flat model and its
@@ -15,7 +16,11 @@ temporary file and renamed), keeps its slice and optimizer in host
 memory (the optimizer runs in torch on the CPU, as the master's PS
 does: a shard never touches the card), and exits 0 on SIGTERM or SIGINT
 after closing its listeners, logging its `stats()` as `PS shard stats:
-{json}`.
+{json}`. `--generation` is the slot's fencing epoch (bumped on every
+relaunch: requests stamped with another are rejected, `rpc/fencing.py`),
+and `--shm_scope` the slot's shm segment namespace, stable across
+relaunches, so that a relaunch sweeps a SIGKILLed predecessor's
+segments.
 """
 
 from __future__ import annotations
@@ -51,6 +56,12 @@ def ps_shard_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_async", action="store_true")
     p.add_argument("--lr_staleness_modulation", action="store_true")
     p.add_argument("--staleness_window", type=non_neg_int, default=0)
+    p.add_argument("--generation", type=non_neg_int, default=0,
+                   help="fencing epoch of this shard slot (bumped per relaunch; requests "
+                   "carrying another epoch are rejected)")
+    p.add_argument("--shm_scope", default="",
+                   help="shm-tier segment namespace of this shard slot (stable across "
+                   "relaunches; keys the sweep of a dead predecessor's segments)")
     p.add_argument("--dedup_cap", type=non_neg_int, default=0,
                    help="push dedup ring capacity (0: the servicer's default; the "
                    "group sizes it by the job's workers)")
@@ -84,11 +95,14 @@ def main(argv=None) -> int:
         use_async=args.use_async,
         lr_staleness_modulation=args.lr_staleness_modulation,
         staleness_window=args.staleness_window,
+        generation=args.generation,
         dedup_cap=args.dedup_cap or None,
     )
-    server = RpcServer(servicer.handlers(), port=args.port)
+    server = RpcServer(servicer.handlers(), port=args.port,
+                       shm_scope=args.shm_scope or None, shm_generation=args.generation)
     server.start()
-    logger.info("PS shard %d/%d listening on :%d", args.shard_id, args.num_shards, server.port)
+    logger.info("PS shard %d/%d (generation %d) listening on :%d", args.shard_id,
+                args.num_shards, args.generation, server.port)
     if args.port_file:
         tmp = args.port_file + ".tmp"
         with open(tmp, "w") as f:

@@ -82,6 +82,16 @@ checkpoints carry each shard's optimizer state (`{"kind": "sharded",
 "shards": [...]}`); GetPSConfig advertises the endpoints and the model's
 size.
 
+The shard recovery plane (`master/recovery.py`, `set_recovery_plane`):
+GetPSConfig also advertises each shard's fencing generation and the
+shards being recovered (`recovering`); PSRestoreFromWorker hands a
+worker's restore slice to the plane (refused without one);
+ReportWindowMeta keeps each PS shard's highest reported version, the
+plane's restore floor (`shard_version_floor`); and a sparse apply that
+hits a KV shard's outage waits out the KV recovery and applies again,
+since the report's dense slices already landed on the PS shards and a
+failure would requeue them.
+
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
 
@@ -104,6 +114,7 @@ from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
+from elasticdl_tpu_torch.rpc.fencing import is_shard_outage_chain
 
 logger = get_logger(__name__)
 
@@ -198,6 +209,9 @@ class MasterServicer:
         self.duplicate_local_updates = 0
         self._standby_fn = None  # fn(worker_id) -> bool
         self._sample_batch_fn = None  # fn(n) -> list of records
+        self._recovery_plane = None
+        # each PS shard's highest version reported by ReportWindowMeta
+        self._shard_version_max: Optional[list] = None
 
     def handlers(self) -> Dict[str, Any]:
         return {
@@ -214,6 +228,7 @@ class MasterServicer:
             "ReportWindowMeta": self.report_window_meta,
             "EmbeddingLookup": self.embedding_lookup,
             "EmbeddingUpdate": self.embedding_update,
+            "PSRestoreFromWorker": self.ps_restore_from_worker,
         }
 
     # -- model state --------------------------------------------------------
@@ -239,12 +254,14 @@ class MasterServicer:
         store = self._embedding_store
         if store is None:
             return None
+        with self._sparse_lock:
+            apply_seconds = self.sparse_apply_seconds
         if self.kv_group is not None:
             shards = store.shard_lens()
             return {"store": [s["store"] for s in shards], "rows": [s["n"] for s in shards],
-                    "apply_seconds": self.sparse_apply_seconds}
+                    "apply_seconds": apply_seconds}
         return {"store": type(store).__name__, "rows": len(store),
-                "apply_seconds": self.sparse_apply_seconds}
+                "apply_seconds": apply_seconds}
 
     def model_initialized(self) -> bool:
         with self._lock:
@@ -351,15 +368,55 @@ class MasterServicer:
         return {}
 
     def get_ps_config(self, req: dict) -> dict:
-        """Shard discovery for a booting worker: the PS shards' endpoints
-        and the model's size (none, and -1, on the single PS), and the KV
-        shards' endpoints when the embedding tables live there."""
+        """Shard discovery for a booting or recovering worker: the PS
+        shards' endpoints and generations and the model's size (none, and
+        -1, on the single PS), the KV shards' endpoints and generations
+        when the embedding tables live there, and the recovery plane's
+        `recovering` lists: a worker that sees a PS shard listed offers
+        its restore snapshot (PSRestoreFromWorker) and waits to
+        re-resolve until the lists clear."""
         kv = list(self.kv_group.endpoints) if self.kv_group is not None else []
+        kv_gens = list(self.kv_group.generations) if self.kv_group is not None else []
+        plane = self._recovery_plane
+        recovering = plane.status() if plane is not None else {"ps": [], "kv": []}
+        resp = {"endpoints": [], "n_params": -1, "kv_endpoints": kv, "ps_generations": [],
+                "kv_generations": kv_gens, "recovering": recovering}
         if self.ps_group is None:
-            return {"endpoints": [], "n_params": -1, "kv_endpoints": kv}
+            return resp
         with self._lock:
             n = self._n_params() if self._params is not None else -1
-        return {"endpoints": list(self.ps_group.endpoints), "n_params": n, "kv_endpoints": kv}
+        resp.update(endpoints=list(self.ps_group.endpoints), n_params=n,
+                    ps_generations=list(self.ps_group.generations))
+        return resp
+
+    # -- the recovery plane --------------------------------------------------
+
+    def set_recovery_plane(self, plane):
+        """Attach the RecoveryPlane: GetPSConfig advertises its fenced
+        shards, and PSRestoreFromWorker's uploads go to it."""
+        self._recovery_plane = plane
+
+    def shard_version_floor(self, shard_id: int) -> int:
+        """The highest version PS shard `shard_id` was reported at: the
+        recovery plane's restore fence (-1 before any report)."""
+        with self._lock:
+            vm = self._shard_version_max
+            i = int(shard_id)
+            if vm is None or i >= len(vm):
+                return -1
+            return vm[i]
+
+    def ps_restore_from_worker(self, req: dict) -> dict:
+        """A worker's restore slice for a recovering PS shard. `accepted`
+        is False without a plane or when the shard is not recovering (a
+        late upload); a re-sent one is absorbed (the plane keeps the
+        highest version)."""
+        plane = self._recovery_plane
+        if plane is None:
+            return {"accepted": False}
+        return {"accepted": plane.offer_upload(
+            int(req.get("worker_id", -1)), int(req["shard_id"]), req["vec"], int(req["version"])
+        )}
 
     # -- RPC: the embedding plane -------------------------------------------
 
@@ -377,13 +434,43 @@ class MasterServicer:
 
     def _apply_sparse(self, edl_grads):
         """Apply {table: IndexedRows} to the store; callers run it after
-        releasing the model lock and before responding."""
+        releasing the model lock and before responding.
+
+        With a recovery plane, a KV shard's outage does not fail the
+        report (its dense part already applied, and a failure would
+        requeue and apply it twice): under the sparse lock (later reports
+        queue behind the outage) the apply waits until the plane has no
+        KV shard recovering, then runs again, over the restored rows (the
+        mirror's bounded staleness)."""
         if not edl_grads or self._sparse_opt is None:
             return
         t0 = time.perf_counter()
         with self._sparse_lock:
-            self._sparse_opt.apply_gradients(edl_grads)
+            try:
+                self._sparse_opt.apply_gradients(edl_grads)
+            except Exception as exc:
+                if self._recovery_plane is None or not is_shard_outage_chain(exc):
+                    raise
+                logger.warning("sparse apply hit a KV shard outage, riding through its "
+                               "recovery: %s", exc)
+                self._ride_through_kv_recovery(edl_grads)
             self.sparse_apply_seconds += time.perf_counter() - t0
+
+    def _ride_through_kv_recovery(self, edl_grads, deadline_seconds: float = 90.0):  # edl-lint: disable=lock-discipline -- caller holds self._sparse_lock: no sparse apply proceeds mid-recovery
+        deadline = time.monotonic() + deadline_seconds
+        while True:
+            time.sleep(0.5)
+            if self._recovery_plane.status().get("kv"):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("KV recovery did not complete within the sparse "
+                                       "apply's ride-through deadline")
+                continue
+            try:
+                self._sparse_opt.apply_gradients(edl_grads)
+                return
+            except Exception as exc:
+                if time.monotonic() > deadline or not is_shard_outage_chain(exc):
+                    raise
 
     # -- RPC: model ---------------------------------------------------------
 
@@ -494,6 +581,13 @@ class MasterServicer:
             if advanced:
                 self._version = version
                 self._applied_update_steps += version - prev
+            if versions:
+                # each shard's maximum: the recovery plane's restore fence
+                vm = self._shard_version_max
+                if vm is None or len(vm) != len(versions):
+                    vm = self._shard_version_max = [-1] * len(versions)
+                for i, v in enumerate(versions):
+                    vm[i] = max(vm[i], v)
             if req.get("aux_state") is not None:
                 self._aux = _own(req["aux_state"])
             if req.get("want_aux"):

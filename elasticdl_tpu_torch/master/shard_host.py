@@ -14,6 +14,9 @@ workers meet in one place, and this checkout on `PYTHONPATH`. The port
 files' directory is removed once every shard has published, or when the
 boot fails.
 
+A relaunch of one slot (the recovery plane's) boots it alone through the
+same path (`shard_ids=[i]`).
+
 Not ported yet: the k8s pods and the chaos scoping of the children.
 """
 
@@ -25,7 +28,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from elasticdl_tpu_torch.common.constants import ENV_UDS_DIR
 
@@ -51,29 +54,33 @@ def spawn_shard_processes(
     flags_fn: Callable[[int], List[str]],
     prefix: str,
     boot_timeout: float,
+    shard_ids: Optional[List[int]] = None,
 ) -> Tuple[List[subprocess.Popen], List[str]]:
     """Boot n shard subprocesses of `entry_module` (shard i gets
-    `flags_fn(i)`); returns (processes, endpoints). A boot failure stops
-    every process already spawned before it raises."""
+    `flags_fn(i)`); returns (processes, endpoints). `shard_ids` names the
+    slots to boot instead of range(n) (a relaunch boots one:
+    shard_ids=[i]). A boot failure stops every process already spawned
+    before it raises."""
+    ids = list(shard_ids) if shard_ids is not None else list(range(n))
     port_dir = tempfile.mkdtemp(prefix=prefix)
     env = shard_env()
     procs: List[subprocess.Popen] = []
     endpoints: List[str] = []
     try:
         port_files = []
-        for i in range(n):
+        for i in ids:
             pf = os.path.join(port_dir, f"shard-{i}.port")
             port_files.append(pf)
             argv = [sys.executable, "-m", entry_module, "--port", "0", "--port_file", pf]
             procs.append(subprocess.Popen(argv + flags_fn(i), env=env))
         deadline = time.monotonic() + boot_timeout
-        for i, pf in enumerate(port_files):
+        for k, pf in enumerate(port_files):
             while not os.path.exists(pf):
-                if procs[i].poll() is not None:
-                    raise RuntimeError(f"shard {i} ({entry_module}) exited "
-                                       f"rc={procs[i].returncode} before publishing its port")
+                if procs[k].poll() is not None:
+                    raise RuntimeError(f"shard {ids[k]} ({entry_module}) exited "
+                                       f"rc={procs[k].returncode} before publishing its port")
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"shard {i} ({entry_module}) did not publish a port")
+                    raise TimeoutError(f"shard {ids[k]} ({entry_module}) did not publish a port")
                 time.sleep(0.05)
             with open(pf) as f:
                 endpoints.append(f"localhost:{int(f.read().strip())}")

@@ -13,6 +13,13 @@ ids by shard and fans out on a thread pool, one connection a shard.
 Lookups, snapshots and lengths are reads, and updates and restores
 overwrite rows (or SETNX them), so every KV method is re-sent on a
 transient failure, as the reference classifies them.
+
+Fencing (`rpc/fencing.py`): with `generations`, every request carries
+its shard's as its `epoch`, so a relaunched or zombie shard refuses a
+client that holds another (FAILED_PRECONDITION, never re-sent).
+`update_endpoints` swaps in the endpoints and generations that the
+master advertises after a KV shard's recovery; the shard count is fixed
+for the job (ids never re-hash).
 """
 
 from __future__ import annotations
@@ -29,11 +36,16 @@ from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
 
 
 class ShardedEmbeddingStore:
-    def __init__(self, endpoints):
+    def __init__(self, endpoints, generations=None):
         if not endpoints:
             raise ValueError("ShardedEmbeddingStore needs >= 1 endpoint")
         self.endpoints = list(endpoints)
+        # each shard's fencing epoch, stamped on its requests (None: unfenced)
+        self.generations = list(generations) if generations else None
         self._clients = [RpcClient(ep) for ep in self.endpoints]
+        # the links of earlier endpoints, closed with this client: a
+        # fan-out or prefetch thread may still be in a call on one
+        self._retired: list = []
         self._pool = ThreadPoolExecutor(
             max_workers=len(self.endpoints), thread_name_prefix="kv-shard"
         )
@@ -48,7 +60,21 @@ class ShardedEmbeddingStore:
         return [c.tier for c in self._clients]
 
     def _call(self, s: int, method: str, req: dict) -> dict:
+        if self.generations is not None:
+            req["epoch"] = self.generations[s]
         return self._clients[s].call(method, req, idempotent=True)
+
+    def update_endpoints(self, endpoints, generations=None):
+        """Re-resolution after a shard's relaunch: the new endpoints and
+        generations (the same shard count)."""
+        if len(endpoints) != len(self.endpoints):
+            raise ValueError(
+                f"re-resolution changed the shard count {len(self.endpoints)} -> {len(endpoints)}"
+            )
+        self._retired.extend(self._clients)
+        self._clients = [RpcClient(ep) for ep in endpoints]
+        self.endpoints = list(endpoints)
+        self.generations = list(generations) if generations else None
 
     def wait_ready(self, timeout: float = 30.0):
         """One deadline shared by every shard; the waits run at once."""
@@ -146,5 +172,6 @@ class ShardedEmbeddingStore:
     def close(self):
         # drain in-flight calls before the connections close
         self._pool.shutdown(wait=True)
-        for c in self._clients:
+        for c in self._retired + self._clients:
             c.close()
+        self._retired = []

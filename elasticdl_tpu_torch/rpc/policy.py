@@ -6,7 +6,8 @@ without grpc:
 - `StatusCode` carries the gRPC code names and values that the port's
   transport raises;
 - `PolicyRpcError` is the error every client call raises, with
-  `.code()` and `.details()` as a grpc.RpcError has them;
+  `.code()` and `.details()` as a grpc.RpcError has them (`rpc/fencing.py` classifies
+  a fenced call and a shard outage on them);
 - `RetryPolicy` retries an idempotent call on UNAVAILABLE or
   DEADLINE_EXCEEDED with exponential backoff and deterministic jitter (a
   hash of seed, method and attempt, so a fixed seed reproduces every
@@ -36,7 +37,7 @@ class StatusCode(enum.Enum):
     UNKNOWN = 2
     INVALID_ARGUMENT = 3
     DEADLINE_EXCEEDED = 4
-    FAILED_PRECONDITION = 9
+    FAILED_PRECONDITION = 9  # a fenced shard call (rpc/fencing.py): never re-sent
     UNIMPLEMENTED = 12
     INTERNAL = 13
     UNAVAILABLE = 14
@@ -58,12 +59,19 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
 #: `report_key` (`DEDUP_KEYED_METHODS`); the port's own stats read,
 #: PSStats, is not re-sent. ReportWindowMeta is not (a
 #: mirror of pushes already applied; a lost one falls through to the task
-#: requeue, as in the reference). The KV shards' methods are classified
-#: where their client calls them (`rpc/kv_client.py`).
+#: requeue, as in the reference). The recovery plane's are: a worker's
+#: restore upload (the plane keeps the highest version offered), the
+#: in-place refences (idempotent by target generation; a stale one is
+#: fenced, and FAILED_PRECONDITION is never re-sent anyway), and the KV
+#: shards' reads, overwrites and mirror traffic, as the reference
+#: classifies them.
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
     {"GetModel", "GetAux", "GetPSConfig", "GetSampleBatch", "ReportTaskResult",
      "EmbeddingLookup", "ReportLocalUpdate",
-     "PSInit", "PSPull", "PSPushGrad", "PSPushDelta", "PSOptState", "PSOptRestore"}
+     "PSInit", "PSPull", "PSPushGrad", "PSPushDelta", "PSOptState", "PSOptRestore",
+     "PSRefence", "PSRestoreFromWorker",
+     "KVLookup", "KVUpdate", "KVSnapshot", "KVRestore", "KVLen",
+     "KVMirror", "KVMirrorSnapshot", "KVSetMirror", "KVRefence"}
 )
 
 #: Mutations that are safe to re-send only because the receiver dedups

@@ -17,8 +17,19 @@ ring only holds that promise while it still remembers the key, so the
 group sizes it by the keys that can be in flight (num_workers x syncs
 in flight a worker, with headroom: `PSShardGroup.dedup_cap_for`).
 
-Not ported yet: the aggregation-tree route, bucketed pushes, the
-asynchronous pull, the fencing epochs and `update_endpoints`.
+Fencing (`rpc/fencing.py`): with `generations`, every shard request
+carries its shard's generation as its `epoch` (`_stamp_epoch`), so a
+relaunched or zombie shard refuses a client that holds another
+(FAILED_PRECONDITION, never re-sent). After a shard's recovery,
+`update_endpoints` swaps in the endpoints and generations that the
+master advertises; the shard count is fixed for the job, so the slices
+stand. A push's `report_key` may be pinned by the caller: one key spans
+the whole fan-out, so a push torn by a shard's death is replayed under
+it after the recovery, the shards that applied it absorb the replay and
+the restored shard applies it, and each slice gets it exactly once.
+
+Not ported yet: the aggregation-tree route, bucketed pushes and the
+asynchronous pull.
 """
 
 from __future__ import annotations
@@ -39,13 +50,19 @@ from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
 class ShardedPS:
     """Fan-out client over the PS shard endpoints."""
 
-    def __init__(self, endpoints: List[str], n_params: int):
+    def __init__(self, endpoints: List[str], n_params: int,
+                 generations: Optional[List[int]] = None):
         if not endpoints:
             raise ValueError("ShardedPS needs at least one endpoint")
         self.endpoints = list(endpoints)
         self.n_params = int(n_params)
         self.bounds = slice_boundaries(self.n_params, len(self.endpoints))
+        # each shard's fencing epoch (None: unfenced)
+        self.generations = list(generations) if generations else None
         self._clients = [RpcClient(ep) for ep in self.endpoints]
+        # the links of earlier endpoints, closed with this client: a
+        # fan-out thread may still be in a call on one
+        self._retired: list = []
         self._pool = ThreadPoolExecutor(
             max_workers=len(self.endpoints), thread_name_prefix="ps-shard"
         )
@@ -59,11 +76,28 @@ class ShardedPS:
         """The transport tier of each shard's link."""
         return [c.tier for c in self._clients]
 
+    def _stamp_epoch(self, req: dict, i: int) -> dict:
+        if self.generations is not None:
+            req["epoch"] = self.generations[i]
+        return req
+
+    def update_endpoints(self, endpoints: List[str], generations: Optional[List[int]] = None):
+        """Re-resolution after a shard's relaunch: the new endpoints and
+        generations (the same shard count: slices do not re-split)."""
+        if len(endpoints) != len(self.endpoints):
+            raise ValueError(
+                f"re-resolution changed the shard count {len(self.endpoints)} -> {len(endpoints)}"
+            )
+        self._retired.extend(self._clients)
+        self._clients = [RpcClient(ep) for ep in endpoints]
+        self.endpoints = list(endpoints)
+        self.generations = list(generations) if generations else None
+
     def rpc_seconds(self) -> Dict[str, float]:
         """Seconds per method summed over the shard links (the calls run
         at once, so this exceeds the fan-out's wall clock)."""
         out: Dict[str, float] = {}
-        for c in self._clients:
+        for c in self._retired + self._clients:
             for method, s in c.seconds.items():
                 out[method] = out.get(method, 0.0) + s
         return out
@@ -96,7 +130,8 @@ class ShardedPS:
 
         def do(c, i):
             s, e = self.bounds[i]
-            return c.call("PSInit", {"vec": vec[s:e], "version": version})["version"]
+            req = {"vec": vec[s:e], "version": version}
+            return c.call("PSInit", self._stamp_epoch(req, i))["version"]
 
         return self._map(do)
 
@@ -116,7 +151,7 @@ class ShardedPS:
                 req["version"] = versions[i]
             if model_dtype:
                 req["model_dtype"] = model_dtype
-            return c.call("PSPull", req)
+            return c.call("PSPull", self._stamp_epoch(req, i))
 
         resps = self._map(do)
         new_versions = [r["version"] for r in resps]
@@ -128,7 +163,7 @@ class ShardedPS:
         if missing:
             def refill(c, i):
                 req = {"model_dtype": model_dtype} if model_dtype else {}
-                return c.call("PSPull", req)
+                return c.call("PSPull", self._stamp_epoch(req, i))
 
             futs = [(i, self._pool.submit(refill, self._clients[i], i)) for i in missing]
             for i, f in futs:
@@ -171,7 +206,7 @@ class ShardedPS:
             }
             if model_dtype:
                 req["model_dtype"] = model_dtype
-            return c.call("PSPushDelta", req)
+            return c.call("PSPushDelta", self._stamp_epoch(req, i))
 
         resps = self._map(do)
         if duplicates is not None:
@@ -207,7 +242,7 @@ class ShardedPS:
             }
             if model_dtype:
                 req["model_dtype"] = model_dtype
-            return c.call("PSPushGrad", req)
+            return c.call("PSPushGrad", self._stamp_epoch(req, i))
 
         resps = self._map(do)
         new_versions = [r["version"] for r in resps]
@@ -218,7 +253,15 @@ class ShardedPS:
 
     def export_opt(self) -> List[Optional[list]]:
         """Each shard's optimizer-state leaves (exact resume)."""
-        return [r["leaves"] for r in self._map(lambda c, i: c.call("PSOptState", {}))]
+        return [
+            r["leaves"]
+            for r in self._map(lambda c, i: c.call("PSOptState", self._stamp_epoch({}, i)))
+        ]
+
+    def export_opt_shard(self, i: int) -> Optional[list]:
+        """One shard's optimizer-state leaves (the recovery plane's
+        mirror reads the shards one by one)."""
+        return self._clients[i].call("PSOptState", self._stamp_epoch({}, i))["leaves"]
 
     def restore_opt(self, shards: List[Optional[list]]):
         if len(shards) != self.num_shards:
@@ -226,11 +269,20 @@ class ShardedPS:
                 f"opt state has {len(shards)} shards, the group has {self.num_shards}: "
                 "exact resume needs the same --num_ps as the checkpointing job"
             )
-        self._map(lambda c, i: c.call("PSOptRestore", {"leaves": shards[i]}))
+        self._map(
+            lambda c, i: c.call("PSOptRestore", self._stamp_epoch({"leaves": shards[i]}, i))
+        )
 
-    def stats(self) -> List[dict]:
-        """Each shard's `PSShardServicer.stats()`."""
-        return self._map(lambda c, i: c.call("PSStats", {}))
+    def stats(self) -> List[Optional[dict]]:
+        """Each shard's `PSShardServicer.stats()`; None for a shard that
+        does not answer (a dead one)."""
+        def one(c, i):
+            try:
+                return c.call("PSStats", {})
+            except PolicyRpcError:
+                return None
+
+        return self._map(one)
 
     def _assemble(self, slices) -> np.ndarray:
         """One flat vector from the slices, in their wire dtype (a bf16
@@ -248,5 +300,6 @@ class ShardedPS:
     def close(self):
         # in-flight calls finish before the connections close
         self._pool.shutdown(wait=True)
-        for c in self._clients:
+        for c in self._retired + self._clients:
             c.close()
+        self._retired = []

@@ -8,12 +8,15 @@ same `ServerDispatcher` also serves the fast paths: the handler table is
 registered for in-process calls under the bound port, and, when
 `EDL_TRANSPORT` asks for them, a Unix-socket listener (uds, auto) and a
 shared-memory listener (shm, auto) open beside TCP. A fast listener that
-cannot start is logged, and TCP serves.
+cannot start is logged, and TCP serves. `shm_scope` and `shm_generation`
+name the shm listener's segments: a PS or KV shard slot passes its
+job-stable scope and its fencing generation, so that its relaunch sweeps
+a SIGKILLed predecessor's segments (`rpc/transport.ShmServer`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.rpc import transport as transport_mod
@@ -26,6 +29,8 @@ class RpcServer:
         self,
         handlers: Dict[str, Callable],
         port: int = 0,
+        shm_scope: Optional[str] = None,
+        shm_generation: int = 0,
     ):
         self._dispatcher = transport_mod.ServerDispatcher(handlers)
         self._tcp = transport_mod.TcpServer(port, self._dispatcher)
@@ -41,7 +46,9 @@ class RpcServer:
         self._shm = None
         if transport_mod.server_shm_enabled():
             try:
-                self._shm = transport_mod.ShmServer(self.port, self._dispatcher)
+                self._shm = transport_mod.ShmServer(
+                    self.port, self._dispatcher, scope=shm_scope, generation=shm_generation
+                )
             except OSError as e:
                 logger.warning("shm fast path unavailable for port %s (%s)", self.port, e)
 

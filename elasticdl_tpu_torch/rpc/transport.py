@@ -52,20 +52,26 @@ registered in-process dispatcher, a rendezvous file with its doorbell,
 a socket file); otherwise the caller uses TCP. `auto` prefers inproc >
 shm > uds > tcp. The port's socket, rendezvous and segment names start
 with "edlt" (`edlt-uds-<port>.sock`, `edlt-shm-<port>.{sock,json}`,
-`edltshm.p<port>.g<generation>.<pid>.`), so that they never collide
-with the reference's on one host. The generation is always 0: master
-failover, which starts a server at the next one, is not ported.
+`edltshm.<scope>.g<generation>.<pid>.`), so that they never collide
+with the reference's on one host. A server's scope is `p<port>` unless
+its owner names one: a PS or KV shard slot's scope stays the same
+across its relaunches, and the relaunch, at the next fencing
+generation and on a new port, sweeps its SIGKILLed predecessor's
+segments and files (any of its scope at an older generation).
 
 `ServerDispatcher` is the core every tier's server runs: an unknown
 method answers UNIMPLEMENTED, a handler's `PolicyRpcError` keeps its
-code, and any other exception of the handler, or of decoding its request
-or encoding its response, answers INTERNAL with a one-line summary. A
+code, an `EpochFencedError` (`rpc/fencing.py`) answers
+FAILED_PRECONDITION with the exception's name in its details (never
+re-sent), and any other exception of the handler, or of decoding its
+request or encoding its response, answers INTERNAL with a one-line
+summary. A
 handler must not keep a view of its request past its return: over shm
 the next request on the connection overwrites it.
 
 Not ported yet: the shm tier's broadcast segments (`ShmBroadcaster`,
 the sharded PS's pull), `AsyncUdsServer` and the event-loop dispatch
-core (`EDL_DISPATCH=loop`), chaos hooks, wire statistics and fencing.
+core (`EDL_DISPATCH=loop`), chaos hooks and wire statistics.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ from elasticdl_tpu_torch.common.constants import (
     ENV_UDS_DIR,
 )
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.rpc.fencing import EpochFencedError
 from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
 
 logger = get_logger(__name__)
@@ -276,13 +283,18 @@ class ServerDispatcher:
             out = messages.pack(resp)
         except PolicyRpcError:
             raise
+        except EpochFencedError as e:
+            # a protocol answer, not a bug: FAILED_PRECONDITION is never
+            # re-sent, so the client re-resolves (rpc/fencing.py)
+            logger.warning("RPC %s fenced: %s", method, e)
+            failure = (StatusCode.FAILED_PRECONDITION, _sanitized_detail(e))
         except Exception as e:
             logger.exception("RPC handler %s failed", method)
-            failure = _sanitized_detail(e)
+            failure = (StatusCode.INTERNAL, _sanitized_detail(e))
         if failure is not None:
             # raised outside the except block: this frame (and the request
             # views it holds) is not kept alive by a traceback cycle
-            raise PolicyRpcError(StatusCode.INTERNAL, failure)
+            raise PolicyRpcError(*failure)
         t3 = time.perf_counter()
         with self._lock:
             self._calls[method] += 1
@@ -695,6 +707,10 @@ def _unlink_segments(prefix: str) -> None:
             _unlink(os.path.join("/dev/shm", name))
 
 
+def _sanitize_scope(scope: str) -> str:
+    return "".join(c if c.isalnum() or c in "._-" else "-" for c in scope)
+
+
 def _shm_error_frame(e: PolicyRpcError) -> bytes:
     detail = e.details().encode("utf-8")[:1024]
     return _SHM_RESP.pack(1, 0) + _SHM_ERR.pack(e.code().value, len(detail)) + detail
@@ -707,19 +723,23 @@ class ShmServer:
     request frame that fits the ring reaches the dispatcher as a view
     over the mapping, a larger one is assembled from chunks.
 
-    Boot order: sweep a dead predecessor's segments and files on this
-    port, bind the doorbell, then publish the rendezvous file
-    atomically. Raises OSError from __init__ when the doorbell path is
-    unusable (the caller logs and serves TCP only)."""
+    Boot order: sweep a dead predecessor's segments and files (on this
+    port, or of this scope at an older generation), bind the doorbell,
+    then publish the rendezvous file, which names this scope and
+    generation, atomically. Raises OSError from __init__ when the
+    doorbell path is unusable (the caller logs and serves TCP only)."""
 
-    generation = 0  # master failover (the next generation) is not ported
-
-    def __init__(self, port: int, dispatcher: ServerDispatcher):
+    def __init__(self, port: int, dispatcher: ServerDispatcher,
+                 scope: Optional[str] = None, generation: int = 0):
         self.port = int(port)
         self._dispatcher = dispatcher
+        self.generation = int(generation)
+        self._scope = _sanitize_scope(scope) if scope else f"p{self.port}"
         self._ring = shm_ring_bytes()
         # the pid keeps two live servers' names apart on one host
-        self._prefix = f"{SHM_SEGMENT_PREFIX}p{self.port}.g{self.generation}.{os.getpid()}."
+        self._prefix = (
+            f"{SHM_SEGMENT_PREFIX}{self._scope}.g{self.generation}.{os.getpid()}."
+        )
         self._reclaim_stale()
         self.doorbell = shm_doorbell_path(self.port)
         self.path = shm_rendezvous_path(self.port)
@@ -735,7 +755,8 @@ class ShmServer:
         try:
             tmp = self.path + ".tmp"
             with open(tmp, "w", encoding="utf-8") as f:
-                json.dump({"generation": self.generation, "prefix": self._prefix,
+                json.dump({"scope": self._scope, "generation": self.generation,
+                           "prefix": self._prefix,
                            "doorbell": self.doorbell, "ring": self._ring,
                            "pid": os.getpid()}, f)
             os.replace(tmp, self.path)
@@ -749,13 +770,35 @@ class ShmServer:
     def _reclaim_stale(self) -> None:
         """Sweep a dead predecessor's rings: the rendezvous file keyed by
         this port is stale by construction (the TCP bind proved the port
-        free), and so is any segment named for this port."""
+        free), and so is any segment named for this port or scope (one
+        live server a scope). A rendezvous file of this scope on another
+        port at an older generation belongs to a SIGKILLed incarnation
+        whose relaunch (this server) got a fresh port."""
         mine = read_shm_rendezvous(self.port)
         if mine is not None:
             _unlink_segments(str(mine.get("prefix", "")))
             _unlink(str(mine.get("doorbell", "")))
             _unlink(shm_rendezvous_path(self.port))
         _unlink_segments(f"{SHM_SEGMENT_PREFIX}p{self.port}.")
+        _unlink_segments(f"{SHM_SEGMENT_PREFIX}{self._scope}.")
+        try:
+            names = os.listdir(uds_dir())
+        except OSError:
+            return
+        for name in names:
+            if not (name.startswith(SHM_FILE_PREFIX) and name.endswith(".json")):
+                continue
+            path = os.path.join(uds_dir(), name)
+            try:
+                with open(path, encoding="utf-8") as f:
+                    other = json.load(f)
+                other_gen = int(other.get("generation", -1))
+            except (OSError, ValueError, TypeError, AttributeError):
+                continue
+            if other.get("scope") == self._scope and other_gen < self.generation:
+                _unlink_segments(str(other.get("prefix", "")))
+                _unlink(str(other.get("doorbell", "")))
+                _unlink(path)
 
     def start(self):
         self._thread = threading.Thread(

@@ -36,7 +36,9 @@ attention kernels' launches by head dim (`launch_counts`) and the
 dispatcher's attention fallbacks, the sparse plane's counters (the
 KV links' tiers, the rows this worker lazily initialized, the
 `edl_gradient` bytes it sent), the sharded PS's (the shard links' tiers,
-their seconds per method, the shard versions last seen), the device's peak allocated bytes,
+their seconds per method, the shard versions last seen), the shard
+recoveries it waited out and the restore slices the master took from it,
+the device's peak allocated bytes,
 whether it stood by as a standby (pre-warmed, or failed to) and when it
 was promoted, and each accepted step's (or landed window's) time
 (`time.perf_counter()`) and loss.
@@ -119,6 +121,9 @@ def _summary(worker_id, worker, client, device) -> dict:
         "ps_tiers": worker.ps_tiers,
         "ps_rpc_seconds": worker.ps_rpc_seconds(),
         "shard_versions": worker.shard_versions,
+        # shard recovery: recoveries waited out, restore slices uploaded
+        "shard_recoveries_observed": worker.shard_recoveries_observed,
+        "restore_uploads": worker.restore_uploads,
         "lazy_init_rows": worker.lazy_init_rows,
         "edl_gradient_bytes": worker.edl_gradient_bytes,
         "peak_memory_bytes": (

@@ -138,9 +138,30 @@ lowest shard version.
 threads and read by the main thread, always under `_report_lock`, in
 pairs where they are read together.
 
+Shard recovery (the reference's rung 6, `master/recovery.py`): the shard
+clients stamp each request with the shard's fencing generation, from
+GetPSConfig. The worker keeps a restore snapshot, each PS shard's slice
+at the version it stands at (`_restore_snap`): from every sharded pull,
+every push response that carries slices back (a merged window, a
+duplicate, the per-step model), and, in window mode, every window that
+landed unmerged on a shard, whose slice is then the snapshot's plus the
+window's decoded delta slice, the same float32 add the shard made. A
+task that fails on a dead or fenced shard (`_is_shard_outage_exc`) is
+reported failed, so it is requeued, and the worker waits out the
+recovery (`_await_shard_recovery`): while GetPSConfig lists a PS shard
+under `recovering`, it uploads its slice of the snapshot
+(PSRestoreFromWorker); once the lists clear, the PS and KV clients move
+to the advertised endpoints and generations, and the local state resets
+(a requeued window task replays its windows under their keys: the
+shards that applied one absorb it). A per-step push torn by the death is
+replayed under its pinned report key after the recovery, with the local
+state kept: the shards that applied it absorb the replay, the restored
+shard applies it. `shard_recoveries_observed` and `restore_uploads`
+count them.
+
 Not ported yet: the local-steps ladder, the adaptive wire plane, the
-background model page-in, speculative backup tasks, and with the sharded
-PS the aggregation tree, bucketed pushes and shard recovery.
+background model page-in, speculative backup tasks, master failover, and
+with the sharded PS the aggregation tree and bucketed pushes.
 """
 
 from __future__ import annotations
@@ -182,6 +203,7 @@ from elasticdl_tpu_torch.common.constants import (
 )
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
+from elasticdl_tpu_torch.rpc.fencing import is_shard_outage_chain
 from elasticdl_tpu_torch.worker.task_data_service import ReaderCache, iter_minibatches
 
 logger = get_logger(__name__)
@@ -401,6 +423,12 @@ class Worker:
         self._shard_versions: Optional[list] = None  # each shard's version
         # each shard's version at the last fold (the window lineage)
         self._shard_lineage: Optional[list] = None
+        # the restore source of a recovering PS shard: per shard, None or
+        # (version, float32 slice at it); slices are replaced, never
+        # written in place, under _report_lock
+        self._restore_snap: Optional[list] = None
+        self.shard_recoveries_observed = 0  # shard recoveries waited out
+        self.restore_uploads = 0  # restore slices the master accepted
 
         # -- window mode
         self._local_updates = local_updates
@@ -433,7 +461,7 @@ class Worker:
         self._deferred_reports: list = []  # (task_id, err, covering seq)
         self._flushed_report_ids: set = set()  # reported by a flush
         self._report_lock = threading.Lock()  # main + sync threads
-        self._stats_lock = threading.Lock()  # sync_seconds, window_log
+        self._stats_lock = threading.Lock()  # sync_seconds, window_log, edl_gradient_bytes
         self._drain_requested = threading.Event()
         # the current task's dispatch key and its next window's index:
         # window report keys are f"{spec_key}.w{index}"
@@ -545,11 +573,21 @@ class Worker:
 
     def _ensure_ps(self):
         """The sharded PS's client, built once the flat size is known
-        (None on the single PS)."""
+        (None on the single PS). It stamps each request with its shard's
+        fencing generation, from GetPSConfig."""
         if self._ps is None and self._ps_endpoints and self._flat is not None:
             from elasticdl_tpu_torch.rpc.ps_client import ShardedPS
 
-            self._ps = ShardedPS(self._ps_endpoints, int(self._flat.numel()))
+            try:
+                cfg = self._master.call("GetPSConfig", {})
+            except Exception:
+                cfg = {}  # unfenced: epoch -1 always passes
+            gens = cfg.get("ps_generations") or None
+            if cfg.get("endpoints") and gens:
+                # the master's view is the current one (a relaunched
+                # shard moves its endpoint with its generation)
+                self._ps_endpoints = list(cfg["endpoints"])
+            self._ps = ShardedPS(self._ps_endpoints, int(self._flat.numel()), generations=gens)
         return self._ps
 
     def _pull_sharded(self) -> bool:
@@ -574,6 +612,7 @@ class Worker:
             if self._aux_flat is not None:
                 # the shards hold the dense vector only: the matching aux
                 self._set_aux(self._master.call("GetAux", {}).get("aux"), "GetAux")
+            self._keep_restore_slices(versions, self._split_slices(vec))
         with self._report_lock:
             self._shard_versions = list(versions)
             self._version = min(versions)
@@ -604,7 +643,8 @@ class Worker:
         }
         if edl_grads:
             req["edl_gradient"] = edl_grads
-            self.edl_gradient_bytes += _rows_nbytes(edl_grads)
+            with self._stats_lock:
+                self.edl_gradient_bytes += _rows_nbytes(edl_grads)
         md = self._model_wire_dtype()
         if md:
             req["model_dtype"] = md
@@ -619,10 +659,23 @@ class Worker:
         n = self._ps.num_shards
         with self._report_lock:
             base = list(self._shard_versions) if self._shard_versions else [self._version] * n
-        versions, vec = self._ps.push_grad(
-            grad_wire, base, model_dtype=self._model_wire_dtype(), return_model=True,
-            report_key=uuid.uuid4().hex,
-        )
+        # the key is pinned here, so that a push torn by a shard's death
+        # is replayed under it once the shard is recovered: the shards
+        # that applied it absorb the replay, the restored one applies it
+        push_key = uuid.uuid4().hex
+
+        def push():
+            return self._ps.push_grad(grad_wire, base, model_dtype=self._model_wire_dtype(),
+                                      return_model=True, report_key=push_key)
+
+        try:
+            versions, vec = push()
+        except Exception as e:
+            if not self._is_shard_outage_exc(e) or not self._await_shard_recovery(reset=False):
+                raise  # the task fails and is requeued
+            versions, vec = push()
+        if vec is not None:
+            self._keep_restore_slices(versions, self._split_slices(vec))
         meta = {"worker_id": self._id, "versions": versions, "aux_state": aux_state,
                 "loss": loss}
         if edl_grads:
@@ -1314,6 +1367,7 @@ class Worker:
             req["delta_flat"], req["steps"], bases, model_dtype=req.get("model_dtype"),
             report_key=req["report_key"], duplicates=dup,
         )
+        self._keep_window_restore_slices(ps, versions, merged, req["delta_flat"], bases)
         meta = {"worker_id": self._id, "versions": versions, "steps": req["steps"],
                 "aux_state": req["aux_state"], "loss": req["loss"], "want_aux": bool(merged)}
         if req.get("edl_gradient"):
@@ -1324,6 +1378,159 @@ class Worker:
             resp["params_flat"] = merged
             resp["aux"] = meta_resp.get("aux")
         return versions, resp
+
+    # ------------------------------------------------ shard recovery
+
+    def _split_slices(self, vec) -> dict:
+        """{shard: float32 copy of its slice} of a whole flat model."""
+        f32 = codec.as_f32(vec)
+        return {i: np.array(f32[s:e], dtype=np.float32)
+                for i, (s, e) in enumerate(self._ps.bounds)}
+
+    def _keep_restore_slices(self, versions, slices: dict):
+        """Keep each slice as the restore snapshot's entry for its shard
+        (at versions[shard]), unless the entry is newer."""
+        with self._report_lock:
+            snap = list(self._restore_snap or [None] * self._ps.num_shards)
+            for i, sl in slices.items():
+                if snap[i] is None or int(versions[i]) >= snap[i][0]:
+                    snap[i] = (int(versions[i]), sl)
+            self._restore_snap = snap
+
+    def _keep_window_restore_slices(self, ps, versions, merged: dict, delta, bases):
+        """A landed window's slices for the restore snapshot: the shard's
+        slice where it sent one back (merged, or a replay), else, where
+        the snapshot held the shard at the window's base, that slice plus
+        the window's delta slice, decoded as the shard decodes it: the
+        shard's own float32 add (the window landed unmerged, so at full
+        weight)."""
+        with self._report_lock:
+            snap = self._restore_snap
+        slices = {i: np.array(codec.as_f32(sl), dtype=np.float32) for i, sl in merged.items()}
+        for i, (s, e) in enumerate(ps.bounds):
+            if i in slices or snap is None or snap[i] is None or snap[i][0] != bases[i]:
+                continue
+            slices[i] = snap[i][1] + codec.delta_to_f32(codec.slice_delta(delta, s, e))
+        if slices:
+            self._keep_restore_slices(versions, slices)
+
+    def _is_shard_outage_exc(self, exc) -> bool:
+        """Did this failure bottom out in a dead or fenced shard? (The
+        shard's error arrives wrapped by the fan-out or the sync chain.)"""
+        if self._ps is None and self._kv is None:
+            return False
+        return is_shard_outage_chain(exc)
+
+    def _await_shard_recovery(self, deadline: float = 120.0, reset: bool = True) -> bool:
+        """Wait out a PS or KV shard's recovery. Polls GetPSConfig; while
+        it lists recovering PS shards, uploads this worker's snapshot
+        slices of them. Once the lists clear, moves the shard clients to
+        the advertised endpoints and generations and, unless `reset` is
+        False (the per-step push's replay, which keeps its base), drops
+        the local training state (the failed window never landed).
+        Returns False when no recovery completed within `deadline`, or
+        when a drain was requested (the job is being torn down).
+
+        An outage seen here may precede the master's seeing the death, so
+        success needs the recovery seen in progress, or endpoints or
+        generations other than the clients', or a probe pull that the
+        shards answer at the clients' generations."""
+        if self._ps is None and self._kv is None:
+            return False
+        start = time.monotonic()
+        observed = False
+        offered: dict = {}  # shard -> the snapshot version the master took
+        logger.warning("Worker %d: shard outage, waiting for the recovery plane", self._id)
+        while time.monotonic() - start < deadline and not self._drain_requested.is_set():
+            try:
+                cfg = self._master.call("GetPSConfig", {})
+            except Exception:
+                time.sleep(0.5)
+                continue
+            rec = cfg.get("recovering") or {}
+            if rec.get("ps") or rec.get("kv"):
+                observed = True
+                self._offer_restore_snapshot(rec.get("ps") or [], offered)
+                time.sleep(0.25)
+                continue
+            eps, gens = cfg.get("endpoints") or [], cfg.get("ps_generations") or None
+            kv_eps, kv_gens = cfg.get("kv_endpoints") or [], cfg.get("kv_generations") or None
+            changed = False
+            if self._ps is not None and eps:
+                changed |= eps != self._ps.endpoints or (
+                    gens is not None and gens != (self._ps.generations or []))
+            if self._kv is not None and kv_eps:
+                changed |= kv_eps != self._kv.endpoints or (
+                    kv_gens is not None and kv_gens != (self._kv.generations or []))
+            if not (observed or changed):
+                if self._ps is None:
+                    time.sleep(0.25)
+                    continue
+                try:
+                    # answers unfenced only at current generations, and a
+                    # dead shard refuses the connection
+                    self._ps.pull(versions=[1 << 60] * self._ps.num_shards)
+                except Exception:
+                    time.sleep(0.25)
+                    continue
+            if self._ps is not None and eps:
+                self._ps.update_endpoints(eps, gens)
+                self._ps_endpoints = list(eps)
+            if self._kv is not None and kv_eps:
+                self._kv.update_endpoints(kv_eps, kv_gens)
+            if reset:
+                self._settle_sync_chain()
+                self._reset_local_state()
+            self.shard_recoveries_observed += 1
+            logger.info("Worker %d: shard recovery complete, resuming against %s",
+                        self._id, eps or kv_eps)
+            return True
+        logger.error("Worker %d: shard recovery did not complete (drain requested: %s)",
+                     self._id, self._drain_requested.is_set())
+        return False
+
+    def _settle_sync_chain(self):
+        """Let the window syncs in flight finish before a reset voids
+        them: one that lands (its report's sparse apply rode out a KV
+        recovery on the master) is counted and flushes its tasks'
+        reports; a failed one flushes them as failures."""
+        if self._sync_thread is not None:
+            self._sync_thread.join()
+            self._sync_thread = None
+        self._sync_inflight.clear()
+        try:
+            self._check_sync_error()
+        except RuntimeError:
+            logger.info("Worker %d: a window sync failed with the outage", self._id)
+
+    def _offer_restore_snapshot(self, ps_recovering, offered: dict):
+        """Upload this worker's snapshot slice of each recovering PS
+        shard, once a version (`offered`: shard -> the version the master
+        took). Best effort and idempotent: the plane keeps the highest
+        version offered, and a failed upload is offered again at the next
+        poll."""
+        if self._ps is None or not ps_recovering:
+            return
+        with self._report_lock:
+            snap = self._restore_snap
+        if snap is None:
+            return
+        for sid in ps_recovering:
+            sid = int(sid)
+            if sid >= len(snap) or snap[sid] is None:
+                continue
+            version, sl = snap[sid]
+            if offered.get(sid) == version:
+                continue
+            try:
+                resp = self._master.call("PSRestoreFromWorker", {
+                    "worker_id": self._id, "shard_id": sid, "vec": sl, "version": version,
+                })
+            except Exception:
+                continue
+            if resp.get("accepted"):
+                offered[sid] = version
+                self.restore_uploads += 1
 
     def _record_synced_losses(self, losses, loss_h, version):
         """Task losses resolve with the window's copy to the host, so the
@@ -1705,8 +1912,10 @@ class Worker:
                 # failed sync reports their tasks failed, so they requeue
                 try:
                     self._check_sync_error()
-                except RuntimeError:
+                except RuntimeError as e:
                     logger.exception("Worker %d: window sync failed", self._id)
+                    if self._is_shard_outage_exc(e):
+                        self._await_shard_recovery()
                 time.sleep(0.05)
                 continue
             if self.was_standby and self.promoted_at is None:
@@ -1715,6 +1924,7 @@ class Worker:
                             self._id, self.promoted_at)
             err = ""
             reported = False
+            shard_outage = False
             with self._report_lock:
                 self._flushed_report_ids.clear()
             try:
@@ -1731,11 +1941,17 @@ class Worker:
             except Exception as e:
                 logger.exception("Worker %d task %d failed", self._id, task.task_id)
                 err = f"{type(e).__name__}: {e}"
+                shard_outage = self._is_shard_outage_exc(e)
             with self._report_lock:
                 flushed = task.task_id in self._flushed_report_ids
                 self._flushed_report_ids.discard(task.task_id)
             if not reported and not flushed:
                 self.report_task_result(task.task_id, err)
+            if shard_outage:
+                # a dead or fenced shard, not a bad task: the failure
+                # report requeued it; wait out the recovery and go on
+                # against the recovered shards
+                self._await_shard_recovery()
 
     def close(self):
         try:

@@ -138,6 +138,27 @@ def test_plain_backward_matches_pallas_kernels_at_head_dim_128(causal, L, dtype)
     _check_plain_backward(causal, L, dtype, d=128, seed=10)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_do_not_depend_on_the_thread_count(dtype):
+    """The plain forward and backward give the same bits on 1, 2, 3 and 8
+    intra-op threads (so a load that changes the threads torch gets
+    cannot move them against the reference's kernels)."""
+    (_, _, _, _), (tq, tk, tv, tdo) = _inputs(128, dtype, d=16, seed=0)
+    n = torch.get_num_threads()
+    outs = []
+    try:
+        for threads in (1, 2, 3, 8):
+            torch.set_num_threads(threads)
+            o, lse = tfa.plain_forward(tq, tk, tv, True)
+            delta = tfa.attention_delta(tdo, o)
+            dq = tfa.plain_dq(tq, tk, tv, tdo, lse, delta, True)
+            dk, dv = tfa.plain_dkv(tq, tk, tv, tdo, lse, delta, True)
+            outs.append([_np(x).tobytes() for x in (o, lse, dq, dk, dv)])
+    finally:
+        torch.set_num_threads(n)
+    assert all(out == outs[0] for out in outs)
+
+
 def test_kernel_head_dims_are_the_reference_configs_widths():
     """The CUDA kernels take the head dims of the zoo's default model (64
     / 4 heads), the reference's kernel tests (32), and its base (512 / 8

@@ -23,6 +23,7 @@ from elasticdl_tpu.rpc import policy as jpolicy
 from elasticdl_tpu_torch.common import args as targs
 from elasticdl_tpu_torch.common.codec import BF16Bits, SparseDelta, quantize_int8
 from elasticdl_tpu_torch.master.embedding_store import EmbeddingStore
+from elasticdl_tpu_torch.master.kv_shard import KVShardServicer
 from elasticdl_tpu_torch.master.main import collect_shards
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
 from elasticdl_tpu_torch.master.ps_shard import PSShardServicer
@@ -52,8 +53,8 @@ def _calls():
     """A call sequence over every ported method: lazy init (an f32 tree
     with a bf16 aux), pulls, an accepted f32 gradient, a stale bf16 one,
     an accepted bf16 one, window syncs, a sharded push's metadata, task
-    reports (one failed), an embedding row write (SETNX) and a lookup
-    with a miss."""
+    reports (one failed), an embedding row write (SETNX), a lookup with a
+    miss, and a worker's restore upload with no recovery plane (refused)."""
     rng = np.random.default_rng(0)
     params = {
         "dense": {
@@ -109,6 +110,8 @@ def _calls():
                              "values": rng.standard_normal((2, 4)).astype(np.float32),
                              "set_if_not_exist": True}),
         ("EmbeddingLookup", {"layer": "t", "ids": np.array([9, 4, 3], dtype=np.int64)}),
+        ("PSRestoreFromWorker", {"worker_id": 0, "shard_id": 0, "version": 3,
+                                 "vec": rng.standard_normal(4).astype(np.float32)}),
     ]
 
 
@@ -279,7 +282,8 @@ def test_backoff_schedule_equals_the_reference(seed):
 
 
 def test_idempotent_set_is_the_references_over_the_ported_methods():
-    ported = set(_servicer().handlers()) | set(PSShardServicer(0, 1).handlers())
+    ported = (set(_servicer().handlers()) | set(PSShardServicer(0, 1).handlers())
+              | set(KVShardServicer(0, 1).handlers()))
     assert policy.IDEMPOTENT_METHODS == jpolicy.IDEMPOTENT_METHODS & ported
 
 
