@@ -62,7 +62,12 @@ its result lines only when every phase passed:
    moved parameters, launches and no attention fallback; prints the
    steady tokens/s (first to last window sync) and the sync seconds
    split into quantize, encode, RPC and absorb; then a profiled second
-   run gives the device idle share;
+   run gives the device idle share; then the local-steps ladder with the
+   adaptive wire plane (`phase_window_ladder_adaptive`: W 4, 2 windows a
+   push, `sync_adaptive="on"`, 32 steps in tasks of 8): the exactness
+   block, 4 pushes of 8 steps each under one key, the decision log (a
+   bf16 cold start), every push's wire bytes at most the float32
+   delta's, the launches; prints the decisions and the bytes by form;
 8. error feedback on the card (`phase_ef_card`) over a delta of the
    model's size: the int8 quantizer bit for bit with
    `codec.quantize_int8`, the bf16 cast bit for bit, top-k indices,
@@ -79,7 +84,7 @@ its result lines only when every phase passed:
    large config (`phase_large`: d_model 1024, 8
    heads of 128, 16 layers, remat "dots", bf16, b16 x s1024, 218.1M
    parameters, built from its `--model_params` string): 4 per-step
-   updates and 16 window steps in-process; checks the exactness block,
+   updates and 8 window steps in-process; checks the exactness block,
    steps computed = applied, finite losses, moved parameters, 0
    fallbacks and the launches (forward twice a layer a step: the remat
    recompute; dq and dk+dv once); prints steady tokens/s, the
@@ -102,6 +107,7 @@ its result lines only when every phase passed:
    checks rc, versions (the `--output` version = the workers' applied
    steps), steps computed = applied, finite moved parameters, each
    worker's device, launches and no fallback; prints merged-back absorbs
+   and the background model page-in (pulls, staged models folded in)
    per worker, and rpc and PS add a sync (the servicer lock included);
    then the same of the large config (b16, tasks of one window, 8
    steps); then the sharded PS: the xl config as 2 worker processes over
@@ -111,7 +117,9 @@ its result lines only when every phase passed:
    xl's tree is over the 1 GiB frame) and the base transformer async
    per-step as 2 worker processes over `--num_ps 2 --ps_mode inproc`
    (`phase_sharded_async`: 16 updates, one checkpoint with each shard's
-   optimizer state); each checks rc, every shard's version and the
+   optimizer state) at the reference's default per-step depth (4 reports
+   in flight), then its `--step_pipeline 0` twin, with the two tokens/s
+   side by side (an A/B within the call); each checks rc, every shard's version and the
    master's at init + the applied steps, steps accepted = computed, the
    launches, finite losses, moved parameters (xl: shm links, no shard
    process or segment left; async: the checkpoint's per-shard Adam
@@ -125,7 +133,10 @@ its result lines only when every phase passed:
    init + 32, 32 steps accepted, launches n_layers x steps computed, no
    fallback, finite losses; prints the recovery's seconds from the kill
    (detected, fenced, restore upload accepted, serving, the relaunched
-   shard's first push) and the relaunched process's boot;
+   shard's first push), the relaunched process's boot and each worker's
+   background pulls (through `ShardedPS.pull_async`) and staged models
+   folded in; the run fails unless a 2-worker window phase paged a model
+   in (`PAGE_IN`);
 11. the drain (`phase_window_drain`): SIGTERM to worker 0 mid-window of
    the same job drains it (exit 0, its drain line, nothing requeued,
    every step applied once); SIGKILL in a second job requeues its tasks
@@ -145,7 +156,7 @@ its result lines only when every phase passed:
    losses < 1.5), the PS's batch_stats moved and equal to the last
    synced window's, images/s, then the device idle share of a profiled
    run of 2 tasks; `phase_resnet_window` trains ResNet-50 in bf16 at 64
-   px in window mode (`bench_resnet.py:123-160`: W 32, b128, 32,768
+   px in window mode (`bench_resnet.py:123-160`: W 32, b128, 16,384
    records, bf16 transport) with images/s and its peak device memory;
    `phase_image_process_job` runs master.main with `--model_def
    cifar10_functional_api.custom_model`, 2 workers per-step: the
@@ -173,7 +184,8 @@ its result lines only when every phase passed:
    at least 100 times farther;
 15. `BASELINE.json`'s "cifar10_subclass, 4 async workers + 1 PS"
    (`phase_async_process_job`): master.main with 4 worker processes on
-   the card, `--use_async --lr_staleness_modulation`, minibatch 128,
+   the card, `--use_async --lr_staleness_modulation` (so 4 reports in
+   flight a worker, each worker's depth checked), minibatch 128,
    16,384 records in tasks of 1,024 (128 updates), evaluation every 32
    versions over 2,048 records, checkpoints every 32 kept to 2, the JSONL
    metrics sink: rc 0, `--output` at v128 = the workers' accepted steps,
@@ -201,8 +213,8 @@ its result lines only when every phase passed:
    images converted by `data/recordio_gen/parallel_convert` with
    `models/imagenet_resnet50.py` into 8 shards (8,192 records), then
    master.main with 8 async worker processes on the card
-   (`--use_async --lr_staleness_modulation`, b128, tasks of 512: 64
-   updates) over EDL_TRANSPORT=shm with a whole-frame ring: rc 0, the
+   (`--use_async --lr_staleness_modulation`: 4 reports in flight a
+   worker, b128, tasks of 512: 64 updates) over EDL_TRANSPORT=shm with a whole-frame ring: rc 0, the
    exactness block at v64 = the accepted steps, finite losses, moved
    parameters and batch statistics, every link on shm, 0 attention
    launches, no segment left; prints steady images/s, the
@@ -258,7 +270,8 @@ its result lines only when every phase passed:
    `window_launches`, `window_process_launches`, `large_launches`,
    `large_window_launches`, `large_window_process_launches`,
    `xl_launches`, `xl_window_launches`, `xl_sharded_process_launches`,
-   `sharded_async_launches`, `shard_failover_launches`, `moe_launches`,
+   `sharded_async_launches`, `sharded_async_depth0_launches`,
+   `shard_failover_launches`, `ladder_adaptive_launches`, `moe_launches`,
    `moe_window_launches`, `zoo_bf16_launches`, `zoo_window_launches`
    (bf16 rows), `zoo_launches`, `zoo_process_launches` (float32 rows),
    and `eval_launches` on every row (phase 13's evaluation forward:
@@ -331,7 +344,8 @@ BATCH, SEQ, STEPS = 8, 1024, 8
 LARGE = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=16)
 LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
                 "dtype=bfloat16,remat=True,remat_policy=dots")
-LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 16
+# (window steps cut from 16: the large window process phase trains it too)
+LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 8
 # the reference's xl config (bench_transformer.py:211-221): 16 heads of 128,
 # d_ff 8192, 8 layers, remat "dots", bf16 compute, b8 x s1024
 XL_PARAMS = ("vocab=8192,d_model=2048,n_heads=16,d_ff=8192,n_layers=8,n_micro=1,"
@@ -1076,6 +1090,47 @@ def summed_launches(summaries) -> dict:
     return {key: sum(s["launches"][key] for s in summaries.values()) for key in keys}
 
 
+# the reference's default per-step depth under --use_async
+# (`common/args.resolve_step_pipeline`'s auto)
+DEFAULT_ASYNC_DEPTH = 4
+# each 2-worker window phase's background pulls and staged models folded
+# in, summed over its workers: the page-in is driven when one shows a pull
+PAGE_IN: dict = {}
+# steady tokens/s of the sharded async phase, by depth (its within-call A/B)
+SHARDED_ASYNC_RATES: dict = {}
+
+
+def pipeline_lines(name, summaries, depth) -> list:
+    """Print each worker's per-step pipeline: its depth, the reports
+    joined, the batches trained again after a rejection and its
+    sync_wait seconds. Returns the failures: a worker not at `depth`, or
+    one whose reports joined are not its steps but the first (the job's
+    first batch pulls the model through the serial loop)."""
+    failures = []
+    for wid, s in sorted(summaries.items()):
+        print(f"{name} worker {wid} pipeline: depth {s['step_pipeline']}, "
+              f"{s['step_reports_joined']} reports joined, {s['step_retrained']} batches "
+              f"trained again, sync_wait {s['phase_seconds'].get('sync_wait', 0.0):.3f} s")
+        if s["step_pipeline"] != depth:
+            failures.append(f"{name} worker {wid} at depth {s['step_pipeline']}, {depth} asked")
+        dispatched = s["steps_accepted"] - (1 if s["steps_accepted"] else 0)
+        if depth and s["step_reports_joined"] != dispatched:
+            failures.append(f"{name} worker {wid} joined {s['step_reports_joined']} reports "
+                            f"for {s['steps_accepted']} accepted steps")
+    return failures
+
+
+def page_in_line(name, summaries) -> None:
+    """Print each worker's background pulls and staged models folded in,
+    and record their sums under `name` in PAGE_IN."""
+    pulls = sum(s["bg_pulls"] for s in summaries.values())
+    applied = sum(s["staged_applied"] for s in summaries.values())
+    print(f"{name} page-in: " + ", ".join(
+        f"worker {wid} {s['bg_pulls']} background pulls, {s['staged_applied']} folded in"
+        for wid, s in sorted(summaries.items())) + f"; {pulls} pulls, {applied} folded in all")
+    PAGE_IN[name] = (pulls, applied)
+
+
 def phase_process_job(tmp, name="process", model_params=SLICE_PARAMS) -> dict:
     """`python -m elasticdl_tpu_torch.master.main ... --worker_backend
     process` with `--model_params model_params` (none when empty), run in
@@ -1213,6 +1268,78 @@ def phase_window(fa, tmp):
           f"{rounded(worker.phase_seconds)}, servicer handlers "
           f"{rounded(master.handler_seconds)}, wire codec {rounded(master.codec_seconds)}; "
           f"PS add a window {master.handler_seconds['ReportLocalUpdate'] / n_windows:.4f} s")
+    return launches
+
+
+# the local-steps ladder with the adaptive wire plane: k windows a push
+LADDER_K, LADDER_STEPS = 2, 32
+
+
+def phase_window_ladder_adaptive(fa, tmp):
+    """The base transformer at full width in-process in window mode, W 4,
+    with the local-steps ladder and the adaptive wire plane
+    (`sync_local_steps=2, sync_adaptive="on"`): 32 steps in tasks of 8,
+    so each task's 8 steps go out as one push. Checks the exactness
+    block at init + 32, 4 pushes of 8 steps each under one report key
+    (`.w0` of its task), the decision log (4 rounds, the first the
+    bf16 cold start with no link estimate, each form a rung of
+    `sync_policy.WIRE_FORMS`), every push's wire bytes at most the
+    float32 delta's, steps computed = applied, finite losses, moved
+    parameters, the launches and no fallback. Prints the decisions and
+    the bytes and rounds of each wire form. Returns the launches."""
+    from elasticdl_tpu_torch.common import codec, sync_policy
+
+    steps, per_task = LADDER_STEPS, WINDOW * LADDER_K
+    dispatcher, servicer, master, worker, model = slice_job(
+        os.path.join(tmp, "ladder.rio"), BATCH * steps, task_records=BATCH * per_task,
+        local_updates=WINDOW, sync_local_steps=LADDER_K, sync_adaptive="on",
+    )
+    pushes = []
+    master._intercept = {"ReportLocalUpdate": lambda req: pushes.append(
+        (req["report_key"], req["steps"], codec.delta_nbytes(req["delta_flat"]))) or req}
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    ok = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts(fa)
+    worker.close()
+
+    ex = servicer.exactness()
+    n = sum(p.numel() for p in model.parameters())
+    decisions = worker.sync_decisions
+    windows = list(worker.window_log)
+    print(f"ladder + adaptive (in-process, W {WINDOW}, k {LADDER_K}): {len(pushes)} pushes "
+          f"(key, steps, wire bytes) {pushes}, exactness {ex}; decisions {decisions}; wire "
+          f"forms {worker.wire_forms}; {window_steady(windows):.1f} tokens/s from the first to "
+          f"the last push, {steps * BATCH * SEQ / wall:.1f} over the run ({wall:.2f} s)")
+    failures = []
+    if not ok or not dispatcher.finished():
+        failures.append("the job did not finish cleanly")
+    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
+        failures.append(f"exactness {ex}, {steps} steps expected")
+    if [(k.rsplit(".w", 1)[1], st) for k, st, _b in pushes] != [("0", per_task)] * (
+            steps // per_task):
+        failures.append(f"pushes {pushes}: {steps // per_task} of {per_task} steps, one a task")
+    if any(b > 4 * n for _k, _s, b in pushes):
+        failures.append(f"a push over the float32 delta's {4 * n} bytes: {pushes}")
+    if (len(decisions) != len(pushes) or decisions[0]["form"] != sync_policy.COLD_START_FORM
+            or decisions[0]["link_mbps"] is not None
+            or any(d["form"] not in sync_policy.WIRE_FORMS for d in decisions)):
+        failures.append(f"decision log {decisions}: a bf16 cold start, one a push")
+    if worker.steps_computed != steps or worker.steps_accepted != steps:
+        failures.append(f"{worker.steps_computed} computed, {worker.steps_accepted} accepted")
+    losses = [loss for _t, _n, loss in windows]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        failures.append(f"losses not finite: {losses}")
+    want = want_launches(64, dict.fromkeys(KERNELS, SLICE["n_layers"] * steps))
+    if launches != want or fallbacks:
+        failures.append(f"launches {launches}, {want} expected, fallbacks {fallbacks}")
+    final, _aux, _v = servicer.get_params_copy()
+    if np.array_equal(codec.ravel_np(final), codec.ravel_np(model.init_params(0))):
+        failures.append("the parameters did not move")
+    if failures:
+        raise AssertionError("ladder + adaptive:\n" + "\n".join(failures))
     return launches
 
 
@@ -1823,6 +1950,7 @@ def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARA
               f"the whole run (worker boot included), {window_steady(windows, batch):.1f} "
               f"tokens/s from the first to the last window sync; exactness {exactness}; steps "
               f"computed {computed}, accepted {accepted}")
+        page_in_line(name, summaries)
         for wid, s in summaries.items():
             n = max(1, len(s["windows"]))
             print(f"{name} worker {wid} on {s['device']}: {s['steps_accepted']} steps in "
@@ -2005,36 +2133,49 @@ def phase_xl_sharded_processes(tmp):
         return summed_launches(workers)
 
 
-def phase_sharded_async(tmp):
+def phase_sharded_async(tmp, depth=None):
     """The base transformer async per-step as 2 worker processes over
     `--num_ps 2 --ps_mode inproc` (the shards in the master's process,
     each running the zoo's clip + Adam on its slice), 16 updates of b8,
-    with one checkpoint at v16 carrying each shard's optimizer state.
-    Checks rc 0, every shard's version and the master's at the applied
-    steps, steps accepted = computed (async accepts every report), the
-    D = 64 launches, finite losses, moved parameters, the checkpoint's
-    per-shard Adam state (its count at each shard's version). Prints
-    tokens/s and each shard's apply and lock wait a push. Returns the
-    launches summed over the workers."""
+    with one checkpoint at v16 carrying each shard's optimizer state; at
+    the reference's default per-step depth (4 reports in flight under
+    `--use_async`), or at `--step_pipeline depth` (the 0 twin: serial
+    reports, the within-call A/B). Checks rc 0, every shard's version and
+    the master's at the applied steps, steps accepted = computed (async
+    accepts every report), each worker at the depth with a report joined
+    a step, the D = 64 launches, finite losses, moved parameters, the
+    checkpoint's per-shard Adam state (its count at each shard's
+    version). Prints tokens/s, each worker's pipeline and each shard's
+    apply and lock wait a push. Returns the launches summed over the
+    workers."""
     from elasticdl_tpu_torch.master.checkpoint import load_model_file
     from elasticdl_tpu_torch.worker.main import read_summaries
 
-    name = "sharded async"
-    data, logs = os.path.join(tmp, "sharded-async-data"), os.path.join(tmp, "sharded-async-logs")
-    ckpt_dir, output = os.path.join(tmp, "sharded-async-ckpt"), os.path.join(tmp, "sa.ckpt")
+    want = DEFAULT_ASYNC_DEPTH if depth is None else depth
+    name = "sharded async" + ("" if depth is None else f" depth {depth}")
+    # a directory of its own per run: the phase may run more than once
+    root = tempfile.mkdtemp(prefix=name.replace(" ", "-"), dir=tmp)
+    data, logs = os.path.join(root, "data"), os.path.join(root, "logs")
+    ckpt_dir, output = os.path.join(root, "ckpt"), os.path.join(root, "final.ckpt")
     write_shards(data, SHARDED_FILES)
     steps = SHARDED_FILES * SHARD_RECORDS // BATCH
     argv = master_argv(data, 2, output) + [
         "--use_async", "--num_ps", str(SHARDED_ASYNC_SHARDS), "--ps_mode", "inproc",
         "--checkpoint_dir", ckpt_dir, "--checkpoint_steps", str(steps)]
+    if depth is not None:
+        argv += ["--step_pipeline", str(depth)]
     rc, summary, wall = run_master(argv, logs)
     with logs_on_failure(logs):
         workers = read_summaries(logs)
         failures = check_sharded(name, rc, summary, workers, steps, SLICE_PARAMS)
+        if not failures:
+            failures = pipeline_lines(name, workers, want)
         if failures:
             raise AssertionError(f"{name}:\n" + "\n".join(failures))
+        rate = steady_tokens_per_s(workers)
+        SHARDED_ASYNC_RATES[want] = rate
         print(f"{name} ({SHARDED_ASYNC_SHARDS} inproc shards, 2 workers, b{BATCH}, {steps} "
-              f"updates): rc {rc} in {wall:.2f} s, {steady_tokens_per_s(workers):.1f} tokens/s "
+              f"updates, depth {want}): rc {rc} in {wall:.2f} s, {rate:.1f} tokens/s "
               f"between the first and last accepted steps, master calls "
               f"{summary['server']['calls']}")
         print(shard_line(name, summary["ps_shards"], steps))
@@ -2210,6 +2351,7 @@ def phase_shard_failover(tmp):
         print(f"{name}: {failover_seconds(tl, box['kill'], new_shard['first_apply_at'])}; "
               f"the fence v{tl['fence_version']}, seeded at v{tl['restored_version']}, "
               f"optimizer state {'mirrored' if tl['opt_restored'] else 'cold'}")
+        page_in_line(name, workers)
         for wid, s in sorted(workers.items()):
             print(f"{name} worker {wid}: {s['steps_accepted']} steps accepted, "
                   f"{s['steps_computed']} computed, {s['deduped_windows']} windows deduped, "
@@ -2711,13 +2853,14 @@ def phase_cifar_window(fa, tmp):
 
 
 # ResNet-50 in window mode at bench_resnet.py:123-160's runtime shape
-RESNET_WINDOW, RESNET_BATCH, RESNET_RECORDS = 32, 128, 32768
+# (records cut from 32,768: ResNet-50 also trains in the imagenet and churn jobs)
+RESNET_WINDOW, RESNET_BATCH, RESNET_RECORDS = 32, 128, 16384
 
 
 def phase_resnet_window(fa, tmp):
     """ResNet-50 (`custom_model(bfloat16=True)`: bf16 compute over f32
     parameters and statistics) in window mode in-process at 64 x 64, W 32,
-    minibatch 128, `transport_dtype="bfloat16"`, 32,768 records in tasks
+    minibatch 128, `transport_dtype="bfloat16"`, 16,384 records in tasks
     of 4,096, one epoch. Prints images/s and the peak device memory of the
     run (parameters, the window's optimizer and sync state, and one
     step's activations at a time)."""
@@ -2949,6 +3092,9 @@ def phase_async_process_job(tmp) -> dict:
             if s["device"] != card or any(s["launches"].values()) or s["attention_fallbacks"]:
                 raise AssertionError(f"worker {wid} on {s['device']!r}, launches "
                                      f"{s['launches']}, fallbacks {s['attention_fallbacks']}")
+        failures = pipeline_lines(name, summaries, DEFAULT_ASYNC_DEPTH)
+        if failures:
+            raise AssertionError("\n".join(failures))
         spec = image_spec("cifar10_subclass.custom_model")
         flat = codec.ravel_np(model.params)
         if not np.isfinite(flat).all():
@@ -3553,7 +3699,7 @@ def rpc_split(s) -> dict:
             for m, v in s["rpc_seconds"].items()}
 
 
-def phase_imagenet_async(tmp, uds):
+def phase_imagenet_async(tmp, uds, depth=None):
     """`BASELINE.json`'s third config: tars of 8,192 64x64x3 uint8 images
     (labels 0-9) converted by `data/recordio_gen/parallel_convert` with
     `models/imagenet_resnet50.py` as the prep module into 8 shards, then
@@ -3564,18 +3710,21 @@ def phase_imagenet_async(tmp, uds):
     0; version = init + 64 = the workers' accepted steps; finite losses;
     parameters and batch statistics moved; every worker's link on shm; no
     failed task; no segment of the port's prefix left after the master
-    exits. Prints steady images/s, the ReportGradient handler a step,
-    each worker's client seconds by method (codec, the rest), the tiers,
-    one worker's peak device memory and the CPU count. The tier's
-    sockets and rendezvous files go in `uds`."""
+    exits; each worker at the reference's default per-step depth (4
+    reports in flight), or at `--step_pipeline depth`. Prints steady
+    images/s, the ReportGradient handler a step, each worker's pipeline
+    and client seconds by method (codec, the rest), the tiers, one
+    worker's peak device memory and the CPU count. The tier's sockets and
+    rendezvous files go in `uds`."""
     from elasticdl_tpu_torch.common import codec
     from elasticdl_tpu_torch.data.recordio import count_records
     from elasticdl_tpu_torch.data.recordio_gen import parallel_convert
     from elasticdl_tpu_torch.master.checkpoint import load_model_file
     from elasticdl_tpu_torch.worker.main import read_summaries
 
-    name = "imagenet-async"
-    root = os.path.join(tmp, name)
+    name = "imagenet-async" + ("" if depth is None else f" depth {depth}")
+    # a directory of its own per run: the phase may run more than once
+    root = tempfile.mkdtemp(prefix=name.replace(" ", "-"), dir=tmp)
     raw, data, log_dir = (os.path.join(root, d) for d in ("raw", "data", "logs"))
     os.makedirs(raw)
     with logs_on_failure(log_dir):
@@ -3600,6 +3749,8 @@ def phase_imagenet_async(tmp, uds):
                 "--num_workers", str(IMAGENET_WORKERS), "--minibatch_size", str(IMAGENET_BATCH),
                 "--records_per_task", str(IMAGENET_TASK), "--training_data_dir", data,
                 "--device", "cuda", "--envs", "OMP_NUM_THREADS=1", "--output", output]
+        if depth is not None:
+            argv += ["--step_pipeline", str(depth)]
         env = {"EDL_TRANSPORT": "shm", "EDL_TRANSPORT_SHM_RING_BYTES": str(shm_ring_for(n)),
                "EDL_UDS_DIR": uds}
         rc, master, wall = run_master(argv, log_dir, env)
@@ -3627,6 +3778,10 @@ def phase_imagenet_async(tmp, uds):
             if s["device"] != card or any(s["launches"].values()) or s["attention_fallbacks"]:
                 raise AssertionError(f"{name} worker {wid} on {s['device']!r}, launches "
                                      f"{s['launches']}, fallbacks {s['attention_fallbacks']}")
+        failures = pipeline_lines(name, summaries,
+                                  DEFAULT_ASYNC_DEPTH if depth is None else depth)
+        if failures:
+            raise AssertionError("\n".join(failures))
         spec = image_spec("imagenet_resnet50.custom_model")
         flat = codec.ravel_np(model.params)
         if not np.isfinite(flat).all():
@@ -4329,6 +4484,7 @@ def main() -> int:
         timed(phase_profile, tmp)
         counts["window_launches"] = timed(phase_window, fa, tmp)
         timed(phase_window_profile, tmp)
+        counts["ladder_adaptive_launches"] = timed(phase_window_ladder_adaptive, fa, tmp)
         timed(phase_ef_card, slice_param_count())
         counts.update(timed(phase_zoo_default, fa, tmp))
         timed(phase_zoo_head_dim8, fa, tmp)
@@ -4351,7 +4507,14 @@ def main() -> int:
             LARGE_BATCH * WINDOW, 2)
         counts["xl_sharded_process_launches"] = timed(phase_xl_sharded_processes, tmp)
         counts["sharded_async_launches"] = timed(phase_sharded_async, tmp)
+        counts["sharded_async_depth0_launches"] = timed(phase_sharded_async, tmp, 0)
+        print(f"sharded async A/B (this call, same job): depth {DEFAULT_ASYNC_DEPTH} "
+              f"{SHARDED_ASYNC_RATES[DEFAULT_ASYNC_DEPTH]:.1f} tokens/s, depth 0 "
+              f"{SHARDED_ASYNC_RATES[0]:.1f} tokens/s, ratio "
+              f"{SHARDED_ASYNC_RATES[DEFAULT_ASYNC_DEPTH] / SHARDED_ASYNC_RATES[0]:.3f}")
         counts["shard_failover_launches"] = timed(phase_shard_failover, tmp)
+        if not any(pulls for pulls, _applied in PAGE_IN.values()):
+            raise AssertionError(f"no 2-worker window phase paged a model in: {PAGE_IN}")
         timed(phase_window_drain, tmp)
         timed(phase_image_process_job, tmp)
         async_job = timed(phase_async_process_job, tmp)

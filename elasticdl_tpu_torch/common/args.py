@@ -13,11 +13,14 @@ its own.
 
 Window mode and its sync plane are carried (`--local_updates`,
 `--transport_dtype`, `--sync_dtype`, `--sync_compress`,
-`--overlap_sync`), and so are the master's job services: async and
-staleness (`--use_async`, `--lr_staleness_modulation`,
-`--staleness_window`), evaluation and prediction data and the
-evaluation cadence, checkpoints and resume
-(`--checkpoint_filename_for_init`), the metrics sink
+`--overlap_sync`, the local-steps ladder `--sync_local_steps` and the
+adaptive wire plane `--sync_adaptive`), and so is the per-step pipeline
+(`--step_pipeline`: -1, auto, on the master, which
+`resolve_step_pipeline` turns into the depth it forwards to every
+worker), and so are the master's job services: async and staleness
+(`--use_async`, `--lr_staleness_modulation`, `--staleness_window`),
+evaluation and prediction data and the evaluation cadence, checkpoints
+and resume (`--checkpoint_filename_for_init`), the metrics sink
 (`--tensorboard_log_dir`), warm standby workers
 (`--num_standby_workers`: a master flag, not forwarded; the master tells
 a standby through GetTask), and the KV shards of the embedding tables
@@ -26,11 +29,9 @@ endpoints from GetPSConfig), and the sharded PS (`--num_ps`,
 `--ps_mode`: master flags; `validate_ps_args` refuses strict per-step
 sync with shards; each shard process gets `ps_shard_forward_args`, and
 workers learn the endpoints from GetPSConfig). Not carried, so argparse
-rejects them: the sync plane's ladder, adaptive and bucket flags
-(`--sync_local_steps`, `--sync_adaptive`, `--sync_bucket_bytes`), the
-step pipeline, the fan-in combine, the aggregators, the policy plane,
-the k8s pod settings, `--keep_tensorboard_running`, profiling and master
-failover candidates.
+rejects them: the bucketed push (`--sync_bucket_bytes`), the fan-in
+combine, the aggregators, the policy plane, the k8s pod settings,
+`--keep_tensorboard_running`, profiling and master failover candidates.
 """
 
 from __future__ import annotations
@@ -117,10 +118,28 @@ def add_model_spec_args(parser: argparse.ArgumentParser):
         "for the values (default off)",
     )
     parser.add_argument(
+        "--sync_local_steps", type=pos_int, default=1,
+        help="local-steps ladder: accumulate k windows of on-device "
+        "deltas before pushing one combined super-window delta (one "
+        "report_key per push; error-feedback residuals absorb the "
+        "longer horizon). 1 = the per-window chain, bit for bit. "
+        "EDL_SYNC_LOCAL_STEPS applies when unset",
+    )
+    parser.add_argument(
+        "--sync_adaptive", default="", choices=("", "on", "off"),
+        help="link-weather-adaptive wire selection: on lets "
+        "sync_policy.decide() pick f32/bf16/int8/topk per round from "
+        "push-timing link estimates (mixed rounds are legal); off "
+        "(default) keeps the static --sync_dtype/--sync_compress form. "
+        "EDL_SYNC_ADAPTIVE applies when unset",
+    )
+    parser.add_argument(
         "--overlap_sync", default="", choices=("", "on", "off"),
         help="worker overlap plane: on (default) pipelines window-delta "
-        "syncs on background threads; off makes each window's sync "
-        "block (depth 0). EDL_OVERLAP_SYNC applies when unset",
+        "syncs on background threads, pages model-down in on a "
+        "background thread and enables BET prefetch; off makes each "
+        "window's sync block (depth 0), with no background pull and no "
+        "prefetch. EDL_OVERLAP_SYNC applies when unset",
     )
     parser.add_argument("--log_level", default="INFO")
     parser.add_argument(
@@ -145,6 +164,15 @@ def add_master_args(parser: argparse.ArgumentParser):
     parser.add_argument("--use_async", action="store_true")
     parser.add_argument("--lr_staleness_modulation", action="store_true")
     parser.add_argument("--staleness_window", type=non_neg_int, default=0)
+    parser.add_argument(
+        "--step_pipeline", type=int, default=-1,
+        help="per-step pipeline depth: up to N gradient reports in "
+        "flight while later batches compute, so the report round's "
+        "latency is divided across N batches (each report may land up "
+        "to N versions stale). 0 = off; -1 = auto (4, clamped to "
+        "--staleness_window in sync mode; async mode accepts any "
+        "depth and down-weights by staleness)",
+    )
     parser.add_argument(
         "--num_kv_shards", type=non_neg_int, default=0,
         help="N>0: host the embedding tables behind N KV shard "
@@ -211,6 +239,25 @@ def add_worker_args(parser: argparse.ArgumentParser):
     """Worker-process flags."""
     parser.add_argument("--worker_id", type=non_neg_int, required=True)
     parser.add_argument("--master_addr", required=True)
+    # already resolved by the master (resolve_step_pipeline): the
+    # worker itself does not know the PS's staleness policy
+    parser.add_argument("--step_pipeline", type=non_neg_int, default=0)
+
+
+def resolve_step_pipeline(args) -> int:
+    """The per-step pipeline depth (gradient reports in flight). A
+    report may be up to `depth` versions stale when it lands, so sync
+    mode clamps the depth to --staleness_window (anything deeper would
+    bounce off the rejection path); async mode accepts any staleness
+    (down-weighted), so the requested depth stands. Auto (-1) picks 4,
+    capped by the window. Window mode (--local_updates) has its own
+    chained-sync pipeline and keeps per-step off."""
+    if args.local_updates:
+        return 0
+    depth = 4 if args.step_pipeline < 0 else args.step_pipeline
+    if not args.use_async:
+        depth = min(depth, args.staleness_window)
+    return depth
 
 
 def master_parser() -> argparse.ArgumentParser:
@@ -300,13 +347,16 @@ def worker_forward_args(args, worker_id: int, master_addr: str) -> List[str]:
         "--minibatch_size", str(args.minibatch_size),
         "--local_updates", str(args.local_updates),
         "--transport_dtype", args.transport_dtype,
+        "--step_pipeline", str(resolve_step_pipeline(args)),
         "--log_level", args.log_level,
         "--device", args.device,
     ]
-    for flag in ("sync_dtype", "sync_compress", "overlap_sync"):
+    for flag in ("sync_dtype", "sync_compress", "overlap_sync", "sync_adaptive"):
         value = getattr(args, flag)
         if value:
             argv += [f"--{flag}", value]
+    if args.sync_local_steps != 1:
+        argv += ["--sync_local_steps", str(args.sync_local_steps)]
     for flag in ("model_params", "dataset_fn", "loss", "optimizer", "eval_metrics_fn",
                  "prediction_outputs_processor"):
         value = getattr(args, flag)

@@ -42,6 +42,10 @@ ENV_TB_BACKEND = "EDL_TPU_TB_BACKEND"
 ENV_SYNC_DEPTH = "EDL_SYNC_DEPTH"
 DEFAULT_SYNC_DEPTH = 2
 ENV_OVERLAP_SYNC = "EDL_OVERLAP_SYNC"
+# The local-steps ladder (windows a push) and the adaptive wire plane;
+# --sync_local_steps and --sync_adaptive take precedence
+ENV_SYNC_LOCAL_STEPS = "EDL_SYNC_LOCAL_STEPS"
+ENV_SYNC_ADAPTIVE = "EDL_SYNC_ADAPTIVE"
 
 # The RPC plane's transport tiers (rpc/transport.py), the reference's
 # names and defaults; `ENV_REGISTRY` carries the reference's help text
@@ -81,9 +85,23 @@ ENV_REGISTRY = {
     ),
     ENV_OVERLAP_SYNC: (
         "worker overlap plane: on (default) pipelines window-delta "
-        "syncs on sync threads and enables BET prefetch; off restores "
-        "the serial blocking sync chain (worker/worker.py; CLI "
-        "--overlap_sync)"
+        "syncs on sync threads, pages model-down in on a background "
+        "thread and enables BET prefetch; off restores the serial "
+        "blocking sync chain (worker/worker.py; CLI --overlap_sync)"
+    ),
+    ENV_SYNC_LOCAL_STEPS: (
+        "local-steps ladder: accumulate k windows of on-device deltas "
+        "before pushing one combined super-window delta (one "
+        "report_key per push; error-feedback residuals absorb the "
+        "longer horizon). Default 1 = today's per-window chain, "
+        "bit-for-bit (CLI --sync_local_steps)"
+    ),
+    ENV_SYNC_ADAPTIVE: (
+        "link-weather-adaptive wire selection: on lets "
+        "sync_policy.decide() pick f32/bf16/int8/topk per round from "
+        "push-timing link estimates (mixed rounds are legal; the PS "
+        "decodes every form per-push); off (default) keeps the static "
+        "--sync_dtype/--sync_compress form (CLI --sync_adaptive)"
     ),
     ENV_BET_PREFETCH: (
         "0 disables the batched-embedding-training lookup prefetch "

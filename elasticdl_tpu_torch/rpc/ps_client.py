@@ -28,15 +28,18 @@ the whole fan-out, so a push torn by a shard's death is replayed under
 it after the recovery, the shards that applied it absorb the replay and
 the restored shard applies it, and each slice gets it exactly once.
 
-Not ported yet: the aggregation-tree route, bucketed pushes and the
-asynchronous pull.
+`pull_async` is `pull` on a pool thread of its own (one): the worker's
+background model page-in calls it while the step loop and the sync
+chain's fan-outs go on; the links take concurrent calls.
+
+Not ported yet: the aggregation-tree route and bucketed pushes.
 """
 
 from __future__ import annotations
 
 import time
 import uuid
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,6 +69,7 @@ class ShardedPS:
         self._pool = ThreadPoolExecutor(
             max_workers=len(self.endpoints), thread_name_prefix="ps-shard"
         )
+        self._async_pool: Optional[ThreadPoolExecutor] = None  # pull_async's, lazily
 
     @property
     def num_shards(self) -> int:
@@ -170,6 +174,15 @@ class ShardedPS:
                 resps[i] = f.result()
                 new_versions[i] = resps[i]["version"]
         return new_versions, self._assemble([r["vec"] for r in resps])
+
+    def pull_async(
+        self, versions: Optional[List[int]] = None, model_dtype: Optional[str] = None
+    ) -> Future:
+        """`pull` without blocking: a Future of the same (shard versions,
+        model or None), run on one pool thread of its own."""
+        if self._async_pool is None:
+            self._async_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ps-pull-async")
+        return self._async_pool.submit(self.pull, versions=versions, model_dtype=model_dtype)
 
     def push_delta(
         self,
@@ -299,6 +312,8 @@ class ShardedPS:
 
     def close(self):
         # in-flight calls finish before the connections close
+        if self._async_pool is not None:
+            self._async_pool.shutdown(wait=True)
         self._pool.shutdown(wait=True)
         for c in self._retired + self._clients:
             c.close()

@@ -40,8 +40,11 @@ their seconds per method, the shard versions last seen), the shard
 recoveries it waited out and the restore slices the master took from it,
 the device's peak allocated bytes,
 whether it stood by as a standby (pre-warmed, or failed to) and when it
-was promoted, and each accepted step's (or landed window's) time
-(`time.perf_counter()`) and loss.
+was promoted, each accepted step's (or landed window's) time
+(`time.perf_counter()`) and loss, the per-step pipeline's depth, reports
+joined and batches trained again, the background page-in's pulls and
+staged models folded in, and the ladder's windows a push with the
+adaptive plane's decisions and bytes by wire form.
 
 Not ported yet: master failover candidates and the profiler trace.
 """
@@ -140,6 +143,19 @@ def _summary(worker_id, worker, client, device) -> dict:
         "losses": [loss for _t, loss in worker.step_log],
         # window mode: (time landed, steps, last step's loss) per window sync
         "windows": [list(w) for w in worker.window_log],
+        # the per-step pipeline: its depth, reports joined, batches
+        # trained again after a rejection
+        "step_pipeline": worker._step_pipeline,
+        "step_reports_joined": worker.step_reports_joined,
+        "step_retrained": worker.step_retrained,
+        # the background page-in: pulls started, staged models folded in
+        "bg_pulls": worker.bg_pulls,
+        "staged_applied": worker.staged_applied,
+        # the ladder and the adaptive plane: windows a push, each
+        # adaptive round's decision, the bytes and rounds of each form
+        "sync_local_steps": worker._sync_local_steps,
+        "sync_decisions": worker.sync_decisions,
+        "wire_forms": worker.wire_forms,
     }
 
 
@@ -206,6 +222,10 @@ def main(argv=None) -> int:
         overlap_sync=args.overlap_sync or None,
         kv_endpoints=ps_config.get("kv_endpoints") or None,
         ps_endpoints=ps_config.get("endpoints") or None,
+        step_pipeline=args.step_pipeline,
+        # unset flags leave EDL_SYNC_LOCAL_STEPS / EDL_SYNC_ADAPTIVE to apply
+        sync_local_steps=args.sync_local_steps if args.sync_local_steps != 1 else None,
+        sync_adaptive=args.sync_adaptive or None,
     )
     # teardown and preemption send SIGTERM: drain at the next task
     # boundary instead of dying with windows and reports in flight

@@ -11,6 +11,12 @@ The reference worker's two dense training paths on PyTorch:
   `transport_dtype="bfloat16"` sends the gradient as a plain bf16 cast
   and asks for a bf16 model back; `sync_dtype` bfloat16 or int8 sends
   it compressed with an error-feedback residual kept on the device.
+  With `step_pipeline` = k > 0 (the master forwards 4 under async by
+  default) the report runs on a thread while the next batches compute:
+  up to k reports in flight, each carrying the version it was computed
+  at, absorbed in dispatch order on the main thread; a rejected one's
+  batch is trained again through the serial loop, and a task's result
+  waits for all of its reports.
 - **Window mode** (`local_updates=W > 0`): the optimizer (the spec's
   `ClipAdam`, in place) runs on the device over the flat buffer for W
   minibatches; then one cumulative delta (flat - base) goes to the PS
@@ -19,12 +25,19 @@ The reference worker's two dense training paths on PyTorch:
   stands in for the reference's `lax.scan`; a task's ragged tail is
   synced when the task ends.
   Syncs chain on background threads, up to `EDL_SYNC_DEPTH` windows in
-  flight (`overlap_sync="off"`: depth 0, each sync blocks). The delta
-  rides the wire as float32, a bf16 cast (`transport_dtype`), or
-  compressed with error feedback (`sync_dtype` bfloat16/int8,
-  `sync_compress="topk:<ratio>"`, top-k over bf16 or int8 values): the
-  compression error stays on the device as a residual folded into the
-  next delta. When another worker synced in between, the PS hands back
+  flight, and when the local model is stale at a task's start (after a
+  reset or a standby's pre-warm) a background thread pages the model
+  in, folded in at a window boundary once the chain is idle
+  (`overlap_sync="off"`: depth 0, each sync blocks, no page-in, no BET
+  prefetch). With the local-steps ladder (`sync_local_steps` = k) one
+  push covers k windows under one report key. The delta rides the wire
+  as float32, a bf16 cast (`transport_dtype`), or compressed with error
+  feedback (`sync_dtype` bfloat16/int8, `sync_compress="topk:<ratio>"`,
+  top-k over bf16 or int8 values, or `sync_adaptive="on"`: each round's
+  form picked by `common/sync_policy.decide` from the pushes' own
+  timings, `common/linkprobe.LinkWeather`): the compression error stays
+  on the device as a residual folded into the next delta. When another
+  worker synced in between, the PS hands back
   the merged model, and the worker shifts its trajectory (and its
   younger in-flight bases) by merged - base. A task's ReportTaskResult
   waits for the sync that covers its last step, so a worker killed
@@ -159,9 +172,8 @@ state kept: the shards that applied it absorb the replay, the restored
 shard applies it. `shard_recoveries_observed` and `restore_uploads`
 count them.
 
-Not ported yet: the local-steps ladder, the adaptive wire plane, the
-background model page-in, speculative backup tasks, master failover, and
-with the sharded PS the aggregation tree and bucketed pushes.
+Not ported yet: speculative backup tasks, master failover, and with the
+sharded PS the aggregation tree and bucketed pushes.
 """
 
 from __future__ import annotations
@@ -192,15 +204,18 @@ from elasticdl_tpu_torch.api.model_spec import (
     new_aux_values,
     takes_train_kwarg,
 )
-from elasticdl_tpu_torch.common import codec
+from elasticdl_tpu_torch.common import codec, sync_policy
 from elasticdl_tpu_torch.common.constants import (
     DEFAULT_SYNC_DEPTH,
     ENV_BET_PREFETCH,
     ENV_OVERLAP_SYNC,
+    ENV_SYNC_ADAPTIVE,
     ENV_SYNC_DEPTH,
+    ENV_SYNC_LOCAL_STEPS,
     MAX_MINIBATCH_RETRY_NUM,
     Mode,
 )
+from elasticdl_tpu_torch.common.linkprobe import LinkWeather
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
 from elasticdl_tpu_torch.rpc.fencing import is_shard_outage_chain
@@ -281,21 +296,50 @@ def _parse_sync_compress(spec) -> float:
     raise ValueError(f"unsupported sync_compress {spec!r} (topk:<ratio in (0, 1]>)")
 
 
-def _sync_depth(overlap_sync: Optional[str]) -> int:
-    """Windows that may be in flight: EDL_SYNC_DEPTH (default 2; a
-    malformed value falls back to 2), 0 when the overlap plane is off."""
+def _sync_depth(overlap_sync: Optional[str]) -> tuple:
+    """(overlap plane on, windows that may be in flight): the gate from
+    `overlap_sync` or EDL_OVERLAP_SYNC (on by default), the depth from
+    EDL_SYNC_DEPTH (default 2; a malformed value falls back to 2), 0
+    when the plane is off."""
     if overlap_sync is None:
         overlap_sync = os.environ.get(ENV_OVERLAP_SYNC, "") or "on"
     overlap_sync = str(overlap_sync).strip().lower()
     if overlap_sync in ("off", "0", "false"):
-        return 0
+        return False, 0
     if overlap_sync not in ("", "on", "1", "true"):
         raise ValueError(f"unsupported overlap_sync {overlap_sync!r} (on|off)")
     try:
-        return max(0, int(os.environ.get(ENV_SYNC_DEPTH, str(DEFAULT_SYNC_DEPTH)).strip()))
+        return True, max(0, int(os.environ.get(ENV_SYNC_DEPTH, str(DEFAULT_SYNC_DEPTH)).strip()))
     except ValueError:
         logger.warning("ignoring malformed %s; using %d", ENV_SYNC_DEPTH, DEFAULT_SYNC_DEPTH)
-        return DEFAULT_SYNC_DEPTH
+        return True, DEFAULT_SYNC_DEPTH
+
+
+def _sync_local_steps(k) -> int:
+    """Windows a push (the ladder): `k`, else EDL_SYNC_LOCAL_STEPS, else
+    1; anything but an int >= 1 raises at worker construction."""
+    if k is None:
+        k = os.environ.get(ENV_SYNC_LOCAL_STEPS, "") or 1
+    try:
+        k = int(k)
+    except (TypeError, ValueError):
+        k = 0
+    if k < 1:
+        raise ValueError(f"unsupported sync_local_steps {k!r} (int >= 1)")
+    return k
+
+
+def _sync_adaptive(flag) -> bool:
+    """The adaptive wire plane's gate: `flag`, else EDL_SYNC_ADAPTIVE,
+    else off."""
+    if flag is None:
+        flag = os.environ.get(ENV_SYNC_ADAPTIVE, "") or "off"
+    flag = str(flag).strip().lower()
+    if flag in ("", "off", "0", "false"):
+        return False
+    if flag in ("on", "1", "true"):
+        return True
+    raise ValueError(f"unsupported sync_adaptive {flag!r} (on|off)")
 
 
 class Worker:
@@ -314,6 +358,9 @@ class Worker:
         overlap_sync: Optional[str] = None,
         kv_endpoints=None,
         ps_endpoints=None,
+        step_pipeline: int = 0,
+        sync_local_steps: Optional[int] = None,
+        sync_adaptive: Optional[str] = None,
     ):
         self._id = worker_id
         self._master = master
@@ -391,6 +438,9 @@ class Worker:
             )
         self._sync_dtype = sync_dtype
         self._topk_ratio = _parse_sync_compress(sync_compress)
+        # the adaptive wire plane (before the supersede below: it counts
+        # as lossy, so it too needs the full-precision delta)
+        self._sync_adaptive = _sync_adaptive(sync_adaptive)
         self._transport_dtype = transport_dtype
         if self._lossy_sync() and transport_dtype == "bfloat16":
             # error feedback needs the full-precision delta as its input;
@@ -438,7 +488,23 @@ class Worker:
         self._pending_steps = 0  # local steps not yet in a spawned sync
         self._pending_losses: list = []  # (task_id, device loss) per task
         self._latest_step_loss = None  # device scalar of the newest step
-        self._max_inflight_syncs = _sync_depth(overlap_sync)
+        self._overlap_sync, self._max_inflight_syncs = _sync_depth(overlap_sync)
+        # the local-steps ladder: k windows a push, one report key; the
+        # delta is cumulative, so k only raises the spawn threshold
+        self._sync_local_steps = _sync_local_steps(sync_local_steps)
+        self._link_weather = LinkWeather()
+        # per round of the adaptive plane, appended at spawn: {round,
+        # form, link_mbps, delta_bytes, steps}
+        self._sync_decisions: list = []
+        # {form: {"bytes_sent", "rounds"}} of the pushes of each form
+        self.wire_forms: dict = {}
+        # the background model page-in: a pull on a thread of its own,
+        # staged as (shard versions or None, version, model, aux) under
+        # _report_lock and folded in at a window boundary
+        self._absorb_staged = None
+        self._bg_pull_thread: Optional[threading.Thread] = None
+        self.bg_pulls = 0  # background pulls started
+        self.staged_applied = 0  # staged models folded in
         self._sync_thread: Optional[threading.Thread] = None  # chain tail
         self._sync_inflight: deque = deque()
         self._copy_stream = None  # CUDA stream of the sync threads' copies
@@ -467,6 +533,18 @@ class Worker:
         # window report keys are f"{spec_key}.w{index}"
         self._cur_spec_key = ""
         self._cur_window_idx = 0
+
+        # -- the per-step pipeline: up to `step_pipeline` reports in
+        # flight on threads, (thread, box, features, labels) in dispatch
+        # order
+        self._step_pipeline = max(0, int(step_pipeline))
+        self._step_inflight: deque = deque()
+        self._last_step_loss: Optional[float] = None  # newest joined loss
+        self.step_reports_joined = 0  # pipelined reports joined
+        self.step_retrained = 0  # batches trained again after a rejection
+        # serializes shard-recovery waits (reporter threads may hit one
+        # outage together)
+        self._recovery_lock = threading.Lock()
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -509,8 +587,19 @@ class Worker:
 
     def _lossy_sync(self) -> bool:
         """Whether the window's sync plane compresses (and so keeps an
-        error-feedback residual): bf16 or int8, or top-k."""
-        return self._sync_dtype in ("bfloat16", "int8") or self._topk_ratio > 0
+        error-feedback residual): bf16 or int8, top-k, or the adaptive
+        plane (any round may pick a lossy form)."""
+        return (
+            self._sync_adaptive
+            or self._sync_dtype in ("bfloat16", "int8")
+            or self._topk_ratio > 0
+        )
+
+    @property
+    def sync_decisions(self) -> list:
+        """A copy of the adaptive plane's per-round decision log (empty
+        unless it is on)."""
+        return [dict(d) for d in self._sync_decisions]
 
     def _model_wire_dtype(self) -> Optional[str]:
         """Dtype asked for the piggybacked model: bf16 whenever any lossy
@@ -625,14 +714,22 @@ class Worker:
     def report_variable(self, params, aux=None):
         self._master.call("ReportVariable", {"params": params, "aux": aux or None})
 
-    def report_gradient(self, grad_wire, loss: float, aux_state=None, edl_grads=None):
+    def report_gradient(self, grad_wire, loss: float, aux_state=None, edl_grads=None,
+                        version: Optional[int] = None, shard_base: Optional[list] = None):
         """One ReportGradient round with a host-side wire gradient, the
         step's new aux tree (None for a model without aux) and its BET
-        gradients ({table: IndexedRows}, for a model with tables)."""
+        gradients ({table: IndexedRows}, for a model with tables).
+        `version` and `shard_base` are the version and the shard versions
+        the gradient was computed at, when the pipelined path captured
+        them at dispatch (the live ones by default): an absorb between
+        compute and send must not make an older gradient claim a newer
+        version."""
         if self._ensure_ps() is not None:
-            return self._push_grad_sharded(grad_wire, loss, aux_state, edl_grads)
-        with self._report_lock:
-            version = self._version
+            return self._push_grad_sharded(grad_wire, loss, aux_state, edl_grads,
+                                           version, shard_base)
+        if version is None:
+            with self._report_lock:
+                version = self._version
         req = {
             "worker_id": self._id,
             "version": version,
@@ -650,15 +747,22 @@ class Worker:
             req["model_dtype"] = md
         return self._master.call("ReportGradient", req)
 
-    def _push_grad_sharded(self, grad_wire, loss: float, aux_state, edl_grads):
+    def _push_grad_sharded(self, grad_wire, loss: float, aux_state, edl_grads,
+                           version: Optional[int] = None, shard_base: Optional[list] = None):
         """The per-step report with shards: the gradient's slices to the
-        shards (each at this worker's version of it), the updated slices
-        back, and the metadata to the master (ReportWindowMeta). Answers
-        like a ReportGradient; a model that comes back carries the aux
-        this report wrote."""
+        shards (each at this worker's version of it, or at `shard_base`),
+        the updated slices back, and the metadata to the master
+        (ReportWindowMeta). Answers like a ReportGradient; a model that
+        comes back carries the aux this report wrote."""
         n = self._ps.num_shards
-        with self._report_lock:
-            base = list(self._shard_versions) if self._shard_versions else [self._version] * n
+        if shard_base is not None:
+            base = list(shard_base)
+        else:
+            with self._report_lock:
+                if self._shard_versions:
+                    base = list(self._shard_versions)
+                else:
+                    base = [self._version if version is None else version] * n
         # the key is pinned here, so that a push torn by a shard's death
         # is replayed under it once the shard is recovered: the shards
         # that applied it absorb the replay, the restored one applies it
@@ -954,22 +1058,31 @@ class Worker:
             )
         return loss.detach(), torch.cat([g.reshape(-1) for g in grads[:n]]), new_aux, gbets
 
-    def _grad_to_wire(self, grad: torch.Tensor):
-        """The per-step gradient's wire form on the host: EF-compressed
-        under a bf16/int8 `sync_dtype`, a bf16 cast under
-        `transport_dtype`, else float32."""
+    def _grad_wire_parts(self, grad: torch.Tensor):
+        """(meta or None, device payload tensors) of the per-step
+        gradient's wire form: EF-compressed under a bf16/int8
+        `sync_dtype` (the residual is consumed here, on the main thread,
+        so pipelined reports take it in dispatch order), a bf16 cast
+        under `transport_dtype`, else float32."""
         if self._sync_dtype in ("bfloat16", "int8"):
             if self._ef_grad_residual is None:
                 self._ef_grad_residual = torch.zeros_like(grad)
             meta, arrays, self._ef_grad_residual = self._ef_compress(
                 grad + self._ef_grad_residual, topk=False
             )
-            return self._materialize_wire_delta(
-                meta, [_wire_array(a.cpu()) for a in arrays]
-            )
+            return meta, list(arrays)
         if self._transport_dtype == "bfloat16":
-            return _wire_array(grad.to(torch.bfloat16).cpu())
-        return grad.cpu().numpy()
+            return None, [grad.to(torch.bfloat16)]
+        return None, [grad]
+
+    def _wire_from_host(self, meta, arrays_h):
+        """The wire gradient from its payload's host copies."""
+        return self._materialize_wire_delta(meta, arrays_h) if meta is not None else arrays_h[0]
+
+    def _grad_to_wire(self, grad: torch.Tensor):
+        """The per-step gradient's wire form on the host."""
+        meta, arrays = self._grad_wire_parts(grad)
+        return self._wire_from_host(meta, [_wire_array(a.cpu()) for a in arrays])
 
     def _absorb_report_response(self, resp):
         """Track freshness and absorb a piggybacked model. Monotonic: an
@@ -1013,6 +1126,115 @@ class Worker:
                 self._note_accepted()
                 return loss_h
         raise RuntimeError("worker stuck: minibatch retries exhausted")
+
+    # ------------------------------------------------ the per-step pipeline
+    #
+    # With `step_pipeline` = k > 0, up to k gradient reports ride the link
+    # on threads while later batches compute on the device: a step costs
+    # max(compute, report / k) instead of compute + report. Legal where
+    # the PS takes k-stale gradients (async, or a staleness window >= k;
+    # the master resolves the depth, `common/args.resolve_step_pipeline`).
+    # Each report carries the version (and shard versions) its gradient
+    # was computed at, and responses, which may complete out of order,
+    # are absorbed on the main thread in dispatch order through the
+    # monotonic guard of `_absorb_report_response`.
+
+    def _step_pipeline_on(self) -> bool:
+        """The pipeline runs on the per-step path of a model without
+        tables, once the model's structure is known: the job's first
+        batch, which pulls or initializes the model, goes through the
+        serial loop."""
+        return bool(
+            self._step_pipeline
+            and self._template is not None
+            and not self._emb_specs
+            and not self._local_updates
+        )
+
+    def _pipelined_minibatch(self, features, labels, task: Task):
+        """Compute this batch's gradient on the device, send its report on
+        a thread, and block only while more than `step_pipeline` reports
+        are in flight. The gradient's copy to the host runs on the
+        thread too (on the copy stream, after the step's event)."""
+        with self._report_lock:
+            fresh, version = self._fresh, self._version
+        if not fresh or version < task.model_version:
+            self._join_step_pipeline(task)  # an in-flight response may bring it
+        self._ensure_step_ready(task)
+        with self._phase("compute"):
+            loss, grad, new_aux, _gbets = self._train_step(features, labels)
+            meta, arrays = self._grad_wire_parts(grad)
+            tensors = [*arrays, loss.reshape(1)] + ([new_aux] if new_aux is not None else [])
+            event = None
+            if self._device.type == "cuda":
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self._device)
+                event = torch.cuda.Event()
+                event.record()
+        self.steps_computed += 1
+        with self._report_lock:
+            compute_version = self._version
+            shard_base = list(self._shard_versions) if self._shard_versions else None
+        box: dict = {}
+
+        def report_main():
+            try:
+                host = self._to_host(tensors, event)
+                n = len(arrays)
+                loss_h = float(host[n][0])
+                aux_h = self._aux_tree(host[n + 1]) if new_aux is not None else None
+                box["loss"] = loss_h
+                box["resp"] = self.report_gradient(
+                    self._wire_from_host(meta, host[:n]), loss_h, aux_h,
+                    version=compute_version, shard_base=shard_base,
+                )
+                box["at"] = time.perf_counter()
+            except Exception as e:  # raised at its join
+                box["err"] = e
+
+        t = threading.Thread(target=report_main, daemon=True)
+        self._step_inflight.append((t, box, features, labels))
+        t.start()
+        while len(self._step_inflight) > self._step_pipeline:
+            self._join_one_step(task)
+
+    def _join_one_step(self, task: Task):
+        """Join the oldest report in flight, absorb its response here, and
+        train its batch again through the serial loop when the PS
+        rejected it (staleness outran the window). On an error the
+        younger reports are joined and discarded, so none leaks into the
+        next task."""
+        t, box, features, labels = self._step_inflight.popleft()
+        try:
+            with self._phase("sync_wait"):
+                t.join()
+            self.step_reports_joined += 1
+            if "err" in box:
+                raise box["err"]
+            resp = box["resp"]
+            with self._phase("report"):
+                self._absorb_report_response(resp)
+            self._last_step_loss = box["loss"]
+            if resp["accepted"]:
+                self.step_log.append((box["at"], box["loss"]))
+                self._note_accepted()
+            else:
+                self.step_retrained += 1
+                self._last_step_loss = self._process_minibatch(features, labels, task)
+        except Exception:
+            self._discard_step_pipeline()
+            raise
+
+    def _join_step_pipeline(self, task: Task):
+        """Join every report in flight, oldest first."""
+        while self._step_inflight:
+            self._join_one_step(task)
+
+    def _discard_step_pipeline(self):
+        """Join the reports in flight and drop their results (a failed
+        task: it is requeued whole)."""
+        while self._step_inflight:
+            self._step_inflight.popleft()[0].join()
 
     # ---------------------------------------------- error-feedback compression
     #
@@ -1096,15 +1318,31 @@ class Worker:
             )
         raise ValueError(f"unknown wire-delta meta {meta!r}")
 
-    def _ef_quantize_delta(self, delta: torch.Tensor):
+    def _ef_quantize_delta(self, delta: torch.Tensor, form: Optional[str] = None):
         """Window-delta EF at spawn, on the main thread: spawns are
         sequential, so each one consumes the residual the previous one
-        left, even with windows in flight. Returns (meta, payload)."""
+        left, even with windows in flight. `form` is the adaptive plane's
+        pick for this round (`sync_policy.WIRE_FORMS`); None keeps the
+        configured knobs. An adaptive "f32" round sends the corrected
+        delta exactly and clears the residual; "topk" keeps the
+        configured ratio, else 0.1. Returns (meta, payload)."""
         if self._ef_residual is None or self._ef_residual.shape != delta.shape:
             self._ef_residual = torch.zeros_like(delta)
-        meta, arrays, self._ef_residual = self._ef_compress(
-            delta + self._ef_residual, topk=self._topk_ratio > 0
-        )
+        comp = delta + self._ef_residual
+        if form is None:
+            meta, arrays, self._ef_residual = self._ef_compress(comp, topk=self._topk_ratio > 0)
+        elif form == "f32":
+            meta, arrays, self._ef_residual = ("dense",), (comp,), torch.zeros_like(comp)
+        elif form in ("bf16", "int8"):
+            meta, arrays, self._ef_residual = self._ef_compress(
+                comp, topk=False, dtype={"bf16": "bfloat16"}.get(form, form)
+            )
+        elif form == "topk":
+            meta, arrays, self._ef_residual = self._ef_compress(
+                comp, topk=True, dtype="float32", ratio=self._topk_ratio or 0.1
+            )
+        else:
+            raise ValueError(f"unknown adaptive wire form {form!r}")
         return meta, arrays
 
     # ---------------------------------------------------------- window mode
@@ -1132,6 +1370,7 @@ class Worker:
         if self._pending_steps == 0:
             self._check_sync_error()
             self._absorb_sync_result()
+            self._apply_staged_model()  # a paged-in model, when one is staged
         with self._report_lock:
             fresh, version = self._fresh, self._version
         if self._pending_steps == 0 and (not fresh or version < task.model_version):
@@ -1139,6 +1378,14 @@ class Worker:
                 self._join_sync()  # a model swap settles the chain first
             with self._report_lock:
                 fresh, version = self._fresh, self._version
+            if not fresh or version < task.model_version:
+                # the background pull started at the task's start may
+                # bring the model: ride it rather than pull again
+                with self._phase("sync_wait"):
+                    self._join_bg_pull()
+                if self._apply_staged_model():
+                    with self._report_lock:
+                        fresh, version = self._fresh, self._version
             if not fresh or version < task.model_version:
                 if not self.pull_model():
                     self._lazy_init_model()
@@ -1157,7 +1404,9 @@ class Worker:
             loss = self._local_step(features, labels, embs)
         self._pending_steps += 1
         self._latest_step_loss = loss
-        if self._pending_steps >= self._local_updates:
+        # with the ladder, k windows grow one cumulative delta on the
+        # device, and one push covers them
+        if self._pending_steps >= self._local_updates * self._sync_local_steps:
             self._sync_local_updates(blocking=False)
         return loss
 
@@ -1199,13 +1448,26 @@ class Worker:
         t0 = time.perf_counter()
         delta = self._flat - self._base_flat  # its own tensor
         wire_meta = None
+        wire_form = None
+        if self._sync_adaptive:
+            # this round's wire form from the passive link estimate,
+            # decided at spawn like the EF residual's hand-off (spawns
+            # are sequential, so the log needs no lock)
+            link_mbps = self._link_weather.mbps()
+            delta_f32_bytes = int(delta.numel()) * 4
+            wire_form = sync_policy.decide(link_mbps, delta_f32_bytes, self._sync_decisions)
         if self._lossy_sync():
-            wire_meta, arrays = self._ef_quantize_delta(delta)
+            wire_meta, arrays = self._ef_quantize_delta(delta, form=wire_form)
         elif self._transport_dtype == "bfloat16":
             arrays = (delta.to(torch.bfloat16),)
         else:
             arrays = (delta,)
         steps = self._pending_steps
+        if wire_form is not None:
+            self._sync_decisions.append({
+                "round": len(self._sync_decisions), "form": wire_form,
+                "link_mbps": link_mbps, "delta_bytes": delta_f32_bytes, "steps": steps,
+            })
         # the same key for the same window of the same task dispatch, so
         # a replay is absorbed; a fresh one when the task has no key
         if self._cur_spec_key:
@@ -1285,9 +1547,10 @@ class Worker:
             t2 = time.perf_counter()
             versions = None
             if ps is not None:
-                versions, resp = self._push_delta_sharded(ps, req, spawn_shard_bases)
+                versions, resp = self._push_delta_sharded(ps, req, spawn_shard_bases, wire_form)
             else:
                 resp = self._master.call("ReportLocalUpdate", req)
+                self._observe_push(wire, time.perf_counter() - t2, wire_form)
             t3 = time.perf_counter()
             self._add_sync_seconds("encode", t2 - t1)
             self._add_sync_seconds("rpc", t3 - t2)
@@ -1354,7 +1617,19 @@ class Worker:
             with self._phase("sync_wait"):
                 self._sync_inflight.popleft().join()
 
-    def _push_delta_sharded(self, ps, req: dict, shard_bases):
+    def _observe_push(self, wire, seconds: float, wire_form: Optional[str]):
+        """After a window push (sync thread): its wire bytes over its
+        seconds feed the link estimate, and an adaptive round's bytes go
+        to its form's row of `wire_forms`."""
+        nbytes = codec.delta_nbytes(wire)
+        self._link_weather.observe(nbytes, seconds)
+        if wire_form is not None:
+            with self._stats_lock:
+                row = self.wire_forms.setdefault(wire_form, {"bytes_sent": 0, "rounds": 0})
+                row["bytes_sent"] += nbytes
+                row["rounds"] += 1
+
+    def _push_delta_sharded(self, ps, req: dict, shard_bases, wire_form=None):
         """A window sync with shards: the delta's slices to the shards
         under the window's report key, each at its shard's base, then the
         metadata to the master (ReportWindowMeta). Returns (shard
@@ -1363,10 +1638,12 @@ class Worker:
         n = ps.num_shards
         bases = shard_bases if shard_bases is not None else [req["base_version"]] * n
         dup: list = []
+        t0 = time.perf_counter()
         versions, merged = ps.push_delta(
             req["delta_flat"], req["steps"], bases, model_dtype=req.get("model_dtype"),
             report_key=req["report_key"], duplicates=dup,
         )
+        self._observe_push(req["delta_flat"], time.perf_counter() - t0, wire_form)
         self._keep_window_restore_slices(ps, versions, merged, req["delta_flat"], bases)
         meta = {"worker_id": self._id, "versions": versions, "steps": req["steps"],
                 "aux_state": req["aux_state"], "loss": req["loss"], "want_aux": bool(merged)}
@@ -1437,6 +1714,10 @@ class Worker:
         shards answer at the clients' generations."""
         if self._ps is None and self._kv is None:
             return False
+        with self._recovery_lock:
+            return self._await_shard_recovery_locked(deadline, reset)
+
+    def _await_shard_recovery_locked(self, deadline: float, reset: bool) -> bool:
         start = time.monotonic()
         observed = False
         offered: dict = {}  # shard -> the snapshot version the master took
@@ -1581,6 +1862,7 @@ class Worker:
             self._shard_lineage = None
             self._spawn_abs.clear()
             self._lineage_anchor_abs = self._own_steps_abs
+            self._absorb_staged = None  # a staged page-in predates the reset
         self._opt_state = None
         self._pending_steps = 0
         self._pending_losses = []
@@ -1639,6 +1921,119 @@ class Worker:
         self.merged_back += 1
         self._add_sync_seconds("absorb", time.perf_counter() - t0)
 
+    # ------------------------------------------- the background page-in
+    #
+    # Window mode with the overlap plane on: when the local model is
+    # stale at a task's start (not fresh after a reset or a standby's
+    # pre-warm, or older than the version the task announces), a thread
+    # pulls the model (over shards `ShardedPS.pull_async`) while the
+    # worker reads its records, and stages it. The main thread folds it in at a window boundary
+    # when the sync chain is idle and no merged model waits to be
+    # absorbed, under the same monotonic guard as every absorb; a reset
+    # (the sync epoch) voids it.
+
+    def _join_bg_pull(self):
+        """Settle the background pull in flight (main thread)."""
+        t = self._bg_pull_thread
+        if t is not None:
+            t.join()
+            self._bg_pull_thread = None
+
+    def _maybe_start_bg_pull(self, min_version: int):
+        """Start a background pull of the model when the local one is
+        older than `min_version` (the task's), unless the overlap plane
+        is off, a pull is in flight, or a model is already staged."""
+        if not self._overlap_sync:
+            return
+        t = self._bg_pull_thread
+        if t is not None and t.is_alive():
+            return
+        ps = self._ensure_ps()
+        with self._report_lock:
+            if self._absorb_staged is not None:
+                return
+            fresh, cur_version = self._fresh, self._version
+            known = list(self._shard_versions) if self._shard_versions else None
+            epoch = self._sync_epoch
+        if fresh and cur_version >= min_version:
+            return  # current: nothing to page in
+        if cur_version < 0 and ps is None:
+            return  # no model yet: the blocking path makes first contact
+        t = threading.Thread(
+            target=self._bg_pull_once,
+            args=(ps, known, cur_version, self._aux_flat is not None, epoch),
+            daemon=True,
+        )
+        self._bg_pull_thread = t
+        self.bg_pulls += 1
+        t.start()
+
+    def _bg_pull_once(self, ps, known_versions, cur_version: int, want_aux: bool, epoch: int):
+        """The background pull: fetch and stage only (the device buffers
+        and the version bookkeeping are the main thread's). A failure
+        costs nothing, the blocking pull stays, so it is logged and
+        dropped."""
+        try:
+            staged = None
+            if ps is not None:
+                fut = ps.pull_async(versions=known_versions, model_dtype=self._model_wire_dtype())
+                aux = self._master.call("GetAux", {}).get("aux") if want_aux else None
+                versions, vec = fut.result()
+                if all(v >= 0 for v in versions) and vec is not None:
+                    staged = (list(versions), min(versions), vec, aux)
+            else:
+                resp = self._master.call("GetModel", {
+                    "version": cur_version, "method": MethodType.MINIMUM,
+                    "only_if_newer": True, "flat": True,
+                })
+                if resp.get("version", -1) >= 0 and resp.get("params_flat") is not None:
+                    staged = (None, resp["version"], resp["params_flat"], resp.get("aux"))
+            if staged is not None:
+                with self._report_lock:
+                    if epoch == self._sync_epoch and staged[1] > self._version:
+                        self._absorb_staged = staged
+        except Exception as e:
+            logger.debug("Worker %d: background model pull failed (the blocking pull "
+                         "remains): %s", self._id, e)
+
+    def _apply_staged_model(self) -> bool:
+        """Fold a staged model in at a window boundary (main thread, no
+        pending steps). Deferred while the sync chain runs or a merged
+        model waits: a whole model replaces the flat buffer, which would
+        orphan the base snapshots of syncs in flight. Over shards the
+        shard versions, the lineage and the restore snapshot are reset
+        to it. Returns True when a model was folded in."""
+        if not self._overlap_sync or self._absorb_staged is None:  # racy, re-read below
+            return False
+        t = self._sync_thread
+        if t is not None and t.is_alive():
+            return False  # the chain is busy: a later boundary folds it
+        with self._report_lock:
+            staged = self._absorb_staged
+            if staged is None or self._sync_result is not None:
+                return False  # an unabsorbed merged model goes first
+            versions, version, vec, aux = staged
+            self._absorb_staged = None
+            if version <= self._version:
+                return False  # stale on arrival
+        self._set_flat(vec)
+        self._set_aux(aux, "GetModel" if versions is None else "GetAux")
+        slices = self._split_slices(vec) if versions is not None else None
+        with self._report_lock:
+            self._version = version
+            self._lineage_version = version
+            self._lineage_anchor_abs = self._own_steps_abs
+            if versions is not None:
+                self._shard_versions = list(versions)
+                self._shard_lineage = list(versions)
+                self._restore_snap = [(int(v), slices[i]) for i, v in enumerate(versions)]
+            else:
+                self._shard_lineage = None
+            self._fresh = True
+        self._opt_state = None  # params swapped: the boundary rebases
+        self.staged_applied += 1
+        return True
+
     def _defer_report(self, task_id: int, err: str):
         """Queue the task's result behind its covering sync: the last one
         spawned if the task ended on a window boundary, else the tail sync
@@ -1673,6 +2068,7 @@ class Worker:
         resolve the losses whose sync already ran, flush the reports."""
         if not self._local_updates:
             return
+        self._join_bg_pull()
         self._join_sync()
         if self._pending_steps:
             self._sync_local_updates(blocking=True)
@@ -1843,24 +2239,38 @@ class Worker:
     def _process_training_task(self, task: Task) -> bool:
         """Train on the task's records. Returns True when its result
         report was deferred behind the covering sync (window mode)."""
-        batches = self._task_batches(task, Mode.TRAINING)
         # window report keys derive from this dispatch of the task
         self._cur_spec_key = task.spec_key
         self._cur_window_idx = 0
+        if self._local_updates:
+            # a newer model announced: page it in while the records are
+            # read and the first steps train
+            self._maybe_start_bg_pull(task.model_version)
+        batches = self._task_batches(task, Mode.TRAINING)
         loss = None
         if self._local_updates and self._emb_specs:
             batches = self._with_embeddings(batches)
         else:
             batches = ((features, labels, None) for features, labels in batches)
+        pipelined = False
         try:
             for features, labels, embs in batches:
                 if self._local_updates:
                     loss = self._local_minibatch(features, labels, task, embs)
+                elif self._step_pipeline_on():
+                    self._pipelined_minibatch(features, labels, task)
+                    pipelined = True
                 else:
                     loss = self._process_minibatch(features, labels, task)
+            if pipelined:
+                # every gradient of the task reaches the PS before its
+                # result is reported
+                self._join_step_pipeline(task)
+                loss = self._last_step_loss
         except Exception:
             if self._local_updates:
                 self._drop_pending_steps()
+            self._discard_step_pipeline()
             raise
         if self._local_updates:
             # the report waits for the sync covering the task's last step:
@@ -1955,6 +2365,7 @@ class Worker:
 
     def close(self):
         try:
+            self._discard_step_pipeline()
             self._finalize_local_updates()
         finally:
             if self._emb_prefetch_pool is not None:

@@ -1,14 +1,15 @@
 """Run chosen `chip_smoke.py` phases alone on one CUDA card.
 
     python3 scripts/torch_smoke_phases.py phase_eval_kernels,phase_resume,\
-phase_async_process_job,phase_standalone_eval_predict
+phase_async_process_job,phase_standalone_eval_predict,phase_sharded_async:0
 
 Builds the attention kernels from the checkout, then calls each named
 phase of `chip_smoke.py` in order with the arguments its signature names
 (`fa`: the kernels' module, `tmp`: a temporary directory, `uds`: the
 fast tiers' short socket directory, `async_job`: what
-`phase_async_process_job` returned, so that one must come first); each
-phase prints its lines and seconds.
+`phase_async_process_job` returned, so that one must come first; a name
+followed by `:N` passes N as the phase's last argument); each phase
+prints its lines and seconds.
 Ends with "DEV OK" when every phase passed. For iterating on a few
 phases without the whole smoke run; the smoke run is the check.
 """
@@ -37,10 +38,11 @@ def main():
     names = sys.argv[1].split(",")
     with tempfile.TemporaryDirectory() as tmp, cs.tier_dir() as uds:
         args = {"fa": fa, "tmp": tmp, "uds": uds, "async_job": None}
-        for n in names:
+        for spec in names:
+            n, _, extra = spec.partition(":")
             f = getattr(cs, n)
             params = [p for p in inspect.signature(f).parameters if p in args]
-            out = cs.timed(f, *[args[p] for p in params])
+            out = cs.timed(f, *[args[p] for p in params], *([int(extra)] if extra else []))
             if n == "phase_async_process_job":
                 args["async_job"] = out
             print(f"{n} -> {out}", flush=True)

@@ -148,6 +148,27 @@ def test_port_sources_import_nothing_of_jax_or_the_reference():
                 assert name.split(".")[0] not in BANNED, f"{path} imports {name}"
 
 
+def test_the_audit_covers_the_overlap_plane_modules():
+    """The overlap plane's modules (the adaptive policy, the link
+    estimate, the pipelined worker, the sharded client's async pull)
+    are among the audited files, and import nothing of JAX or the
+    reference."""
+    audited = {os.path.relpath(p, REPO) for p in _port_files()}
+    for rel in ("common/sync_policy.py", "common/linkprobe.py", "common/args.py",
+                "worker/worker.py", "worker/main.py", "rpc/ps_client.py"):
+        assert os.path.join("elasticdl_tpu_torch", rel) in audited, rel
+    from elasticdl_tpu_torch.common import linkprobe, sync_policy
+
+    for mod in (sync_policy, linkprobe):
+        with open(mod.__file__) as f:
+            tree = ast.parse(f.read())
+        names = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names}
+        names |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert names <= {"__future__", "threading", "collections", "typing"}, names
+
+
 def test_port_modules_import_with_jax_and_the_reference_unimportable():
     """A fresh interpreter (conftest imports jax into this one) with
     every BANNED package made unimportable imports every port module

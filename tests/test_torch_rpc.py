@@ -308,7 +308,7 @@ def test_parser_values_equal_the_references_for_every_ported_flag(which, extra):
 
 def test_flags_not_ported_are_rejected():
     with pytest.raises(SystemExit):
-        targs.master_parser().parse_args(SPEC_ARGV + ["--sync_local_steps", "2"])
+        targs.master_parser().parse_args(SPEC_ARGV + ["--sync_bucket_bytes", "4096"])
 
 
 @pytest.mark.parametrize("data_dir", ["", "shards"])
