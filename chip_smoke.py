@@ -156,7 +156,7 @@ its result lines only when every phase passed:
    losses < 1.5), the PS's batch_stats moved and equal to the last
    synced window's, images/s, then the device idle share of a profiled
    run of 2 tasks; `phase_resnet_window` trains ResNet-50 in bf16 at 64
-   px in window mode (`bench_resnet.py:123-160`: W 32, b128, 16,384
+   px in window mode (`bench_resnet.py:123-160`: W 32, b128, 8,192
    records, bf16 transport) with images/s and its peak device memory;
    `phase_image_process_job` runs master.main with `--model_def
    cifar10_functional_api.custom_model`, 2 workers per-step: the
@@ -209,13 +209,13 @@ its result lines only when every phase passed:
    16-18 share one short socket directory straight under the temp dir,
    since an AF_UNIX path holds at most 107 bytes;
 17. `BASELINE.json`'s "imagenet_resnet50 -- 8 TPU workers, async PS"
-   (`phase_imagenet_async`): 8 tars of 1,024 `<label>/<n>.npy` 64x64x3
+   (`phase_imagenet_async`): 8 tars of 512 `<label>/<n>.npy` 64x64x3
    images converted by `data/recordio_gen/parallel_convert` with
-   `models/imagenet_resnet50.py` into 8 shards (8,192 records), then
+   `models/imagenet_resnet50.py` into 8 shards (4,096 records), then
    master.main with 8 async worker processes on the card
    (`--use_async --lr_staleness_modulation`: 4 reports in flight a
-   worker, b128, tasks of 512: 64 updates) over EDL_TRANSPORT=shm with a whole-frame ring: rc 0, the
-   exactness block at v64 = the accepted steps, finite losses, moved
+   worker, b128, tasks of 512: 32 updates) over EDL_TRANSPORT=shm with a whole-frame ring: rc 0, the
+   exactness block at v32 = the accepted steps, finite losses, moved
    parameters and batch statistics, every link on shm, 0 attention
    launches, no segment left; prints steady images/s, the
    ReportGradient handler a step, each worker's client seconds by
@@ -249,7 +249,7 @@ its result lines only when every phase passed:
    lazy init; prints records/s, the phase split, the master's sparse
    apply and the sync split with the edl_gradient bytes;
    `phase_deepfm_kv_process` runs master.main with 2 KV shard processes
-   and 2 worker processes over shm (W 16, 16,384 records from a vocab of
+   and 2 worker processes over shm (W 16, 8,192 records from a vocab of
    1,000,000, one evaluation with AUC, one checkpoint with the tables),
    KV shard 1's process SIGKILLed at a quarter of the steps and restored
    from its ring pair: rc 0, recoveries [("kv", 1, 1)], 0
@@ -345,7 +345,7 @@ LARGE = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=16)
 LARGE_PARAMS = ("vocab=8192,d_model=1024,n_heads=8,d_ff=4096,n_layers=16,n_micro=1,"
                 "dtype=bfloat16,remat=True,remat_policy=dots")
 # (window steps cut from 16: the large window process phase trains it too)
-LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 4, 8
+LARGE_BATCH, LARGE_STEPS, LARGE_WINDOW_STEPS = 16, 2, 8
 # the reference's xl config (bench_transformer.py:211-221): 16 heads of 128,
 # d_ff 8192, 8 layers, remat "dots", bf16 compute, b8 x s1024
 XL_PARAMS = ("vocab=8192,d_model=2048,n_heads=16,d_ff=8192,n_layers=8,n_micro=1,"
@@ -1995,9 +1995,11 @@ def phase_window_process_job(tmp, name="window process", model_params=SLICE_PARA
 PS_SHARD_MAIN = "elasticdl_tpu_torch.master.ps_shard_main"
 XL_SHARDS = 4
 SHARDED_ASYNC_SHARDS = 2
-# record files of SHARD_RECORDS each: 16 steps of xl at b8, 16 updates of
-# the base model at b8 (cut from 4 files to keep the whole run in budget)
+# record files of SHARD_RECORDS each: 16 updates of the base model at b8
+# (cut from 4 files to keep the whole run in budget), and 8 steps of xl
+# at b8, one window a worker (cut from 16)
 SHARDED_FILES = 2
+XL_SHARDED_FILES = 1
 
 
 def shard_line(name, shards, syncs) -> str:
@@ -2014,22 +2016,42 @@ def shard_line(name, shards, syncs) -> str:
     return f"{name} PS shards ({syncs} syncs): " + "; ".join(parts)
 
 
+def sharded_exactness(name, summary, steps) -> list:
+    """A sharded job's exactness as the reference's own harness holds it
+    (`elasticdl_tpu/chaos/scenario.py:1049-1057`): every shard at init +
+    `steps` (the model's state), and the master's version mirror true to
+    its identity (`version == init_version + applied_update_steps`) and
+    never ahead. The mirror moves to the largest of the reports' shard
+    minimums (`servicer.report_window_meta`, the reference's rule), so
+    when two workers' last fan-outs cross between the shards it stays a
+    window behind, as the reference's does (printed, not failed).
+    Returns the failures."""
+    ex = {k: summary[k] for k in ("version", "init_version", "applied_update_steps")}
+    versions = [st["version"] for st in summary["ps_shards"]]
+    failures = []
+    if versions != [steps] * len(versions) or ex["init_version"] != 0:
+        failures.append(f"shard versions {versions} from init {ex['init_version']}, "
+                        f"{steps} each expected")
+    if ex["version"] != ex["init_version"] + ex["applied_update_steps"] or not (
+            0 < ex["version"] <= steps):
+        failures.append(f"the master's mirror {ex} breaks its identity or passes {steps}")
+    if not failures and ex["version"] != steps:
+        print(f"{name}: the master's mirror at v{ex['version']} with every shard at v{steps}: "
+              f"the last fan-outs crossed (the reference's max-of-minimums rule)")
+    return failures
+
+
 def check_sharded(name, rc, summary, workers, steps, model_params, shm=False):
-    """The sharded job's common checks: rc 0, every shard's version and
-    the master's at init + the applied steps, the workers' accepted and
+    """The sharded job's common checks: rc 0, the shards' and the
+    master's exactness (`sharded_exactness`), the workers' accepted and
     computed steps, each worker on the card with the model's launches and
     no fallback, finite losses, and (`shm`) every link on shm. Returns
     the failures."""
     cfg = zoo_model(model_params).cfg
-    failures = []
     if rc != 0 or summary is None:
         return [f"{name}: master.main exited {rc}"]
-    ex = {k: summary[k] for k in ("version", "init_version", "applied_update_steps")}
     versions = [st["version"] for st in summary["ps_shards"]]
-    if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
-        failures.append(f"exactness {ex}, {steps} steps applied once expected")
-    if versions != [ex["init_version"] + ex["applied_update_steps"]] * len(versions):
-        failures.append(f"shard versions {versions}, all init + applied = {steps} expected")
+    failures = sharded_exactness(name, summary, steps)
     calls = summary["server"]["calls"]
     if calls.get("ReportGradient", 0) or calls.get("ReportLocalUpdate", 0):
         failures.append(f"the master took pushes ({calls}): they go to the shards")
@@ -2065,7 +2087,7 @@ def phase_xl_sharded_processes(tmp):
     """The reference's xl config (436,242,432 parameters: 1.75 GB of
     float32, over the transport's 1 GiB frame) as 2 worker processes on
     the card over `--num_ps 4 --ps_mode process` (436 MB a slice), in
-    window mode (W 4, bf16 EF deltas, b8, tasks of one window: 16 steps)
+    window mode (W 4, bf16 EF deltas, b8, tasks of one window: 8 steps)
     over EDL_TRANSPORT=shm. The model's version-0 init goes in as a
     checkpoint file (`--checkpoint_filename_for_init`): the master seeds
     each shard with its slice, and the workers pull from the shards (the
@@ -2083,8 +2105,8 @@ def phase_xl_sharded_processes(tmp):
     name = "xl sharded processes"
     model = zoo_model(XL_PARAMS)
     data, logs = os.path.join(tmp, "xl-sharded-data"), os.path.join(tmp, "xl-sharded-logs")
-    write_shards(data, SHARDED_FILES, model.cfg.vocab)
-    steps = SHARDED_FILES * SHARD_RECORDS // XL_BATCH
+    write_shards(data, XL_SHARDED_FILES, model.cfg.vocab)
+    steps = XL_SHARDED_FILES * SHARD_RECORDS // XL_BATCH
     init_path, output = os.path.join(tmp, "xl-init.ckpt"), os.path.join(tmp, "xl-sharded.ckpt")
     t0 = time.perf_counter()
     init = model.init_params(0)
@@ -2270,6 +2292,13 @@ def check_failover(summary, kind, shard, box) -> list:
     return failures
 
 
+def recovery_event_counts(metrics, kind) -> dict:
+    """{event: count} of edl_recovery_events_total for `kind` in this
+    process's metrics registry (the master's)."""
+    rows = metrics.get_registry().snapshot().get("edl_recovery_events_total", [])
+    return {r["labels"]["event"]: r["value"] for r in rows if r["labels"]["kind"] == kind}
+
+
 def failover_seconds(tl, kill, first_push=None) -> str:
     """The recovery's timeline in seconds from the kill."""
     marks = [("detected", tl.get("detected")), ("fenced", tl.get("fenced")),
@@ -2306,20 +2335,30 @@ def phase_shard_failover(tmp):
                         BATCH * WINDOW)
             + WINDOW_ARGS + ["--num_ps", "2", "--ps_mode", "process"])
     box = {}
+    from elasticdl_tpu_torch.obs import flight, metrics
+
+    flight.RECORDER.clear()
+    events_before = recovery_event_counts(metrics, "ps")
     with tier_dir() as uds:
         rc, summary, wall = run_master(argv, logs, {"EDL_TRANSPORT": "shm", "EDL_UDS_DIR": uds},
                                        on_start=shard_killer("ps", 1, ps_pushes_applied(1, 3), box))
     with logs_on_failure(logs):
         workers = read_summaries(logs)
         failures = check_failover(summary, "ps", 1, box)
+        ring = [e for e in flight.RECORDER.snapshot()
+                if e.get("shard_kind") == "ps" and e.get("shard") == 1]
+        kinds = [e["kind"] for e in ring]
+        counted = {k: v - events_before.get(k, 0)
+                   for k, v in recovery_event_counts(metrics, "ps").items()}
+        if kinds != ["recovery_begin", "generation_bump", "recovery_done"]:
+            failures.append(f"the flight ring's shard 1 events {kinds}: fence, relaunch, "
+                            f"restore expected")
+        if counted != {"begin": 1.0, "done": 1.0}:
+            failures.append(f"edl_recovery_events_total moved by {counted}")
         if rc != 0 or summary is None:
             raise AssertionError(f"{name}: master.main exited {rc}\n" + "\n".join(failures))
-        ex = {k: summary[k] for k in ("version", "init_version", "applied_update_steps")}
         versions = [st["version"] for st in summary["ps_shards"]]
-        if ex != {"version": steps, "init_version": 0, "applied_update_steps": steps}:
-            failures.append(f"exactness {ex}, {steps} steps applied once expected")
-        if versions != [steps, steps]:
-            failures.append(f"shard versions {versions}, init + {steps} each expected")
+        failures += sharded_exactness(name, summary, steps)
         tl = (summary["recovery_timelines"] or [{}])[0]
         if not tl.get("exact"):
             failures.append(f"the restore was not version-exact: {tl}")
@@ -2348,6 +2387,8 @@ def phase_shard_failover(tmp):
               f"{summary['recoveries']}, generations {summary['generations']['ps']}, shard "
               f"versions {versions}, {window_steady(windows):.1f} tokens/s from the first to "
               f"the last window sync")
+        print(f"{name}: flight ring {[(e['seq'], e['kind'], e.get('generation')) for e in ring]}"
+              f", edl_recovery_events_total +{counted} (kind ps)")
         print(f"{name}: {failover_seconds(tl, box['kill'], new_shard['first_apply_at'])}; "
               f"the fence v{tl['fence_version']}, seeded at v{tl['restored_version']}, "
               f"optimizer state {'mirrored' if tl['opt_restored'] else 'cold'}")
@@ -2361,6 +2402,278 @@ def phase_shard_failover(tmp):
         segments = [n for n in os.listdir("/dev/shm") if n.startswith("edltshm.")]
         if left or segments:
             raise AssertionError(f"{name}: shard processes {left}, segments {segments} left")
+        return summed_launches(workers)
+
+
+# -- the observability plane ------------------------------------------------------
+
+OBS_STEPS = 32  # the in-process window job's steps: 8 windows of W 4
+OBS_FILES = 2  # of SHARD_RECORDS: 16 window steps over 2 worker processes
+# the flash kernels as a CUDA kernel event of a torch.profiler trace names them
+TRACE_KERNELS = {"flash_forward": "fa_fwd_bf16_kernel", "flash_dq": "fa_dq_bf16_kernel",
+                 "flash_dkv": "fa_dkv_bf16_kernel"}
+
+
+def obs_window_run(fa, tmp, name, steps):
+    """The base window job (W 4, bf16 EF, grads_to_wait 1) in process,
+    its worker on the card talking to the master's server over the TCP
+    tier, as the reference's traced bench job runs. Returns (tokens/s
+    from the first to the last window sync, wall seconds of the run,
+    launches, fallbacks, the worker)."""
+    from elasticdl_tpu_torch.api.model_spec_helpers import spec_from_module
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.models import transformer_lm_zoo as zoo
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+    from elasticdl_tpu_torch.rpc.client import RpcClient
+    from elasticdl_tpu_torch.rpc.server import RpcServer
+    from elasticdl_tpu_torch.testing import build_job
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    path = os.path.join(tmp, f"{name}.rio")
+    write_learnable_token_records(path, BATCH * steps, SEQ, SLICE["vocab"], seed=0)
+    dispatcher = TaskDispatcher({path: BATCH * steps}, {}, {}, BATCH * WINDOW, 1, shuffle_seed=0)
+    spec = spec_from_module(zoo, model=zoo.custom_model(**SLICE, dtype=torch.bfloat16))
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
+    server = RpcServer(servicer.handlers(), port=0)
+    server.start()
+    client = RpcClient(f"localhost:{server.port}")
+    try:
+        worker = Worker(0, client, spec, minibatch_size=BATCH, device="cuda", seed=0,
+                        local_updates=WINDOW, sync_dtype="bfloat16")
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        ok = worker.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = read_counts(fa)
+        worker.close()
+    finally:
+        client.close()
+        server.stop()
+    ex = servicer.exactness()
+    if not ok or not dispatcher.finished() or ex["applied_update_steps"] != steps:
+        raise AssertionError(f"{name}: the window job did not finish exactly: {ex}")
+    losses = [loss for _t, _n, loss in worker.window_log]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: window losses {losses} not all finite")
+    want = want_launches(64, dict.fromkeys(KERNELS, SLICE["n_layers"] * steps))
+    if launches != want or fallbacks:
+        raise AssertionError(f"{name}: launches {launches}, {want} expected, fallbacks "
+                             f"{fallbacks}")
+    return window_steady(worker.window_log), wall, launches, fallbacks, worker
+
+
+def phase_obs_critical_path(fa, tmp):
+    """The span-derived sync critical path of the base transformer's
+    window job at full width (d512, 8 heads of 64, 8 layers, bf16, b8 x
+    s1024; W 4, bf16 EF, grads_to_wait 1: the reference's traced bench
+    job), run in process with EDL_TRACE_SAMPLE at 1 and the recorder
+    cleared: `sync_critical_path_from_spans` must find the chain and its
+    components must re-compose the span-measured sync wall within 10%
+    (the reference's own gate); prints the components and the exposed
+    sync fraction. Then the same job with tracing off: both tokens/s.
+    Launches are the path's D = 64 counts, with 0 fallbacks, in both.
+    Returns the traced run's launches."""
+    from elasticdl_tpu_torch.obs import trace
+    from elasticdl_tpu_torch.obs.critical_path import (
+        sync_critical_path_from_spans,
+        sync_exposed_fraction_from_spans,
+    )
+
+    name = "obs critical path"
+    trace.configure(1.0)
+    trace.RECORDER.clear()
+    try:
+        traced_rate, wall, launches, _f, worker = obs_window_run(fa, tmp, "obs-traced", OBS_STEPS)
+        spans = trace.RECORDER.snapshot()
+        dropped = trace.RECORDER.dropped
+    finally:
+        trace.configure(0.0)
+    try:
+        plain_rate, _w, _l, _f, _worker = obs_window_run(fa, tmp, "obs-untraced", OBS_STEPS)
+        if len(trace.RECORDER) != len(spans):
+            raise AssertionError(f"{name}: the untraced run recorded spans")
+    finally:
+        trace.configure(None)
+        trace.RECORDER.clear()
+    cp = sync_critical_path_from_spans(spans, sync_method="ReportLocalUpdate")
+    if cp is None:
+        raise AssertionError(f"{name}: no worker.window_sync spans in {len(spans)} spans")
+    frac = cp["sum_fraction"]
+    exposed = sync_exposed_fraction_from_spans(spans, wall)
+    print(f"{name} (base W {WINDOW} bf16, {OBS_STEPS} steps, tcp, EDL_TRACE_SAMPLE=1): "
+          f"{cp['rounds']} rounds, sync_wait {cp['sync_wait_s']} s = encode {cp['encode_s']} + "
+          f"queue_wait {cp['queue_wait_s']} + apply {cp['apply_s']} + wire {cp['wire_s']} + "
+          f"serve_other {cp['serve_other_s']} s (combine {cp['combine_s']}), sum_fraction "
+          f"{frac}; {len(spans)} spans, {dropped} dropped")
+    print(f"{name}: sync_exposed_fraction {exposed['sync_exposed_fraction']} of "
+          f"{exposed['total_wall_s']} s ({exposed['stalls']} stalls, by reason "
+          f"{exposed['by_reason']}); worker phases {rounded(worker.phase_seconds)}")
+    print(f"{name}: traced {traced_rate:.1f} tokens/s, untraced {plain_rate:.1f} tokens/s "
+          f"(same job, this call; ratio {traced_rate / plain_rate:.3f})")
+    if frac is None or not 0.9 <= frac <= 1.1:
+        raise AssertionError(f"{name}: the components sum to {frac} of the sync wall, "
+                             f"[0.9, 1.1] expected: {cp}")
+    return launches
+
+
+def trace_kernel_counts(path) -> dict:
+    """{kernel: CUDA kernel events} of a torch.profiler Chrome trace, for
+    the three flash kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if sym in n) for k, sym in TRACE_KERNELS.items()}
+
+
+def phase_obs_processes(tmp):
+    """The base transformer in window mode (W 4, bf16 EF) as 2 worker
+    processes on the card over `--num_ps 2 --ps_mode process`, with
+    EDL_TRACE_SAMPLE=1 in every process, EDL_SCHED_PHASE_SECS 0.25 and
+    `--profile_dir`, 16 steps. When the job's last task is reported, and
+    before it ends (the check runs inside the dispatcher's `finished`),
+    the master's GetTrace and each shard's are merged into one Chrome
+    trace (a trace id must show in spans of two or more processes), and
+    the master's GetMetrics read: each shard's
+    `edl_ps_applied_pushes_total` must equal the windows the workers
+    landed, and `edl_phase_seconds_total` must carry each worker. After
+    the job each worker's torch.profiler trace must name the three flash
+    kernels, its forward kernel events equal to its summary's forward
+    launches. Returns the launches summed over the workers."""
+    from elasticdl_tpu_torch.obs import fetch, trace
+    from elasticdl_tpu_torch.rpc.client import RpcClient
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "obs processes"
+    data, logs = os.path.join(tmp, "obs-data"), os.path.join(tmp, "obs-logs")
+    profile = os.path.join(tmp, "obs-profile")
+    merged_path = os.path.join(tmp, "obs-merged-trace.json")
+    write_shards(data, OBS_FILES)
+    steps = OBS_FILES * SHARD_RECORDS // BATCH
+    argv = (master_argv(data, 2, os.path.join(tmp, "obs.ckpt"), SLICE_PARAMS, BATCH,
+                        BATCH * WINDOW)
+            + WINDOW_ARGS + ["--num_ps", "2", "--ps_mode", "process", "--profile_dir", profile])
+    seen = {}
+
+    def scrape(servicer):
+        group = servicer.ps_group
+        clients = [RpcClient(ep) for ep in group.endpoints]
+        try:
+            merged = fetch.fetch_chrome_trace(clients, path=merged_path)
+            seen["shard_traces"] = [len(fetch.fetch_trace(c)["spans"]) for c in clients]
+        finally:
+            for c in clients:
+                c.close()
+        seen["master_spans"] = len(servicer.handlers()["GetTrace"]({})["spans"])
+        seen["events"] = merged["traceEvents"]
+        seen["dropped"] = merged["otherData"]["dropped_spans"]
+        seen["metrics"] = servicer.handlers()["GetMetrics"]({})
+
+    def on_start(servicer):
+        dispatcher = servicer._task_d
+        finished, lock = dispatcher.finished, threading.Lock()
+
+        def finished_then_scrape():
+            done = finished()
+            if done:
+                with lock:
+                    if "metrics" not in seen and "error" not in seen:
+                        try:
+                            scrape(servicer)
+                        except Exception as e:  # checked after the job
+                            seen["error"] = repr(e)
+            return done
+
+        dispatcher.finished = finished_then_scrape
+
+    env = {"EDL_TRANSPORT": "shm", "EDL_TRACE_SAMPLE": "1", "EDL_SCHED_PHASE_SECS": "0.25"}
+    trace.RECORDER.clear()
+    try:
+        with tier_dir() as uds:
+            trace.configure(1.0)
+            rc, summary, wall = run_master(argv, logs, dict(env, EDL_UDS_DIR=uds),
+                                           on_start=on_start)
+    finally:
+        trace.configure(None)
+        trace.RECORDER.clear()
+    with logs_on_failure(logs):
+        workers = read_summaries(logs)
+        if rc != 0 or summary is None or "error" in seen or "metrics" not in seen:
+            raise AssertionError(f"{name}: master.main exited {rc}; scrape "
+                                 f"{seen.get('error', 'never ran')}")
+        failures = []
+        by_trace = {}
+        for e in seen["events"]:
+            by_trace.setdefault(e["args"]["trace_id"], set()).add(e["pid"])
+        shared = {t: pids for t, pids in by_trace.items() if len(pids) >= 2}
+        if not shared:
+            failures.append(f"no trace id in spans of two processes ({len(by_trace)} traces)")
+        if not os.path.exists(merged_path):
+            failures.append("the merged Chrome trace was not written")
+        landed = sum(len(s["windows"]) for s in workers.values())
+        shards = seen["metrics"]["shards"]
+        applied = [sum(r["value"] for r in shards.get(f"ps{i}", {}).get(
+            "edl_ps_applied_pushes_total", [])) for i in range(2)]
+        if applied != [landed, landed]:
+            failures.append(f"shards applied {applied} pushes, the workers landed {landed}")
+        phase_rows = seen["metrics"]["metrics"].get("edl_phase_seconds_total", [])
+        phase_workers = sorted({r["labels"]["worker"] for r in phase_rows})
+        if phase_workers != ["0", "1"]:
+            failures.append(f"edl_phase_seconds_total carries workers {phase_workers}")
+        n_layers = zoo_model(SLICE_PARAMS).cfg.n_layers
+        card = torch.cuda.get_device_name(0)
+        accepted = sum(s["steps_accepted"] for s in workers.values())
+        if sorted(workers) != [0, 1] or accepted != steps:
+            failures.append(f"workers {sorted(workers)} accepted {accepted}, {steps} expected")
+        traced = {}
+        for wid, s in sorted(workers.items()):
+            n = n_layers * s["steps_computed"]
+            want = want_launches(64, dict.fromkeys(KERNELS, n))
+            if s["device"] != card or s["launches"] != want or s["attention_fallbacks"]:
+                failures.append(f"worker {wid} on {s['device']}: launches {s['launches']}, "
+                                f"{want} expected, fallbacks {s['attention_fallbacks']}")
+            path = s.get("profile_trace")
+            if not path or not os.path.exists(path) or os.path.dirname(path) != os.path.join(
+                    profile, f"worker-{wid}"):
+                failures.append(f"worker {wid}: profiler trace {path!r} missing")
+                continue
+            traced[wid] = trace_kernel_counts(path)
+            if not all(traced[wid].values()):
+                failures.append(f"worker {wid}: the trace's flash kernels {traced[wid]}")
+            if traced[wid]["flash_forward"] != s["launches"]["flash_forward_d64"]:
+                failures.append(f"worker {wid}: {traced[wid]['flash_forward']} forward kernels "
+                                f"traced, {s['launches']['flash_forward_d64']} launched")
+        if failures:
+            raise AssertionError(f"{name}:\n" + "\n".join(failures))
+        # an example: a window's trace, when one spans processes
+        trace_id = next((t for t in shared if any(
+            e["name"] == "ps.apply" and e["args"]["trace_id"] == t for e in seen["events"])),
+            next(iter(shared)))
+        pids = shared[trace_id]
+        names = sorted({e["name"] for e in seen["events"] if e["args"]["trace_id"] == trace_id})
+        print(f"{name} (2 PS shard processes, 2 workers, W {WINDOW}, b{BATCH}, {steps} steps, "
+              f"shm, every process traced): rc {rc} in {wall:.2f} s; merged trace "
+              f"{len(seen['events'])} spans (master {seen['master_spans']}, shards "
+              f"{seen['shard_traces']}, {seen['dropped']} dropped), {len(shared)} of "
+              f"{len(by_trace)} trace ids in two or more processes, e.g. {trace_id} in pids "
+              f"{sorted(pids)}: {names}")
+        print(f"{name}: shard applied pushes {applied} = the workers' {landed} landed windows; "
+              f"edl_phase_seconds_total for workers {phase_workers}: " + ", ".join(
+                  f"{r['labels']['worker']}/{r['labels']['phase']} {r['value']:.3f}"
+                  for r in sorted(phase_rows, key=lambda r: (r["labels"]["worker"],
+                                                             r["labels"]["phase"]))))
+        for wid, s in sorted(workers.items()):
+            print(f"{name} worker {wid}: torch.profiler trace {s['profile_trace']} "
+                  f"({os.path.getsize(s['profile_trace'])} bytes): CUDA kernel events "
+                  f"{traced[wid]}, summary launches {s['launches']['flash_forward_d64']} / "
+                  f"{s['launches']['flash_dq_d64']} / {s['launches']['flash_dkv_d64']}; "
+                  f"phase seconds {rounded(s['phase_seconds'])}")
+        windows = [w for s in workers.values() for w in s["windows"]]
+        print(f"{name}: {window_steady(windows):.1f} tokens/s from the first to the last "
+              f"window sync (traced and profiled)")
+        left = shard_processes(PS_SHARD_MAIN)
+        if left:
+            raise AssertionError(f"{name}: shard processes {left} left")
         return summed_launches(workers)
 
 
@@ -2853,14 +3166,15 @@ def phase_cifar_window(fa, tmp):
 
 
 # ResNet-50 in window mode at bench_resnet.py:123-160's runtime shape
-# (records cut from 32,768: ResNet-50 also trains in the imagenet and churn jobs)
-RESNET_WINDOW, RESNET_BATCH, RESNET_RECORDS = 32, 128, 16384
+# (records cut from 32,768, then 16,384: ResNet-50 also trains in the imagenet
+# and churn jobs)
+RESNET_WINDOW, RESNET_BATCH, RESNET_RECORDS = 32, 128, 8192
 
 
 def phase_resnet_window(fa, tmp):
     """ResNet-50 (`custom_model(bfloat16=True)`: bf16 compute over f32
     parameters and statistics) in window mode in-process at 64 x 64, W 32,
-    minibatch 128, `transport_dtype="bfloat16"`, 16,384 records in tasks
+    minibatch 128, `transport_dtype="bfloat16"`, 8,192 records in tasks
     of 4,096, one epoch. Prints images/s and the peak device memory of the
     run (parameters, the window's optimizer and sync state, and one
     step's activations at a time)."""
@@ -3660,10 +3974,10 @@ def phase_transport_probe(uds):
 
 # BASELINE.json's "imagenet_resnet50 -- 8 TPU workers, async PS": the zoo's
 # ResNet-50 (64x64x3, 10 classes) on 8 worker processes on one card,
-# 8,192 records (cut from 16,384 for the shard recovery phases' room)
-# converted from tars of .npy images in 8 shards, tasks of 512, minibatch
-# 128: 16 tasks, 2 a worker, 64 updates
-IMAGENET_RECORDS, IMAGENET_SHARDS, IMAGENET_WORKERS = 8192, 8, 8
+# 4,096 records (cut from 16,384, then 8,192, for the shard recovery and
+# the observability phases' room) converted from tars of .npy images in
+# 8 shards, tasks of 512, minibatch 128: 8 tasks, 1 a worker, 32 updates
+IMAGENET_RECORDS, IMAGENET_SHARDS, IMAGENET_WORKERS = 4096, 8, 8
 IMAGENET_BATCH, IMAGENET_TASK = 128, 512
 IMAGENET_STEPS = IMAGENET_RECORDS // IMAGENET_BATCH
 IMAGENET_SHAPE = (64, 64, 3)
@@ -4027,8 +4341,9 @@ DEEPFM_PER_STEP_RECORDS = 4096
 # records (bench.py's 16,384, cut for the shard recovery phases' room)
 DEEPFM_WINDOW, DEEPFM_WINDOW_RECORDS = 16, 8192
 # the KV process job: most ids unseen, so the lazy init's SETNX carries the load
-# (16,384 records, cut from 32,768 for the room the shard kill takes)
-DEEPFM_KV_RECORDS, DEEPFM_KV_VOCAB, DEEPFM_KV_EVAL = 16384, 1_000_000, 4096
+# (8,192 records, cut from 32,768, then 16,384, for the room the shard kill
+# and the observability phases take)
+DEEPFM_KV_RECORDS, DEEPFM_KV_VOCAB, DEEPFM_KV_EVAL = 8192, 1_000_000, 4096
 # card vs CPU, norm-relative over each output: float32 both (TF32 off);
 # the matmuls' and the BET gradient's scatter-add (atomic on the card)
 # sum in other orders
@@ -4306,7 +4621,7 @@ def phase_deepfm_kv_process(tmp, uds):
     """master.main for deepfm_edl_embedding with `--num_kv_shards 2
     --kv_mode process` and 2 worker processes on the card, over
     EDL_TRANSPORT=shm: window mode (W 16, b128, tasks of W x 128),
-    16,384 records from a vocab of 1,000,000 (most ids unseen: the SETNX
+    8,192 records from a vocab of 1,000,000 (most ids unseen: the SETNX
     path carries the load), one evaluation job with AUC at the end
     (4,096 records) and one checkpoint with the embeddings (at the last
     training version, before the evaluation's lookups). KV shard 1's
@@ -4513,6 +4828,8 @@ def main() -> int:
               f"{SHARDED_ASYNC_RATES[0]:.1f} tokens/s, ratio "
               f"{SHARDED_ASYNC_RATES[DEFAULT_ASYNC_DEPTH] / SHARDED_ASYNC_RATES[0]:.3f}")
         counts["shard_failover_launches"] = timed(phase_shard_failover, tmp)
+        counts["obs_critical_path_launches"] = timed(phase_obs_critical_path, fa, tmp)
+        counts["obs_processes_launches"] = timed(phase_obs_processes, tmp)
         if not any(pulls for pulls, _applied in PAGE_IN.values()):
             raise AssertionError(f"no 2-worker window phase paged a model in: {PAGE_IN}")
         timed(phase_window_drain, tmp)

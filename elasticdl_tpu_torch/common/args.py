@@ -28,10 +28,12 @@ a standby through GetTask), and the KV shards of the embedding tables
 endpoints from GetPSConfig), and the sharded PS (`--num_ps`,
 `--ps_mode`: master flags; `validate_ps_args` refuses strict per-step
 sync with shards; each shard process gets `ps_shard_forward_args`, and
-workers learn the endpoints from GetPSConfig). Not carried, so argparse
-rejects them: the bucketed push (`--sync_bucket_bytes`), the fan-in
-combine, the aggregators, the policy plane, the k8s pod settings,
-`--keep_tensorboard_running`, profiling and master failover candidates.
+workers learn the endpoints from GetPSConfig), and `--profile_dir`
+(forwarded: each worker process writes its torch.profiler trace under
+`<profile_dir>/worker-<id>/`). Not carried, so argparse rejects them:
+the bucketed push (`--sync_bucket_bytes`), the fan-in combine, the
+aggregators, the policy plane, the k8s pod settings,
+`--keep_tensorboard_running` and master failover candidates.
 """
 
 from __future__ import annotations
@@ -142,6 +144,12 @@ def add_model_spec_args(parser: argparse.ArgumentParser):
         "prefetch. EDL_OVERLAP_SYNC applies when unset",
     )
     parser.add_argument("--log_level", default="INFO")
+    parser.add_argument(
+        "--profile_dir", default="",
+        help="write one torch.profiler trace (CPU and CUDA activity, "
+        "Chrome trace JSON) per worker process under "
+        "<profile_dir>/worker-<id>/",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help='torch device the workers compute on; "cpu" only when asked '
@@ -358,7 +366,7 @@ def worker_forward_args(args, worker_id: int, master_addr: str) -> List[str]:
     if args.sync_local_steps != 1:
         argv += ["--sync_local_steps", str(args.sync_local_steps)]
     for flag in ("model_params", "dataset_fn", "loss", "optimizer", "eval_metrics_fn",
-                 "prediction_outputs_processor"):
+                 "prediction_outputs_processor", "profile_dir"):
         value = getattr(args, flag)
         if value:
             argv += [f"--{flag}", value]

@@ -67,6 +67,15 @@ ENV_NO_NATIVE_KV = "EDL_TPU_NO_NATIVE_KV"
 # snapshots of each PS shard's optimizer state (default 2.0)
 ENV_OPT_MIRROR_SECS = "EDL_OPT_MIRROR_SECS"
 
+# The observability plane (obs/): trace sampling, the metrics listener's
+# port, the flight recorder's ring and crash-dump directory, and the
+# workers' ReportPhaseStats cadence (worker/worker.py)
+ENV_TRACE_SAMPLE = "EDL_TRACE_SAMPLE"
+ENV_METRICS_PORT = "EDL_METRICS_PORT"
+ENV_FLIGHT_RECORDER_EVENTS = "EDL_FLIGHT_RECORDER_EVENTS"
+ENV_FLIGHT_DIR = "EDL_FLIGHT_DIR"
+ENV_SCHED_PHASE_SECS = "EDL_SCHED_PHASE_SECS"
+
 # Every environment variable the port reads, with its help text. The PS
 # and KV shard processes read the transport tier's (EDL_TRANSPORT,
 # EDL_UDS_DIR and the shm ring's), which their group passes on.
@@ -141,5 +150,30 @@ ENV_REGISTRY = {
         "shm tier: seconds for doorbell handshake and chunk-ack socket "
         "operations (default 5.0); per-call deadlines still come from "
         "the caller's RPC timeout budget"
+    ),
+    ENV_SCHED_PHASE_SECS: (
+        "policy plane: seconds between worker ReportPhaseStats "
+        "telemetry sends (PhaseTimers snapshots feeding the "
+        "autoscaler; 0 disables; default 2.0)"
+    ),
+    ENV_TRACE_SAMPLE: (
+        "obs plane: trace sampling probability in [0,1] (default 0 = "
+        "off; 1 traces every request) — per-RPC trace_id/span_id "
+        "envelopes + SpanRecorder spans at every hop (obs/trace.py); "
+        "the off path is a single float compare"
+    ),
+    ENV_METRICS_PORT: (
+        "obs plane: port for the optional Prometheus /metrics HTTP "
+        "listener (obs/metrics.py; unset = no listener — GetMetrics "
+        "RPC and dump APIs still work)"
+    ),
+    ENV_FLIGHT_RECORDER_EVENTS: (
+        "obs plane: flight-recorder ring capacity in events "
+        "(obs/flight.py; default 4096, min 16)"
+    ),
+    ENV_FLIGHT_DIR: (
+        "obs plane: directory for flight-recorder crash dumps "
+        "(edl_flight_<pid>.json); default <tmpdir>/edl-flight — never "
+        "the working directory (obs/flight.py)"
     ),
 }

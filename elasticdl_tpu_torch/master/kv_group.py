@@ -26,8 +26,11 @@ moves every slot's generation in place. Each slot's shm segments are
 scoped by a job nonce and the slot, so that a relaunch sweeps its
 SIGKILLed predecessor's.
 
-Not ported yet: the k8s mode, `refence`'s caller (master migration) and
-the shards' metrics scrape.
+Observability, as `PSShardGroup`'s: inproc shards register their
+counters, `collect_shard_metrics` polls the shard processes, and every
+generation bump is a flight record.
+
+Not ported yet: the k8s mode and `refence`'s caller (master migration).
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ import uuid
 from typing import List, Optional
 
 from elasticdl_tpu_torch.common.log_util import get_logger
-from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes, stop_shard_processes
+from elasticdl_tpu_torch.obs import flight as obs_flight
+from elasticdl_tpu_torch.master.shard_host import (
+    collect_metrics,
+    spawn_shard_processes,
+    stop_shard_processes,
+)
 from elasticdl_tpu_torch.rpc.kv_client import ShardedEmbeddingStore
 
 logger = get_logger(__name__)
@@ -99,6 +107,7 @@ class KVShardGroup:
         server = RpcServer(servicer.handlers(), port=0, shm_scope=f"{self._shm_ns}.kv{i}",
                            shm_generation=self.generations[i])
         server.start()
+        servicer.register_metrics()
         return servicer, server
 
     def _shard_cli_flags(self, i: int) -> List[str]:
@@ -149,6 +158,8 @@ class KVShardGroup:
         `wire_mirrors` re-points the ring). Returns the new endpoint."""
         i = int(shard_id)
         self.generations[i] += 1
+        obs_flight.record("generation_bump", shard_kind="kv", shard=i,
+                          generation=self.generations[i])
         if self._mode == "inproc":
             self._servers[i].stop()
             self.servicers[i].close()
@@ -185,10 +196,20 @@ class KVShardGroup:
             finally:
                 c.close()
             self.generations[i] = target
+            obs_flight.record("generation_bump", shard_kind="kv", shard=i,
+                              generation=target, refence=True)
         if self._store is not None:
             self._store.update_endpoints(self.endpoints, self.generations)
         logger.info("KV shard group refenced: generations=%s", self.generations)
         return list(self.generations)
+
+    def collect_shard_metrics(self) -> dict:
+        """Each shard process's metrics snapshot, keyed kv<i>, for the
+        master's GetMetrics (`shard_host.collect_metrics`). Inproc shards
+        feed the master's own registry, so they are not polled."""
+        if self._mode == "inproc":
+            return {}
+        return collect_metrics(self.endpoints, "kv")
 
     def store(self) -> ShardedEmbeddingStore:
         """The master's store client over the shards, once they listen."""

@@ -30,8 +30,11 @@ write still queued at the death is lost, and its rows come back cold
 carries no epoch: the group addresses it to the generation it just
 launched.
 
-Not ported yet: the shards' GetTrace and GetMetrics (and the metrics
-collector), and the admission and wire statistics in `stats()`.
+GetTrace and GetMetrics answer for the hosting process, unfenced, as
+the PS shard's do; `register_metrics` feeds `stats()` to the process's
+metrics registry (`edl_kv_*`).
+
+Not ported yet: the admission and wire statistics in `stats()`.
 """
 
 from __future__ import annotations
@@ -39,12 +42,15 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.master.embedding_store import EmbeddingStore
+from elasticdl_tpu_torch.obs import metrics as obs_metrics
 from elasticdl_tpu_torch.rpc.fencing import EpochFencedError, check_epoch
 
 logger = get_logger(__name__)
@@ -80,9 +86,13 @@ class KVShardServicer:
     copies."""
 
     #: Handlers that skip the epoch check: the mirror plane (shard to
-    #: shard, and group to shard) and KVRefence, the fence mover, whose
-    #: own monotonicity check is its fence.
-    UNFENCED_HANDLERS = frozenset({"KVMirror", "KVMirrorSnapshot", "KVSetMirror", "KVRefence"})
+    #: shard, and group to shard), KVRefence, the fence mover, whose own
+    #: monotonicity check is its fence, and the trace and metrics reads,
+    #: which answer for the process (what a postmortem wants from a
+    #: fenced shard).
+    UNFENCED_HANDLERS = frozenset(
+        {"KVMirror", "KVMirrorSnapshot", "KVSetMirror", "KVRefence", "GetTrace", "GetMetrics"}
+    )
 
     def __init__(self, shard_id: int, num_shards: int, generation: int = 0):
         self.shard_id = int(shard_id)
@@ -120,7 +130,29 @@ class KVShardServicer:
             "KVMirrorSnapshot": self.kv_mirror_snapshot,
             "KVSetMirror": self.kv_set_mirror,
             "KVRefence": self.refence,
+            "GetTrace": obs.get_trace,
+            "GetMetrics": obs.get_metrics,
         }
+
+    def register_metrics(self, registry=None) -> None:
+        """Feed this shard's counters into the process's
+        MetricsRegistry as a pull collector (weakly referenced, as
+        `PSShardServicer.register_metrics`)."""
+        reg = registry if registry is not None else obs_metrics.get_registry()
+        ref = weakref.ref(self)
+        shard = str(self.shard_id)
+
+        def collector(sink):
+            s = ref()
+            if s is None:
+                return
+            st = s.stats()
+            sink.gauge("edl_kv_rows", st["n"], shard=shard)
+            sink.gauge("edl_kv_generation", st["generation"], shard=shard)
+            sink.counter("edl_kv_lookups_total", st["lookups"], shard=shard)
+            sink.counter("edl_kv_updates_total", st["updates"], shard=shard)
+
+        reg.register_collector(collector)
 
     def _check_epoch(self, req: dict):  # edl-lint: disable=lock-discipline -- bare read of the one int epoch word: a request racing the refence is rejected either way
         check_epoch(req, self.generation, "kv", self.shard_id)

@@ -64,6 +64,11 @@ def main(argv=None) -> int:
     server = RpcServer(servicer.handlers(), port=args.port,
                        shm_scope=args.shm_scope or None, shm_generation=args.generation)
     server.start()
+    servicer.register_metrics()
+    # an uncaught exception leaves a flight-recorder dump (obs/flight.py)
+    from elasticdl_tpu_torch.obs import flight
+
+    flight.install_crash_dump()
     native = isinstance(servicer.store, NativeEmbeddingStore)
     logger.info("KV shard %d/%d (generation %d) listening on :%d (%s store)", args.shard_id,
                 args.num_shards, args.generation, server.port,

@@ -71,8 +71,14 @@ in-process caller.
 The workers reach the master over the tier `EDL_TRANSPORT` selects (the
 environment passes to them as it is).
 
-Not ported yet: the aggregators, the k8s KV mode, the policy
-and observability planes, the tensorboard process,
+The observability plane (`observe_master`): the crash flight dump, the
+fleet phase metrics from ReportPhaseStats, and the `EDL_METRICS_PORT`
+listener; GetTrace and GetMetrics answer on the master's server, and
+`--profile_dir` reaches every worker, which writes one torch.profiler
+trace under `<profile_dir>/worker-<id>/`.
+
+Not ported yet: the aggregators, the k8s KV mode, the policy plane
+(autoscaler, arbiter, QoS), the tensorboard process,
 speculation, master migration and the k8s backend (and with it the pod
 events that route a shard's death to the recovery plane: the plane
 polls the shard processes).
@@ -97,6 +103,8 @@ from elasticdl_tpu_torch.common.args import (
 )
 from elasticdl_tpu_torch.common.constants import ENV_WORKER_LOG_DIR
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.obs import flight as obs_flight
+from elasticdl_tpu_torch.obs import metrics as obs_metrics
 
 logger = get_logger(__name__)
 
@@ -348,6 +356,33 @@ def make_backend(args):
     return ProcessBackend(log_dir=os.environ.get(ENV_WORKER_LOG_DIR, ""))
 
 
+def observe_master(servicer):
+    """The master's observability plane: an uncaught exception dumps the
+    flight recorder (`obs/flight.py`); ReportPhaseStats feeds a
+    `PhaseStatsAggregator`, whose newest cumulative snapshot per worker
+    the metrics registry reads as `edl_phase_seconds_total` and
+    `edl_phase_count_total` {phase, worker}; the `EDL_METRICS_PORT`
+    listener starts when that is set. Returns the phase collector, which
+    the caller unregisters when the job ends."""
+    from elasticdl_tpu_torch.sched.telemetry import PhaseStatsAggregator
+
+    obs_flight.install_crash_dump()
+    aggregator = PhaseStatsAggregator()
+    servicer.set_phase_stats_sink(aggregator.ingest)
+
+    def phase_collector(sink):
+        for wid, phases in aggregator.latest_cumulative().items():
+            for name, cell in (phases or {}).items():
+                sink.counter("edl_phase_seconds_total", float(cell.get("seconds", 0.0)),
+                             phase=name, worker=str(wid))
+                sink.counter("edl_phase_count_total", float(cell.get("count", 0.0)),
+                             phase=name, worker=str(wid))
+
+    obs_metrics.get_registry().register_collector(phase_collector)
+    obs_metrics.maybe_serve_from_env()
+    return phase_collector
+
+
 def run(argv=None, on_start=None):
     """(exit code, summary): the summary is None when the job did not
     start. `on_start(servicer)`, for an in-process caller that watches
@@ -379,12 +414,14 @@ def run(argv=None, on_start=None):
         return 1, None
     shard_lost = threading.Event()
     plane = None
+    phase_collector = None
     try:
         if job_type == JobType.EVALUATION_ONLY:
             eval_service.start_standalone_job(
                 servicer.version, dispatcher.pending_count(TaskType.EVALUATION)
             )
 
+        phase_collector = observe_master(servicer)
         server = RpcServer(servicer.handlers(), port=args.port)
         server.start()
         addr = f"localhost:{server.port}"
@@ -412,6 +449,8 @@ def run(argv=None, on_start=None):
         if plane is not None:
             plane.stop()
         stop_shard_groups(servicer)
+        if phase_collector is not None:
+            obs_metrics.get_registry().unregister_collector(phase_collector)
         raise
 
     exit_code = 0
@@ -454,6 +493,7 @@ def run(argv=None, on_start=None):
             eval_service.stop()
         if servicer.tb_service is not None:
             servicer.tb_service.close()
+        obs_metrics.get_registry().unregister_collector(phase_collector)
         sparse = servicer.sparse_summary()
         try:
             shards = servicer.ps_summary()

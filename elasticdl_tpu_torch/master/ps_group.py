@@ -34,8 +34,12 @@ generation in place (PSRefence). Each slot's shm segments are scoped by
 a job nonce and the slot, so that a relaunch sweeps its SIGKILLed
 predecessor's.
 
-Not ported yet: the k8s pods, `refence`'s caller (master migration) and
-the metrics scrape.
+Observability: inproc shards register their counters with the master's
+metrics registry; `collect_shard_metrics` polls each shard process's
+GetMetrics for the master's; every generation bump is a flight record
+(`generation_bump`, `obs/flight.py`).
+
+Not ported yet: the k8s pods and `refence`'s caller (master migration).
 """
 
 from __future__ import annotations
@@ -47,7 +51,12 @@ from typing import List, Optional
 import numpy as np
 
 from elasticdl_tpu_torch.common.log_util import get_logger
-from elasticdl_tpu_torch.master.shard_host import spawn_shard_processes, stop_shard_processes
+from elasticdl_tpu_torch.obs import flight as obs_flight
+from elasticdl_tpu_torch.master.shard_host import (
+    collect_metrics,
+    spawn_shard_processes,
+    stop_shard_processes,
+)
 from elasticdl_tpu_torch.rpc.ps_client import ShardedPS
 
 logger = get_logger(__name__)
@@ -164,6 +173,7 @@ class PSShardGroup:
         server = RpcServer(servicer.handlers(), port=0, shm_scope=f"{self._shm_ns}.ps{i}",
                            shm_generation=self.generations[i])
         server.start()
+        servicer.register_metrics()
         return servicer, server
 
     # -- the recovery plane's hooks --------------------------------------------
@@ -190,6 +200,8 @@ class PSShardGroup:
         to it. Returns the new endpoint."""
         i = int(shard_id)
         self.generations[i] += 1
+        obs_flight.record("generation_bump", shard_kind="ps", shard=i,
+                          generation=self.generations[i])
         if self._mode == "inproc":
             self._servers[i].stop()
             servicer, server = self._build_inproc_shard(i)
@@ -227,6 +239,8 @@ class PSShardGroup:
             finally:
                 c.close()
             self.generations[i] = target
+            obs_flight.record("generation_bump", shard_kind="ps", shard=i,
+                              generation=target, refence=True)
         if self._client is not None:
             self._client.update_endpoints(self.endpoints, self.generations)
         logger.info("PS shard group refenced: generations=%s", self.generations)
@@ -243,6 +257,14 @@ class PSShardGroup:
         stop_shard_processes(self.procs)
         self.procs = []
         self.endpoints = []
+
+    def collect_shard_metrics(self) -> dict:
+        """Each shard process's metrics snapshot, keyed ps<i>, for the
+        master's GetMetrics (`shard_host.collect_metrics`). Inproc shards
+        feed the master's own registry, so they are not polled."""
+        if self._mode == "inproc":
+            return {}
+        return collect_metrics(self.endpoints, "ps")
 
     # -- the model plane -----------------------------------------------------
 

@@ -48,9 +48,15 @@ cutover). Every handler but `UNFENCED_HANDLERS` rejects a request whose
 never re-sent). A relaunched shard boots empty; the recovery plane
 (`master/recovery.py`) seeds it through PSInit and PSOptRestore.
 
+Observability (`obs/`): each push's lock wait and apply is a `ps.apply`
+span, the child of the push's server span when the pusher traces;
+GetTrace and GetMetrics answer for the hosting process and skip the
+epoch check, so a fenced-out shard can still be asked what happened;
+`register_metrics` feeds `stats()` to the process's metrics registry
+(`edl_ps_*`).
+
 Not ported yet: bucketed and combined pushes and the fan-in buffers, the
-pull prepack cache and the shm broadcast publisher, the trace and
-metrics reads.
+pull prepack cache and the shm broadcast publisher.
 """
 
 from __future__ import annotations
@@ -58,13 +64,17 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.obs import metrics as obs_metrics
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.fencing import EpochFencedError, check_epoch
 
 logger = get_logger(__name__)
@@ -125,11 +135,11 @@ class PSShardServicer:
         self._apply_seconds = 0.0
         self._lock_wait_seconds = 0.0
 
-    #: Handlers that skip the epoch check: the stats read answers for the
-    #: process (what a postmortem wants from a fenced shard), and
-    #: PSRefence is the fence mover: it carries the NEW generation, and
-    #: its own monotonicity check is its fence.
-    UNFENCED_HANDLERS = frozenset({"PSStats", "PSRefence"})
+    #: Handlers that skip the epoch check: the stats, trace and metrics
+    #: reads answer for the process (what a postmortem wants from a
+    #: fenced shard), and PSRefence is the fence mover: it carries the
+    #: NEW generation, and its own monotonicity check is its fence.
+    UNFENCED_HANDLERS = frozenset({"PSStats", "PSRefence", "GetTrace", "GetMetrics"})
 
     def handlers(self) -> Dict[str, Any]:
         return {
@@ -141,10 +151,33 @@ class PSShardServicer:
             "PSOptRestore": self.opt_restore,
             "PSRefence": self.refence,
             "PSStats": lambda req: self.stats(),
+            "GetTrace": obs.get_trace,
+            "GetMetrics": obs.get_metrics,
         }
 
     def _check_epoch(self, req: dict):  # edl-lint: disable=lock-discipline -- bare read of the one int epoch word: a request racing the refence is rejected either way
         check_epoch(req, self.generation, "ps", self.shard_id)
+
+    def register_metrics(self, registry=None) -> None:
+        """Feed this shard's counters into the process's
+        MetricsRegistry as a pull collector (the group, or the shard
+        process's main, calls it). Weakly referenced: a servicer that a
+        relaunch replaced stops reporting once it is collected."""
+        reg = registry if registry is not None else obs_metrics.get_registry()
+        ref = weakref.ref(self)
+        shard = str(self.shard_id)
+
+        def collector(sink):
+            s = ref()
+            if s is None:
+                return
+            st = s.stats()
+            sink.counter("edl_ps_applied_pushes_total", st["applied_pushes"], shard=shard)
+            sink.counter("edl_ps_duplicate_pushes_total", st["duplicate_pushes"], shard=shard)
+            sink.gauge("edl_ps_version", st["version"], shard=shard)
+            sink.gauge("edl_ps_generation", st["generation"], shard=shard)
+
+        reg.register_collector(collector)
 
     def refence(self, req: dict) -> dict:
         """Move the generation in place under the live slice (the
@@ -200,13 +233,16 @@ class PSShardServicer:
         until `grads_to_wait` reports (windowed sync)."""
         self._check_epoch(req)
         grad = codec.delta_to_f32(req["grad"])  # decoded outside the lock
-        t0 = time.perf_counter()
-        with self._lock:
-            t1 = time.perf_counter()
-            try:
-                resp = self._push_grad_locked(req, grad)
-            finally:
-                self._count_lock_seconds(t0, t1)
+        # the span covers the lock wait and the apply: on a contended
+        # shard the wait is the interesting part of the sync path
+        with obs_trace.span("ps.apply", cat="ps", args={"shard": self.shard_id, "kind": "grad"}):
+            t0 = time.perf_counter()
+            with self._lock:
+                t1 = time.perf_counter()
+                try:
+                    resp = self._push_grad_locked(req, grad)
+                finally:
+                    self._count_lock_seconds(t0, t1)
         return self._narrowed(resp, req)
 
     def _push_grad_locked(self, req: dict, grad: np.ndarray) -> dict:  # edl-lint: disable=lock-discipline -- caller holds self._lock
@@ -252,13 +288,14 @@ class PSShardServicer:
         (another worker synced in between) or it asks for it."""
         self._check_epoch(req)
         delta = codec.delta_to_f32(req["delta"])  # decoded outside the lock
-        t0 = time.perf_counter()
-        with self._lock:
-            t1 = time.perf_counter()
-            try:
-                resp = self._push_delta_locked(req, delta)
-            finally:
-                self._count_lock_seconds(t0, t1)
+        with obs_trace.span("ps.apply", cat="ps", args={"shard": self.shard_id, "kind": "delta"}):
+            t0 = time.perf_counter()
+            with self._lock:
+                t1 = time.perf_counter()
+                try:
+                    resp = self._push_delta_locked(req, delta)
+                finally:
+                    self._count_lock_seconds(t0, t1)
         return self._narrowed(resp, req)
 
     def _push_delta_locked(self, req: dict, delta: np.ndarray) -> dict:  # edl-lint: disable=lock-discipline -- caller holds self._lock
@@ -369,3 +406,4 @@ class PSShardServicer:
         else:
             self._vec = self._vec - grad
         self._version += 1
+

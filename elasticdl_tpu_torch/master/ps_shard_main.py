@@ -101,6 +101,11 @@ def main(argv=None) -> int:
     server = RpcServer(servicer.handlers(), port=args.port,
                        shm_scope=args.shm_scope or None, shm_generation=args.generation)
     server.start()
+    servicer.register_metrics()
+    # an uncaught exception leaves a flight-recorder dump (obs/flight.py)
+    from elasticdl_tpu_torch.obs import flight
+
+    flight.install_crash_dump()
     logger.info("PS shard %d/%d (generation %d) listening on :%d", args.shard_id,
                 args.num_shards, args.generation, server.port)
     if args.port_file:

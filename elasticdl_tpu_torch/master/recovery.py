@@ -63,9 +63,14 @@ Each recovery keeps a timeline of wall-clock stamps (`timelines()`):
 detected, fenced, the relaunch's start and end, the first accepted
 upload, restored, active; and the KV rows restored from the pair.
 
+Each recovery's begin, end and give-up is a flight record
+(`recovery_begin`, `recovery_done`, `recovery_give_up`, beside the
+group's `generation_bump`; `obs/flight.py`) and a count of
+`edl_recovery_events_total{event, kind}` in the process's metrics
+registry, at the reference's sites.
+
 Not ported yet: the aggregation-tree arm (`_recover_agg` and the
-`agg_group` argument: the port has no aggregators), the flight recorder
-and the metrics counters.
+`agg_group` argument: the port has no aggregators).
 """
 
 from __future__ import annotations
@@ -80,6 +85,8 @@ import numpy as np
 
 from elasticdl_tpu_torch.common.constants import ENV_OPT_MIRROR_SECS
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.obs import flight as obs_flight
+from elasticdl_tpu_torch.obs import metrics as obs_metrics
 
 logger = get_logger(__name__)
 
@@ -297,6 +304,8 @@ class RecoveryPlane:
             self._current[(kind, shard_id)] = tl
             self._timelines.append(tl)
         logger.error("%s shard %d died (%s): starting recovery", kind.upper(), shard_id, why)
+        obs_flight.record("recovery_begin", shard_kind=kind, shard=shard_id, why=why)
+        obs_metrics.get_registry().inc("edl_recovery_events_total", event="begin", kind=kind)
         t = threading.Thread(target=self._recover, args=(kind, shard_id),
                              name=f"recover-{kind}{shard_id}", daemon=True)
         t.start()
@@ -345,6 +354,8 @@ class RecoveryPlane:
             self._cv.notify_all()
         logger.info("%s shard %d recovered at generation %d", kind.upper(), shard_id,
                     generation)
+        obs_flight.record("recovery_done", shard_kind=kind, shard=shard_id, generation=generation)
+        obs_metrics.get_registry().inc("edl_recovery_events_total", event="done", kind=kind)
 
     def _give_up(self, kind: str, shard_id: int):  # edl-lint: disable=lock-discipline -- self._cv wraps self._lock
         with self._cv:
@@ -356,6 +367,8 @@ class RecoveryPlane:
             self._cv.notify_all()
         logger.error("%s shard %d is UNRECOVERABLE: falling back to fail-fast",
                      kind.upper(), shard_id)
+        obs_flight.record("recovery_give_up", shard_kind=kind, shard=shard_id)
+        obs_metrics.get_registry().inc("edl_recovery_events_total", event="give_up", kind=kind)
         if self._on_unrecoverable is not None:
             self._on_unrecoverable(kind, shard_id)
 

@@ -92,6 +92,15 @@ hits a KV shard's outage waits out the KV recovery and applies again,
 since the report's dense slices already landed on the PS shards and a
 failure would requeue them.
 
+The observability plane (`obs/`): GetTrace answers the master process's
+spans and GetMetrics its metrics registry plus each shard process's
+(`collect_shard_metrics` of the groups, under `shards`);
+ReportPhaseStats hands a worker's cumulative phase timers to the sink
+that `set_phase_stats_sink` names (the master's `PhaseStatsAggregator`;
+without one the report is acknowledged and dropped). A window delta's
+lock wait and apply is retro-recorded as a `master.apply` span under
+the ReportLocalUpdate server span.
+
 Exactness block: `version == init_version + applied_update_steps` holds
 under the lock at every instant.
 
@@ -110,10 +119,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
 from elasticdl_tpu_torch.master.ps_optimizer import PSOptimizer
+from elasticdl_tpu_torch.obs import metrics as obs_metrics
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.fencing import is_shard_outage_chain
 
 logger = get_logger(__name__)
@@ -180,6 +192,7 @@ class MasterServicer:
         self._sparse_opt = sparse_optimizer
         # the KV shards behind the store, when the tables live there
         self.kv_group = kv_group
+        self._phase_stats_sink = None  # ReportPhaseStats' (set_phase_stats_sink)
         self._sparse_lock = threading.Lock()
         self._edl_grads: Dict[str, list] = {}  # pending reports' rows by table
         self.sparse_apply_seconds = 0.0
@@ -229,7 +242,36 @@ class MasterServicer:
             "EmbeddingLookup": self.embedding_lookup,
             "EmbeddingUpdate": self.embedding_update,
             "PSRestoreFromWorker": self.ps_restore_from_worker,
+            "ReportPhaseStats": self.report_phase_stats,
+            "GetTrace": obs.get_trace,
+            "GetMetrics": self.get_metrics,
         }
+
+    # -- the observability plane ----------------------------------------------
+
+    def get_metrics(self, req: dict) -> dict:
+        """The master's MetricsRegistry snapshot (inproc shards' collectors
+        included) plus one best-effort GetMetrics poll of every shard
+        process, keyed ps<i> / kv<i>."""
+        shards = {}
+        if self.ps_group is not None:
+            shards.update(self.ps_group.collect_shard_metrics())
+        if self.kv_group is not None:
+            shards.update(self.kv_group.collect_shard_metrics())
+        return {"metrics": obs_metrics.get_registry().snapshot(), "shards": shards}
+
+    def set_phase_stats_sink(self, fn):
+        """fn(worker_id, phases): the ReportPhaseStats sink
+        (`sched/telemetry.PhaseStatsAggregator.ingest`)."""
+        self._phase_stats_sink = fn
+
+    def report_phase_stats(self, req: dict) -> dict:
+        """A worker's cumulative PhaseTimers snapshot. Last write wins per
+        worker, so a resend or a reordering is harmless (idempotent)."""
+        sink = self._phase_stats_sink
+        if sink is not None:
+            sink(int(req.get("worker_id", -1)), req.get("phases"))
+        return {}
 
     # -- model state --------------------------------------------------------
 
@@ -699,6 +741,7 @@ class MasterServicer:
         steps = int(req["steps"])
         base_version = int(req["base_version"])
         report_key = req.get("report_key") or ""
+        t_apply = time.time()
         with self._lock:
             if self._params is None:
                 raise ValueError("local update reported before model init")
@@ -740,6 +783,10 @@ class MasterServicer:
             if base_version + steps != self._version or req.get("want_model"):
                 resp["params_flat"] = self._flat_model(req.get("model_dtype"))
                 resp["aux"] = _copy(self._aux)
+        # the lock wait and the apply, retro-recorded under the server
+        # span (a duplicate's early return above skips it)
+        obs_trace.record_event("master.apply", t_apply, time.time(), cat="ps",
+                               args={"kind": "local_update"})
         # the window's rows, at full weight like the per-step path
         self._apply_sparse(req.get("edl_gradient") or {})
         self._on_version_bump(applied_version, ckpt_snapshot, prev_version)

@@ -15,7 +15,8 @@ files' directory is removed once every shard has published, or when the
 boot fails.
 
 A relaunch of one slot (the recovery plane's) boots it alone through the
-same path (`shard_ids=[i]`).
+same path (`shard_ids=[i]`). `collect_metrics` reads each shard
+process's metrics registry for the master's GetMetrics.
 
 Not ported yet: the k8s pods and the chaos scoping of the children.
 """
@@ -31,6 +32,9 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 from elasticdl_tpu_torch.common.constants import ENV_UDS_DIR
+from elasticdl_tpu_torch.common.log_util import get_logger
+
+logger = get_logger(__name__)
 
 # seconds a terminated shard process gets before it is killed
 STOP_GRACE_SECONDS = 5.0
@@ -103,3 +107,22 @@ def stop_shard_processes(procs: List[subprocess.Popen]):
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
+
+
+def collect_metrics(endpoints: List[str], kind: str) -> dict:
+    """Each shard process's MetricsRegistry snapshot, keyed
+    `<kind><i>` ("ps0", "kv1"), for the master's GetMetrics: one
+    best-effort GetMetrics call each (a dead shard contributes nothing
+    rather than failing the scrape)."""
+    from elasticdl_tpu_torch.rpc.client import RpcClient
+
+    out = {}
+    for i, endpoint in enumerate(endpoints):
+        c = RpcClient(endpoint)
+        try:
+            out[f"{kind}{i}"] = c.call("GetMetrics", {}, timeout=10.0).get("metrics", {})
+        except Exception as e:  # noqa: BLE001 - the scrape is best-effort
+            logger.warning("%s shard %d: GetMetrics failed: %s", kind, i, e)
+        finally:
+            c.close()
+    return out

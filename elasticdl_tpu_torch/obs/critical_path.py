@@ -1,0 +1,137 @@
+"""Span-derived sync critical-path breakdown.
+
+The reference's `elasticdl_tpu/obs/critical_path.py`. Given the
+recorder-shaped span dicts of a traced run, decompose the worker sync
+chain's wall time into where it went:
+
+- ``encode``      device->host quantize + wire-delta materialization
+                  (``worker.quantize`` + ``worker.encode``)
+- ``queue_wait``  dispatcher admission queue (``rpc.admission_wait``;
+                  the port has no admission queues yet, so 0)
+- ``combine``     fan-in park time not covered by the lock apply
+                  (``fanin.park`` minus ``apply``; None while fan-in
+                  is not ported)
+- ``apply``       shard-lock / master-lock wait + apply
+                  (``ps.apply`` + ``master.apply``)
+- ``wire``        client-observed RPC time not accounted server-side
+                  (the chain's client spans minus its server spans
+                  minus queue_wait): serialization, transport,
+                  scheduling — the sync push AND the deferred
+                  task-report flush riding the same sync thread
+- ``serve_other`` server handler time that is neither parking nor
+                  applying: decode, version bookkeeping, response
+
+The decomposition is validated against the independently span-measured
+chain wall (the ``worker.window_sync`` roots): ``sum_fraction``
+reports component-sum / sync_wait, which chip_smoke.py holds within
+10% of 1 — a drifting fraction means a hop joined the sync chain
+without instrumentation (or one got double-billed).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List, Optional
+
+#: the sync chain's root span
+ROOT = "worker.window_sync"
+
+#: step-loop stall spans (worker._sync_exposed): wall time the main
+#: thread spent BLOCKED on the sync plane, tagged with a reason
+#: (join / pull / bg_pull / backpressure / flush / drain)
+EXPOSED = "worker.sync_exposed"
+
+
+def _dur(spans: Iterable[dict], *names: str) -> float:
+    wanted = set(names)
+    return sum(float(s.get("dur", 0.0)) for s in spans if s["name"] in wanted)
+
+
+def _prefix_dur(spans: Iterable[dict], prefix: str) -> float:
+    return sum(
+        float(s.get("dur", 0.0))
+        for s in spans
+        if s["name"].startswith(prefix)
+    )
+
+
+def sync_critical_path_from_spans(
+    spans: List[Dict[str, Any]], sync_method: str = "ReportLocalUpdate"
+) -> Optional[dict]:
+    """Component breakdown of the sync chain, or None when the span set
+    contains no ``worker.window_sync`` roots (tracing was off)."""
+    roots = [s for s in spans if s["name"] == ROOT]
+    if not roots:
+        return None
+    # chain spans only: the worker's pull/absorb traces are separate
+    # roots and must not leak into the sync-chain accounting. All RPCs
+    # inside the chain count — the deferred task-report flush rides the
+    # sync thread too, and skipping it would undercount "wire".
+    chain_ids = {s["trace_id"] for s in roots}
+    chain = [s for s in spans if s.get("trace_id") in chain_ids]
+    sync_wait = sum(float(s.get("dur", 0.0)) for s in roots)
+    encode = _dur(chain, "worker.quantize", "worker.encode")
+    queue_wait = _dur(chain, "rpc.admission_wait")
+    apply = _dur(chain, "ps.apply", "master.apply")
+    park = _dur(chain, "fanin.park")
+    combine = max(0.0, park - apply)
+    client = _prefix_dur(chain, "rpc.client.")
+    server = _prefix_dur(chain, "rpc.server.")
+    wire = max(0.0, client - server - queue_wait)
+    serve_other = max(0.0, server - park - apply)
+    total = encode + queue_wait + combine + apply + wire + serve_other
+    out = {
+        "rounds": len(roots),
+        "sync_method": sync_method,
+        "sync_wait_s": round(sync_wait, 6),
+        "encode_s": round(encode, 6),
+        "queue_wait_s": round(queue_wait, 6),
+        "combine_s": round(combine, 6) if park > 0.0 else None,
+        "apply_s": round(apply, 6),
+        "wire_s": round(wire, 6),
+        "serve_other_s": round(serve_other, 6),
+        "sum_fraction": (
+            round(total / sync_wait, 4) if sync_wait > 0 else None
+        ),
+    }
+    if out["combine_s"] is None:
+        out["combine_s_skipped_reason"] = (
+            "no fanin.park spans: CombineBuffer fan-in was not active "
+            "on this run (serial shard apply path)"
+        )
+    return out
+
+
+def sync_exposed_fraction_from_spans(
+    spans: List[Dict[str, Any]], total_wall_s: float
+) -> Optional[dict]:
+    """EXPOSED sync accounting: of `total_wall_s` of step-loop wall,
+    how much was spent blocked on the sync plane (the
+    ``worker.sync_exposed`` stall spans)? This is the overlap plane's
+    headline metric — ``sync_critical_path_from_spans`` decomposes
+    where sync time GOES, this measures how much of it stayed ON the
+    step loop's critical path. overlap_sync=off exposes every window's
+    full sync wall; =on should leave only residual stalls (final
+    drain, beyond-depth backpressure), so an on-vs-off A/B expects the
+    fraction drops.
+
+    Returns None when the span set has no stall spans at all AND no
+    sync roots (tracing was off — indistinguishable from a stall-free
+    run only when the run also produced no windows)."""
+    stalls = [s for s in spans if s.get("name") == EXPOSED]
+    if not stalls and not any(s.get("name") == ROOT for s in spans):
+        return None
+    exposed = sum(float(s.get("dur", 0.0)) for s in stalls)
+    by_reason: Dict[str, float] = {}
+    for s in stalls:
+        reason = str((s.get("args") or {}).get("reason", "unknown"))
+        by_reason[reason] = by_reason.get(reason, 0.0) + float(
+            s.get("dur", 0.0)
+        )
+    total = max(float(total_wall_s), 1e-9)
+    return {
+        "stalls": len(stalls),
+        "sync_exposed_wall_s": round(exposed, 6),
+        "total_wall_s": round(float(total_wall_s), 6),
+        "sync_exposed_fraction": round(exposed / total, 6),
+        "by_reason": {k: round(v, 6) for k, v in sorted(by_reason.items())},
+    }

@@ -1,0 +1,75 @@
+"""Consumers of the observability RPCs.
+
+The reference's `elasticdl_tpu/obs/fetch.py`. Every servicer (master,
+PS shards, KV shards) answers ``GetTrace`` and ``GetMetrics`` for its
+*process* — both deliberately unfenced, so a fenced-out shard can still
+be asked what happened. These helpers wrap the calls for the consumers
+that sit outside the package's RPC plumbing (chip_smoke.py, tests, an
+operator's shell).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+
+def fetch_trace(client) -> dict:
+    """Pull the remote process's SpanRecorder contents:
+    ``{"spans": [...], "dropped": n}``."""
+    return client.call("GetTrace", {}) or {}
+
+
+def fetch_metrics(client) -> dict:
+    """Pull the remote process's MetricsRegistry snapshot; from the
+    master this also aggregates the shard processes' registries under
+    ``"shards"``."""
+    return client.call("GetMetrics", {}) or {}
+
+
+def fetch_chrome_trace(clients, path: Optional[str] = None) -> dict:
+    """Merge span dumps from several processes (plus this one) into one
+    Chrome trace-event JSON object; optionally write it to ``path``.
+
+    Spans carry wall-clock timestamps and process-unique trace ids, so
+    a plain concatenation *is* the merged timeline — Perfetto groups by
+    pid/tid from the span records themselves.
+    """
+    from elasticdl_tpu_torch.obs import trace as obs_trace
+
+    spans: List[dict] = list(obs_trace.RECORDER.snapshot())
+    dropped = obs_trace.RECORDER.dropped
+    # dedupe on span identity: a co-located servicer's GetTrace returns
+    # the SAME process recorder this function already snapshotted
+    seen = {(s.get("trace_id"), s.get("span_id")) for s in spans}
+    for client in clients:
+        try:
+            got = fetch_trace(client)
+        except Exception:
+            continue
+        for s in got.get("spans") or []:
+            key = (s.get("trace_id"), s.get("span_id"))
+            if key in seen:
+                continue
+            seen.add(key)
+            spans.append(s)
+        dropped += int(got.get("dropped") or 0)
+    doc = obs_trace.chrome_trace_from_spans(spans)
+    doc.setdefault("otherData", {})["dropped_spans"] = dropped
+    if path is not None:
+        import json
+        import os
+        import tempfile
+
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        fd, tmp = tempfile.mkstemp(prefix=".trace-", dir=d)
+        try:
+            with os.fdopen(fd, "w", encoding="utf-8") as f:
+                json.dump(doc, f)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+    return doc

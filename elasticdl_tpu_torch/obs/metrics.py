@@ -1,0 +1,331 @@
+"""One process-wide metrics surface: declared names, one scrape point.
+
+The reference's `elasticdl_tpu/obs/metrics.py`. ``METRIC_REGISTRY``
+mirrors the role ``ENV_REGISTRY`` plays for env knobs: every metric
+name emitted anywhere in the port MUST be declared here, and
+:class:`MetricsRegistry` raises on an undeclared name. It holds the
+names the port emits, with the reference's help strings; the names of
+planes not ported yet (admission queues, fan-in combine, the prepack
+cache, aggregators, chaos, the scheduler) come with those planes.
+
+Two emission styles:
+
+- **direct counters** — hot-path events call ``inc(name, ...)``; the
+  registry accumulates.
+- **collectors** — subsystems that already keep their own counters
+  (the RPC servers' WireStats, the PS and KV shards' stats, the
+  master's phase-stats aggregator) register a ``fn(sink)`` pulled at
+  scrape time; the sink's ``counter``/``gauge`` set absolute values.
+  This keeps scrape cost off the hot path entirely.
+
+Scrape surfaces: ``prometheus_text()`` (text exposition format; a
+name ending in ``_total`` is a counter, everything else a gauge),
+an optional HTTP listener on ``EDL_METRICS_PORT`` serving
+``GET /metrics``, and the ``GetMetrics`` RPC (the master adds its
+shard processes' registries).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from elasticdl_tpu_torch.common.constants import ENV_METRICS_PORT
+
+# --- the declared surface -------------------------------------------------
+# name -> help string. Counter iff the name ends in _total; otherwise a
+# gauge. Label keys are free-form but small (endpoint, transport,
+# method, shard, phase, kind, cls, worker).
+METRIC_REGISTRY: Dict[str, str] = {
+    # wire (rpc/policy.WireStats, client + server sides)
+    "edl_wire_bytes_sent_total": "Payload bytes sent, per endpoint/transport.",
+    "edl_wire_bytes_received_total": "Payload bytes received, per endpoint/transport.",
+    "edl_wire_calls_total": "RPC calls counted by WireStats, per endpoint.",
+    # PS shard counters (master/ps_shard.PSShardServicer.stats)
+    "edl_ps_applied_pushes_total": "Push batches applied by a PS shard.",
+    "edl_ps_duplicate_pushes_total": "Duplicate pushes dropped by report_key dedup.",
+    "edl_ps_version": "PS shard model version.",
+    "edl_ps_generation": "PS shard fencing generation.",
+    # KV shard counters (master/kv_shard.KVShardServicer.stats)
+    "edl_kv_rows": "Rows resident in a KV shard.",
+    "edl_kv_generation": "KV shard fencing generation.",
+    "edl_kv_lookups_total": "KV rows looked up, per shard.",
+    "edl_kv_updates_total": "KV rows updated, per shard.",
+    # worker phase timers (common/timing.PhaseTimers, via ReportPhaseStats)
+    "edl_phase_seconds_total": "Wall seconds spent in a worker phase.",
+    "edl_phase_count_total": "Entries into a worker phase.",
+    # recovery / fencing (master/recovery.RecoveryPlane)
+    "edl_recovery_events_total": "Recovery-plane events, per kind.",
+    # the obs plane's own health
+    "edl_trace_spans": "Spans currently held in the process SpanRecorder.",
+    "edl_trace_spans_dropped_total": "Spans evicted from the SpanRecorder ring.",
+    "edl_flight_events": "Events currently held in the flight recorder.",
+    "edl_flight_events_dropped_total": "Events evicted from the flight-recorder ring.",
+}
+
+_LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(labels: Dict[str, Any]) -> _LabelKey:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class _Sink:
+    """Scrape-time sink handed to collectors; sets absolute values."""
+
+    def __init__(self, registry: "MetricsRegistry", samples):
+        self._registry = registry
+        self._samples = samples
+
+    def counter(self, name: str, value: float, **labels: Any) -> None:
+        self._registry._check(name)
+        self._samples.setdefault(name, {})[_label_key(labels)] = float(value)
+
+    def gauge(self, name: str, value: float, **labels: Any) -> None:
+        self._registry._check(name)
+        self._samples.setdefault(name, {})[_label_key(labels)] = float(value)
+
+
+class MetricsRegistry:
+    """Declared-names-only metrics store with pull collectors."""
+
+    def __init__(self, declared: Optional[Dict[str, str]] = None):
+        self._declared = dict(
+            METRIC_REGISTRY if declared is None else declared
+        )
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Dict[_LabelKey, float]] = {}
+        self._gauges: Dict[str, Dict[_LabelKey, float]] = {}
+        self._collectors: List[Callable[[_Sink], None]] = []
+
+    def _check(self, name: str) -> None:
+        if name not in self._declared:
+            raise ValueError(
+                f"metric {name!r} is not declared in METRIC_REGISTRY "
+                "(obs/metrics.py) — declare it there (and keep the name "
+                "literal at the emit site for the metric-registry lint)"
+            )
+
+    def inc(self, name: str, value: float = 1.0, **labels: Any) -> None:
+        self._check(name)
+        key = _label_key(labels)
+        with self._lock:
+            row = self._counters.setdefault(name, {})
+            row[key] = row.get(key, 0.0) + float(value)
+
+    def set_gauge(self, name: str, value: float, **labels: Any) -> None:
+        self._check(name)
+        with self._lock:
+            self._gauges.setdefault(name, {})[_label_key(labels)] = float(
+                value
+            )
+
+    def register_collector(self, fn: Callable[[_Sink], None]) -> None:
+        """Register a pull collector: ``fn(sink)`` runs at scrape time
+        and reports absolute values via ``sink.counter``/``sink.gauge``.
+        A raising collector is skipped for that scrape, never fatal."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def unregister_collector(self, fn: Callable[[_Sink], None]) -> None:
+        """Drop a collector (its owner stopped: an RPC server, a job's
+        phase aggregator); unknown ones are ignored."""
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
+    def snapshot(self) -> Dict[str, List[Dict[str, Any]]]:
+        """``{name: [{"labels": {...}, "value": v}, ...]}`` for every
+        declared name with at least one sample."""
+        samples: Dict[str, Dict[_LabelKey, float]] = {}
+        with self._lock:
+            for name, row in self._counters.items():
+                samples.setdefault(name, {}).update(row)
+            for name, row in self._gauges.items():
+                samples.setdefault(name, {}).update(row)
+            collectors = list(self._collectors)
+        sink = _Sink(self, samples)
+        for fn in collectors:
+            try:
+                fn(sink)
+            except Exception:
+                continue
+        out: Dict[str, List[Dict[str, Any]]] = {}
+        for name in sorted(samples):
+            out[name] = [
+                {"labels": dict(key), "value": value}
+                for key, value in sorted(samples[name].items())
+            ]
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format, deterministically ordered
+        (names and label sets sorted) so goldens are stable."""
+        lines: List[str] = []
+        for name, rows in self.snapshot().items():
+            kind = "counter" if name.endswith("_total") else "gauge"
+            lines.append(f"# HELP {name} {self._declared.get(name, '')}")
+            lines.append(f"# TYPE {name} {kind}")
+            for row in rows:
+                labels = row["labels"]
+                if labels:
+                    body = ",".join(
+                        f'{k}="{_escape(v)}"'
+                        for k, v in sorted(labels.items())
+                    )
+                    lines.append(f"{name}{{{body}}} {_fmt(row['value'])}")
+                else:
+                    lines.append(f"{name} {_fmt(row['value'])}")
+        return "\n".join(lines) + "\n"
+
+
+def _escape(value: str) -> str:
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt(value: float) -> str:
+    return str(int(value)) if float(value).is_integer() else repr(value)
+
+
+# --- process singleton ----------------------------------------------------
+_registry: Optional[MetricsRegistry] = None
+_registry_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry, with the obs plane's own collectors
+    (client-side wire stats, trace-recorder and flight-recorder health)
+    installed on first use."""
+    global _registry
+    reg = _registry
+    if reg is not None:
+        return reg
+    with _registry_lock:
+        if _registry is None:
+            reg = MetricsRegistry()
+            _install_default_collectors(reg)
+            _registry = reg
+        return _registry
+
+
+def _install_default_collectors(reg: MetricsRegistry) -> None:
+    def wire_collector(sink: _Sink) -> None:
+        # function-local import: policy -> metrics would otherwise cycle
+        from elasticdl_tpu_torch.rpc.policy import all_wire_stats
+
+        # the snapshots are the dict's values (the reference iterates the
+        # endpoint keys, so its collector raises and is skipped)
+        for snap in all_wire_stats().values():
+            endpoint = snap.get("endpoint", "?")
+            sink.counter(
+                "edl_wire_bytes_sent_total",
+                snap.get("bytes_sent", 0),
+                endpoint=endpoint,
+                side="client",
+            )
+            sink.counter(
+                "edl_wire_bytes_received_total",
+                snap.get("bytes_received", 0),
+                endpoint=endpoint,
+                side="client",
+            )
+            sink.counter(
+                "edl_wire_calls_total",
+                snap.get("calls", 0),
+                endpoint=endpoint,
+                side="client",
+            )
+
+    def obs_collector(sink: _Sink) -> None:
+        from elasticdl_tpu_torch.obs import flight, trace
+
+        sink.gauge("edl_trace_spans", len(trace.RECORDER))
+        sink.counter("edl_trace_spans_dropped_total", trace.RECORDER.dropped)
+        sink.gauge("edl_flight_events", len(flight.RECORDER))
+        sink.counter(
+            "edl_flight_events_dropped_total", flight.RECORDER.dropped
+        )
+
+    reg.register_collector(wire_collector)
+    reg.register_collector(obs_collector)
+
+
+def reset_registry_for_tests() -> None:
+    global _registry
+    with _registry_lock:
+        _registry = None
+
+
+# --- optional HTTP scrape listener ---------------------------------------
+_http_server = None
+_http_lock = threading.Lock()
+
+
+def serve(port: int):
+    """Start the /metrics HTTP listener (idempotent per process);
+    returns the live server (``.server_address[1]`` is the bound port)."""
+    global _http_server
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    with _http_lock:
+        if _http_server is not None:
+            return _http_server
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (http.server API)
+                if self.path.rstrip("/") not in ("", "/metrics"):
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = get_registry().prometheus_text().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # silence per-scrape stderr
+                pass
+
+        server = ThreadingHTTPServer(("127.0.0.1", port), _Handler)
+        thread = threading.Thread(
+            target=server.serve_forever,
+            name="edl-metrics-http",
+            daemon=True,
+        )
+        thread.start()
+        _http_server = server
+        return server
+
+
+def maybe_serve_from_env():
+    """Start the listener iff EDL_METRICS_PORT is set; best-effort (a
+    taken port logs nothing fatal — the RPC scrape surface remains)."""
+    raw = os.environ.get(ENV_METRICS_PORT, "").strip()
+    if not raw:
+        return None
+    try:
+        port = int(raw)
+    except ValueError:
+        return None
+    try:
+        return serve(port)
+    except OSError:
+        return None
+
+
+def stop_serving_for_tests() -> None:
+    global _http_server
+    with _http_lock:
+        if _http_server is not None:
+            _http_server.shutdown()
+            _http_server.server_close()
+            _http_server = None

@@ -17,9 +17,17 @@ every tier. Calls may come from several threads (window mode's sync
 threads): the transport gives each concurrent call its own connection,
 and the counters are locked.
 
-Not ported yet: the trace envelope, `reconnect` (master failover), the
-circuit breaker, and the `transport` argument that pins one link's tier
-(the aggregation tree's).
+Each call opens a root span `rpc.client.<method>` when tracing samples
+it (`obs/trace.py`): the span covers the whole policy call, retries
+included, and its envelope rides inside a dict request under
+`ENVELOPE_KEY`, so the server's span joins the caller's trace. With
+tracing off the request's bytes are those of an untraced call. `wire`,
+the endpoint's `policy.WireStats`, counts each attempt's payload bytes
+and tier.
+
+Not ported yet: `reconnect` (master failover), the circuit breaker, and
+the `transport` argument that pins one link's tier (the aggregation
+tree's).
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ from collections import Counter
 from typing import Any, Optional
 
 from elasticdl_tpu_torch.common import messages
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.policy import (
     IDEMPOTENT_METHODS,
     PolicyRpcError,
     RetryPolicy,
     StatusCode,
+    wire_stats_for,
 )
 from elasticdl_tpu_torch.rpc.transport import TcpTransport, select_transport
 
@@ -50,6 +60,8 @@ class RpcClient:
         self.codec_seconds: Counter = Counter()
         # window mode's sync threads call beside the main thread
         self._stats_lock = threading.Lock()
+        # per-endpoint wire-byte accounting, shared by this endpoint's clients
+        self.wire = wire_stats_for(addr)
 
     def wait_ready(self, timeout: float = 30.0):
         """Poll until a listener accepts at the address (a worker may
@@ -79,14 +91,34 @@ class RpcClient:
         if idempotent is None:
             idempotent = method in IDEMPOTENT_METHODS
         t0 = time.perf_counter()
+        # the span exists before the request is packed: its envelope
+        # rides inside the frame. A call with no surrounding context
+        # starts a new sampled trace
+        tspan = None
+        if request is None or isinstance(request, dict):
+            tspan = obs_trace.start_span(f"rpc.client.{method}", cat="rpc", root=True)
+            if tspan is not None:
+                request = dict(request or {})
+                request[obs_trace.ENVELOPE_KEY] = tspan.envelope()
         payload = messages.pack(request if request is not None else {})
         t1 = time.perf_counter()
-        resp = self._policy.call(
-            lambda remaining: self._transport.call(method, payload, remaining),
-            method=method,
-            timeout=timeout,
-            idempotent=idempotent,
-        )
+        transport = self._transport
+        inproc = self.tier == "inproc"
+
+        def attempt(remaining):
+            self.wire.record(method, sent=0 if inproc else len(payload),
+                             transport=self.tier, calls=1 if inproc else None)
+            resp_bytes = transport.call(method, payload, remaining)
+            self.wire.record(method, received=0 if inproc else len(resp_bytes),
+                             transport=self.tier)
+            return resp_bytes
+
+        try:
+            resp = self._policy.call(attempt, method=method, timeout=timeout,
+                                     idempotent=idempotent)
+        finally:
+            if tspan is not None:
+                tspan.end(transport=self.tier)
         t2 = time.perf_counter()
         out = messages.unpack(resp)
         t3 = time.perf_counter()

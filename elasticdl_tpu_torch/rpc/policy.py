@@ -15,16 +15,21 @@ without grpc:
 - `IDEMPOTENT_METHODS` names the calls safe to re-send. GetTask and
   ReportGradient are not: a lost GetTask response would orphan a task,
   and a re-sent gradient would apply twice. They fall through to task
-  requeue and worker relaunch.
+  requeue and worker relaunch;
+- `WireStats` counts payload bytes and calls per method and tier, one
+  shared by every `RpcClient` of an endpoint (`wire_stats_for`,
+  `all_wire_stats`) and one per `RpcServer`; the metrics plane reads
+  them (`obs/metrics.py`).
 
-Not ported yet: the circuit breaker, wire statistics, chaos hooks and
-the environment overrides of the policy.
+Not ported yet: the circuit breaker, the chaos hooks and the
+environment overrides of the policy.
 """
 
 from __future__ import annotations
 
 import enum
 import hashlib
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, FrozenSet
@@ -64,14 +69,17 @@ RETRYABLE_CODES: FrozenSet[StatusCode] = frozenset(
 #: in-place refences (idempotent by target generation; a stale one is
 #: fenced, and FAILED_PRECONDITION is never re-sent anyway), and the KV
 #: shards' reads, overwrites and mirror traffic, as the reference
-#: classifies them.
+#: classifies them. The observability plane's are: phase telemetry is a
+#: cumulative last-write-wins snapshot per worker, and GetTrace and
+#: GetMetrics are reads of process-local recorders.
 IDEMPOTENT_METHODS: FrozenSet[str] = frozenset(
     {"GetModel", "GetAux", "GetPSConfig", "GetSampleBatch", "ReportTaskResult",
      "EmbeddingLookup", "ReportLocalUpdate",
      "PSInit", "PSPull", "PSPushGrad", "PSPushDelta", "PSOptState", "PSOptRestore",
      "PSRefence", "PSRestoreFromWorker",
      "KVLookup", "KVUpdate", "KVSnapshot", "KVRestore", "KVLen",
-     "KVMirror", "KVMirrorSnapshot", "KVSetMirror", "KVRefence"}
+     "KVMirror", "KVMirrorSnapshot", "KVSetMirror", "KVRefence",
+     "ReportPhaseStats", "GetTrace", "GetMetrics"}
 )
 
 #: Mutations that are safe to re-send only because the receiver dedups
@@ -154,3 +162,110 @@ class RetryPolicy:
                 if time.monotonic() + pause >= deadline:
                     raise
                 self.sleep_fn(pause)
+
+
+class WireStats:
+    """Per-endpoint wire-byte accounting: bytes_sent / bytes_received /
+    calls, broken down by method and by the transport tier that moved
+    them ("tcp", "uds", "shm", "inproc"). One instance is shared by
+    every `RpcClient` dialing the same endpoint (`wire_stats_for`) and
+    one per `RpcServer`. Counters are payload bytes as handed to /
+    received from the transport (post-codec, pre-framing); an in-process
+    call moves no wire bytes but still counts its call (callers pass
+    `calls=1` there, since the default counts a call per non-empty
+    send).
+
+    Counters are striped (a lock per stripe, threads pinned round-robin
+    to stripes), so concurrent recorders do not convoy on one mutex;
+    snapshot() merges the stripes."""
+
+    _NUM_STRIPES = 8
+
+    def __init__(self, endpoint: str = ""):
+        self.endpoint = endpoint
+        # stripe -> (lock, method -> [sent, recv, calls],
+        #           transport tier -> [sent, recv, calls])
+        self._stripes = [(threading.Lock(), {}, {}) for _ in range(self._NUM_STRIPES)]
+
+    def record(self, method: str, sent: int = 0, received: int = 0,
+               transport: str = "tcp", calls=None):
+        n = (1 if sent else 0) if calls is None else int(calls)
+        lock, methods, transports = self._stripes[_stripe_index()]
+        with lock:
+            for table, key in ((methods, method), (transports, transport)):
+                row = table.get(key)
+                if row is None:
+                    row = table[key] = [0, 0, 0]
+                row[0] += int(sent)
+                row[1] += int(received)
+                row[2] += n
+
+    def snapshot(self) -> dict:
+        methods: dict = {}
+        transports: dict = {}
+        for lock, smethods, stransports in self._stripes:
+            with lock:
+                srows = [(m, list(r)) for m, r in smethods.items()]
+                trows = [(t, list(r)) for t, r in stransports.items()]
+            for table, rows in ((methods, srows), (transports, trows)):
+                for k, r in rows:
+                    agg = table.setdefault(
+                        k, {"bytes_sent": 0, "bytes_received": 0, "calls": 0})
+                    agg["bytes_sent"] += r[0]
+                    agg["bytes_received"] += r[1]
+                    agg["calls"] += r[2]
+        return {
+            "endpoint": self.endpoint,
+            "bytes_sent": sum(v["bytes_sent"] for v in methods.values()),
+            "bytes_received": sum(v["bytes_received"] for v in methods.values()),
+            "calls": sum(v["calls"] for v in methods.values()),
+            "methods": methods,
+            "transports": transports,
+        }
+
+    def reset(self):
+        for lock, methods, transports in self._stripes:
+            with lock:
+                methods.clear()
+                transports.clear()
+
+
+# Threads are pinned to stripes round-robin at first record: cheaper
+# and better spread than hashing thread ids (CPython idents are
+# pointer-aligned, so their low bits collide).
+_stripe_tl = threading.local()
+_stripe_seq_lock = threading.Lock()
+_stripe_seq = 0
+
+
+def _stripe_index() -> int:
+    idx = getattr(_stripe_tl, "idx", None)
+    if idx is None:
+        global _stripe_seq
+        with _stripe_seq_lock:
+            idx = _stripe_seq % WireStats._NUM_STRIPES
+            _stripe_seq += 1
+        _stripe_tl.idx = idx
+    return idx
+
+
+_wire_registry_lock = threading.Lock()
+_wire_registry: dict = {}
+
+
+def wire_stats_for(endpoint: str) -> WireStats:
+    """The process-wide WireStats for `endpoint` (created on first
+    use), shared by every client of the endpoint."""
+    with _wire_registry_lock:
+        ws = _wire_registry.get(endpoint)
+        if ws is None:
+            ws = _wire_registry[endpoint] = WireStats(endpoint)
+        return ws
+
+
+def all_wire_stats() -> dict:
+    """{endpoint: snapshot} for every endpoint this process dialed."""
+    with _wire_registry_lock:
+        entries = list(_wire_registry.items())
+    return {ep: ws.snapshot() for ep, ws in entries}
+

@@ -32,6 +32,10 @@ the restored shard applies it, and each slice gets it exactly once.
 background model page-in calls it while the step loop and the sync
 chain's fan-outs go on; the links take concurrent calls.
 
+Pool threads do not inherit the caller's trace context, so every
+submit carries it (`_traced`): each shard's `rpc.client.*` span chains
+under the caller's window, pull or page-in span (`obs/trace.py`).
+
 Not ported yet: the aggregation-tree route and bucketed pushes.
 """
 
@@ -46,6 +50,7 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import codec
 from elasticdl_tpu_torch.master.ps_shard import slice_boundaries
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.client import RpcClient
 from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
 
@@ -106,10 +111,28 @@ class ShardedPS:
                 out[method] = out.get(method, 0.0) + s
         return out
 
+    @staticmethod
+    def _traced(fn):
+        """fn run under the calling thread's trace context, restored
+        after."""
+        tctx = obs_trace.current()
+        if tctx is None:
+            return fn
+
+        def run(*args, **kwargs):
+            prev = obs_trace.bind(tctx)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                obs_trace.bind(prev)
+
+        return run
+
     def _map(self, fn):
         """fn(client, shard index) on every shard at once; the results in
         shard order, the first failure re-raised."""
-        futs = [self._pool.submit(fn, c, i) for i, c in enumerate(self._clients)]
+        run = self._traced(fn)
+        futs = [self._pool.submit(run, c, i) for i, c in enumerate(self._clients)]
         return [f.result() for f in futs]
 
     def wait_ready(self, timeout: float = 30.0):
@@ -169,7 +192,8 @@ class ShardedPS:
                 req = {"model_dtype": model_dtype} if model_dtype else {}
                 return c.call("PSPull", self._stamp_epoch(req, i))
 
-            futs = [(i, self._pool.submit(refill, self._clients[i], i)) for i in missing]
+            run = self._traced(refill)
+            futs = [(i, self._pool.submit(run, self._clients[i], i)) for i in missing]
             for i, f in futs:
                 resps[i] = f.result()
                 new_versions[i] = resps[i]["version"]
@@ -182,7 +206,8 @@ class ShardedPS:
         model or None), run on one pool thread of its own."""
         if self._async_pool is None:
             self._async_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ps-pull-async")
-        return self._async_pool.submit(self.pull, versions=versions, model_dtype=model_dtype)
+        return self._async_pool.submit(self._traced(self.pull), versions=versions,
+                                       model_dtype=model_dtype)
 
     def push_delta(
         self,

@@ -12,6 +12,12 @@ cannot start is logged, and TCP serves. `shm_scope` and `shm_generation`
 name the shm listener's segments: a PS or KV shard slot passes its
 job-stable scope and its fencing generation, so that its relaunch sweeps
 a SIGKILLed predecessor's segments (`rpc/transport.ShmServer`).
+
+`wire` counts every tier's payload bytes and calls (`policy.WireStats`);
+`start` registers it with the process's metrics registry as a pull
+collector (`edl_wire_*_total{side="server"}`, dropped again by `stop`)
+and starts the `EDL_METRICS_PORT` listener when that is set
+(`obs/metrics.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Callable, Dict, Optional
 
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.rpc import transport as transport_mod
+from elasticdl_tpu_torch.rpc.policy import WireStats
 
 logger = get_logger(__name__)
 
@@ -32,7 +39,9 @@ class RpcServer:
         shm_scope: Optional[str] = None,
         shm_generation: int = 0,
     ):
-        self._dispatcher = transport_mod.ServerDispatcher(handlers)
+        self.wire = WireStats("server")
+        self._dispatcher = transport_mod.ServerDispatcher(handlers, self.wire)
+        self._collector = None  # the metrics collector, from start to stop
         self._tcp = transport_mod.TcpServer(port, self._dispatcher)
         self.port = self._tcp.port
         transport_mod.register_inproc(self.port, self._dispatcher)
@@ -58,12 +67,44 @@ class RpcServer:
             self._uds.start()
         if self._shm is not None:
             self._shm.start()
+        self._register_metrics()
+
+    def _register_metrics(self):
+        """Feed this server's wire counters into the process's
+        MetricsRegistry (a pull collector: no cost on the hot path) and
+        start the optional EDL_METRICS_PORT scrape listener."""
+        from elasticdl_tpu_torch.obs import metrics as obs_metrics
+
+        port = self.port
+        wire = self.wire
+
+        def collector(sink):
+            snap = wire.snapshot()
+            sink.counter("edl_wire_bytes_sent_total", snap.get("bytes_sent", 0),
+                         side="server", port=port)
+            sink.counter("edl_wire_bytes_received_total", snap.get("bytes_received", 0),
+                         side="server", port=port)
+            sink.counter("edl_wire_calls_total", snap.get("calls", 0), side="server", port=port)
+
+        obs_metrics.get_registry().register_collector(collector)
+        self._collector = collector
+        obs_metrics.maybe_serve_from_env()
+
+    def wire_stats(self) -> dict:
+        """Per-method and per-tier payload bytes and calls
+        (`policy.WireStats`)."""
+        return self.wire.snapshot()
 
     def stats(self) -> dict:
         """Per method: calls, handler seconds and codec seconds."""
         return self._dispatcher.stats()
 
     def stop(self):
+        if self._collector is not None:
+            from elasticdl_tpu_torch.obs import metrics as obs_metrics
+
+            obs_metrics.get_registry().unregister_collector(self._collector)
+            self._collector = None
         transport_mod.unregister_inproc(self.port)
         if self._uds is not None:
             self._uds.close()

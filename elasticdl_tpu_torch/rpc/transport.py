@@ -69,9 +69,14 @@ summary. A
 handler must not keep a view of its request past its return: over shm
 the next request on the connection overwrites it.
 
+The dispatcher pops the trace envelope from every request on every
+tier, runs the handler under the sender's trace when both ends trace,
+and counts each call's payload bytes in its server's `WireStats`
+(`ServerDispatcher`).
+
 Not ported yet: the shm tier's broadcast segments (`ShmBroadcaster`,
 the sharded PS's pull), `AsyncUdsServer` and the event-loop dispatch
-core (`EDL_DISPATCH=loop`), chaos hooks and wire statistics.
+core (`EDL_DISPATCH=loop`), and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -95,8 +100,9 @@ from elasticdl_tpu_torch.common.constants import (
     ENV_UDS_DIR,
 )
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.fencing import EpochFencedError
-from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode
+from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode, WireStats
 
 logger = get_logger(__name__)
 
@@ -260,25 +266,52 @@ def _recv_exact(conn: socket.socket, n: int, *, eof_ok: bool = False):
 class ServerDispatcher:
     """Decode, run the handler, encode. `stats()` splits each method's
     server time between the handler and the codec (unpack + pack), as
-    `testing.InProcessMaster` does in one process."""
+    `testing.InProcessMaster` does in one process.
 
-    def __init__(self, handlers: Dict[str, Callable]):
+    Every tier's server hands its frames here with its tier's name
+    (`transport`), so the observability plane sees every request once:
+    the trace envelope (`obs/trace.ENVELOPE_KEY`) is popped from every
+    dict request before the handler sees it, whether or not this
+    process traces; when the sender sampled the request and this
+    process traces, the handler runs under an `rpc.server.<method>`
+    span, the child of the sender's, bound as the thread's context so
+    the handler's own spans chain under it. `wire`, a
+    `policy.WireStats`, counts the payload bytes of each request and
+    response (none for inproc, which moves no bytes) and each call."""
+
+    def __init__(self, handlers: Dict[str, Callable], wire: Optional[WireStats] = None):
         self._handlers = dict(handlers)
+        self._wire = wire
         self._lock = threading.Lock()
         self._calls: Counter = Counter()
         self._handler_seconds: Counter = Counter()
         self._codec_seconds: Counter = Counter()
 
-    def dispatch(self, method: str, request_bytes) -> bytes:
+    def dispatch(self, method: str, request_bytes, transport: str = "tcp") -> bytes:
         fn = self._handlers.get(method)
         if fn is None:
             raise PolicyRpcError(StatusCode.UNIMPLEMENTED, f"no handler for {method}")
+        inproc = transport == TRANSPORT_INPROC
         t0 = time.perf_counter()
         failure = None
+        sp = None
         try:
             req = messages.unpack(request_bytes)
+            # always popped: a handler never sees the envelope; a context
+            # exists only when the sender sampled the request and this
+            # process traces
+            tctx = obs_trace.extract(req)
+            if tctx is not None:
+                sp = obs_trace.start_span(f"rpc.server.{method}", cat="rpc", parent=tctx,
+                                          args={"transport": transport})
+            prev_ctx = obs_trace.bind(sp.ctx) if sp is not None else None
             t1 = time.perf_counter()
-            resp = fn(req)
+            try:
+                resp = fn(req)
+            finally:
+                if sp is not None:
+                    obs_trace.bind(prev_ctx)
+                    sp.end()
             t2 = time.perf_counter()
             out = messages.pack(resp)
         except PolicyRpcError:
@@ -300,6 +333,10 @@ class ServerDispatcher:
             self._calls[method] += 1
             self._handler_seconds[method] += t2 - t1
             self._codec_seconds[method] += (t1 - t0) + (t3 - t2)
+        if self._wire is not None:
+            self._wire.record(method, sent=0 if inproc else len(out),
+                              received=0 if inproc else len(request_bytes),
+                              transport=transport, calls=1)
         return out
 
     def stats(self) -> dict:
@@ -314,7 +351,10 @@ class ServerDispatcher:
 class _FrameServer:
     """Threaded stream listener over a bound, listening socket: one
     thread per connection, each serving sequential frames. The tcp and
-    uds tiers differ only in the socket."""
+    uds tiers differ only in the socket (and `_tier`, the name the
+    dispatcher records)."""
+
+    _tier = "tcp"
 
     def __init__(self, sock: socket.socket, dispatcher: ServerDispatcher, name: str):
         self._sock = sock
@@ -369,7 +409,7 @@ class _FrameServer:
                     return
                 body = _recv_exact(conn, blen)
                 try:
-                    resp = self._dispatcher.dispatch(method, body)
+                    resp = self._dispatcher.dispatch(method, body, self._tier)
                     _check_frame(len(resp), "response")
                 except PolicyRpcError as e:
                     conn.sendall(_error_frame(e))
@@ -448,6 +488,8 @@ class UdsServer(_FrameServer):
     """The uds tier's listener at `uds_path_for(port)`, sharing an
     RpcServer's dispatcher. Raises OSError from __init__ when the path
     is unusable (the caller logs and serves TCP only)."""
+
+    _tier = TRANSPORT_UDS
 
     def __init__(self, port: int, dispatcher: ServerDispatcher):
         self.path = uds_path_for(port)
@@ -646,7 +688,7 @@ class InprocTransport:
 
     def call(self, method: str, payload: bytes, timeout: float) -> bytes:
         _check_frame(len(payload), "request")
-        resp = self._dispatcher().dispatch(method, payload)
+        resp = self._dispatcher().dispatch(method, payload, TRANSPORT_INPROC)
         _check_frame(len(resp), "response")
         return resp
 
@@ -858,7 +900,7 @@ class ShmServer:
                 else:
                     body = self._recv_chunked(conn, req_region, length)
                 try:
-                    resp = self._dispatcher.dispatch(method, body)
+                    resp = self._dispatcher.dispatch(method, body, TRANSPORT_SHM)
                     _check_frame(len(resp), "response")
                 except PolicyRpcError as e:
                     conn.sendall(_shm_error_frame(e))

@@ -1,0 +1,139 @@
+"""Fleet-wide phase telemetry: the sink of the ReportPhaseStats RPC.
+
+The reference's `elasticdl_tpu/sched/telemetry.py` (its telemetry half).
+Workers keep exclusive-time `PhaseTimers` (common/timing.py); the run
+loop ships cumulative snapshots over the ReportPhaseStats RPC every
+``EDL_SCHED_PHASE_SECS``. The master-side aggregator here turns those
+cumulative counters into *recent* per-phase seconds (delta over a
+sliding horizon, summed across workers), and keeps each worker's newest
+cumulative snapshot for the master's `edl_phase_*_total` metrics.
+
+Not ported yet: the policy plane that reads it (the autoscaler, the
+arbiter, QoS classes and GetSchedStats).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Iterable, Optional
+
+
+def merge_phase_snapshots(snapshots: Iterable[Optional[dict]]) -> dict:
+    """Sum `PhaseTimers.snapshot()` dicts across workers into one
+    fleet snapshot ({phase: {"seconds", "count"}})."""
+    out: Dict[str, dict] = {}
+    for snap in snapshots:
+        for name, cell in (snap or {}).items():
+            agg = out.setdefault(name, {"seconds": 0.0, "count": 0})
+            agg["seconds"] += float(cell.get("seconds", 0.0))
+            agg["count"] += int(cell.get("count", 0))
+    return out
+
+
+class PhaseStatsAggregator:
+    """Per-worker cumulative snapshots -> fleet phase fractions.
+
+    `ingest` keeps a short history per worker; `fractions` diffs the
+    newest snapshot against the oldest one inside the horizon and sums
+    the per-phase deltas across workers. A worker relaunch reuses
+    worker ids' *fresh* timers, so a decreasing counter resets that
+    worker's history instead of producing negative deltas.
+    """
+
+    def __init__(
+        self,
+        horizon_secs: float = 30.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self._horizon = float(horizon_secs)
+        self._clock = clock
+        self._lock = threading.Lock()
+        # worker_id -> deque[(t, cumulative snapshot)]
+        self._history: Dict[int, deque] = {}
+        self._ingested = 0
+
+    def ingest(self, worker_id: int, phases: Optional[dict]):
+        """Sink for the servicer's ReportPhaseStats handler."""
+        if not isinstance(phases, dict):
+            return
+        now = self._clock()
+        with self._lock:
+            self._ingested += 1
+            hist = self._history.setdefault(int(worker_id), deque())
+            if hist and self._decreased(hist[-1][1], phases):
+                hist.clear()  # relaunched worker: counters restarted
+            hist.append((now, phases))
+            # keep one sample older than the horizon as the diff base
+            while len(hist) > 2 and hist[1][0] <= now - self._horizon:
+                hist.popleft()
+
+    @staticmethod
+    def _decreased(prev: dict, cur: dict) -> bool:
+        for name, cell in prev.items():
+            cur_cell = cur.get(name)
+            if cur_cell is None:
+                return True
+            if float(cur_cell.get("seconds", 0.0)) < float(
+                cell.get("seconds", 0.0)
+            ) - 1e-9:
+                return True
+        return False
+
+    def forget(self, worker_id: int):
+        with self._lock:
+            self._history.pop(int(worker_id), None)
+
+    def recent_seconds(self) -> dict:
+        """Fleet per-phase seconds spent inside the horizon."""
+        now = self._clock()
+        cutoff = now - self._horizon
+        totals: Dict[str, float] = {}
+        with self._lock:
+            for hist in self._history.values():
+                if len(hist) < 2:
+                    continue
+                base_t, base = hist[0]
+                for t, snap in hist:
+                    if t <= cutoff:
+                        base_t, base = t, snap
+                _, latest = hist[-1]
+                if latest is base:
+                    continue
+                for name, cell in latest.items():
+                    delta = float(cell.get("seconds", 0.0)) - float(
+                        base.get(name, {}).get("seconds", 0.0)
+                    )
+                    if delta > 0:
+                        totals[name] = totals.get(name, 0.0) + delta
+        return totals
+
+    def fractions(self) -> Optional[dict]:
+        """Per-phase fraction of recent fleet time, or None while there
+        is not yet enough signal (fewer than two samples per worker)."""
+        totals = self.recent_seconds()
+        denom = sum(totals.values())
+        if denom <= 0:
+            return None
+        return {name: sec / denom for name, sec in totals.items()}
+
+    def latest_cumulative(self) -> Dict[int, dict]:
+        """Newest cumulative PhaseTimers snapshot per worker — the obs
+        metrics collector's feed (counters want cumulative values, not
+        the horizon-windowed deltas `recent_seconds` computes)."""
+        with self._lock:
+            return {
+                wid: hist[-1][1]
+                for wid, hist in self._history.items()
+                if hist
+            }
+
+    def snapshot(self) -> dict:
+        fr = self.fractions()
+        with self._lock:
+            return {
+                "workers_reporting": len(self._history),
+                "samples_ingested": self._ingested,
+                "fractions": fr,
+            }

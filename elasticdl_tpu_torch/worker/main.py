@@ -44,9 +44,16 @@ was promoted, each accepted step's (or landed window's) time
 (`time.perf_counter()`) and loss, the per-step pipeline's depth, reports
 joined and batches trained again, the background page-in's pulls and
 staged models folded in, and the ladder's windows a push with the
-adaptive plane's decisions and bytes by wire form.
+adaptive plane's decisions and bytes by wire form, and the path of its
+profiler trace.
 
-Not ported yet: master failover candidates and the profiler trace.
+`--profile_dir D` wraps the task loop in `torch.profiler.profile` (CPU
+activity, and CUDA activity on a CUDA device) and exports one Chrome
+trace, `D/worker-<id>/trace-<pid>.json` (the reference's
+`jax.profiler.start_trace`). A profiler that fails to start is logged,
+and the worker trains untraced, as the reference's does.
+
+Not ported yet: master failover candidates.
 """
 
 from __future__ import annotations
@@ -172,6 +179,40 @@ def read_summaries(log_dir: str) -> dict:
     return out
 
 
+def _start_profiler(profile_dir: str, worker_id: int, device):
+    """(profiler, trace path), or (None, None) when there is no
+    `profile_dir` or the profiler does not start."""
+    if not profile_dir:
+        return None, None
+    import torch
+
+    trace_dir = os.path.join(profile_dir, f"worker-{worker_id}")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+    except Exception:
+        logger.exception("profiler start failed; continuing untraced")
+        return None, None
+    path = os.path.join(trace_dir, f"trace-{os.getpid()}.json")
+    logger.info("torch.profiler trace -> %s", path)
+    return prof, path
+
+
+def _stop_profiler(prof, path: str):
+    """Stop the profiler and export its Chrome trace; None on failure."""
+    try:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        return path
+    except Exception:
+        logger.exception("profiler trace export failed")
+        return None
+
+
 def main(argv=None) -> int:
     args = worker_parser().parse_args(argv)
 
@@ -230,6 +271,7 @@ def main(argv=None) -> int:
     # teardown and preemption send SIGTERM: drain at the next task
     # boundary instead of dying with windows and reports in flight
     signal.signal(signal.SIGTERM, lambda s, f: worker.request_drain())
+    prof, trace_path = _start_profiler(args.profile_dir, args.worker_id, device)
     unreachable = False
     try:
         clean = worker.run()
@@ -250,7 +292,10 @@ def main(argv=None) -> int:
             # a failed final sync has already reported its tasks as
             # failed, so the dispatcher requeues them
             logger.exception("worker %d: final sync failed", args.worker_id)
+        if prof is not None:
+            trace_path = _stop_profiler(prof, trace_path)
         summary = _summary(args.worker_id, worker, client, device)
+        summary["profile_trace"] = trace_path
         logger.info("%s%s", SUMMARY_TAG, json.dumps(summary))
         client.close()
     if unreachable:

@@ -209,6 +209,7 @@ from elasticdl_tpu_torch.common.constants import (
     DEFAULT_SYNC_DEPTH,
     ENV_BET_PREFETCH,
     ENV_OVERLAP_SYNC,
+    ENV_SCHED_PHASE_SECS,
     ENV_SYNC_ADAPTIVE,
     ENV_SYNC_DEPTH,
     ENV_SYNC_LOCAL_STEPS,
@@ -218,6 +219,8 @@ from elasticdl_tpu_torch.common.constants import (
 from elasticdl_tpu_torch.common.linkprobe import LinkWeather
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.common.messages import MethodType, Task, TaskType
+from elasticdl_tpu_torch.common.timing import PhaseTimers
+from elasticdl_tpu_torch.obs import trace as obs_trace
 from elasticdl_tpu_torch.rpc.fencing import is_shard_outage_chain
 from elasticdl_tpu_torch.worker.task_data_service import ReaderCache, iter_minibatches
 
@@ -394,13 +397,25 @@ class Worker:
         self.window_log: list = []
         # forward + backward passes run, stale recomputes included
         self.steps_computed = 0
-        # wall-clock seconds per phase of the main thread: "compute"
-        # (per-step: forward + backward and the gradient's trip to the
-        # host; window mode: enqueueing the steps), "report" (the
-        # ReportGradient round and the model absorb), "sync_wait" (window
-        # mode: joins of the sync chain and its backpressure), "eval" and
-        # "predict" (whole evaluation and prediction tasks)
-        self.phase_seconds: Counter = Counter()
+        # exclusive wall-clock seconds per phase (`phase_seconds`), the
+        # reference's names where it has the phase: "get_task", "wait_poll"
+        # (a WAIT task's pause), "task_other" (a task's time outside its
+        # inner phases), "read_records", "get_batch" (parsing a
+        # minibatch), "compute" (per-step: forward + backward and the
+        # gradient's trip to the host; window mode: enqueueing the steps),
+        # "report_gradient" (the ReportGradient round and the model
+        # absorb), "sync_wait" (joins of the sync chain, of the pipelined
+        # reports and of the page-in, and backpressure), and the port's
+        # "lookup" (embedding rows), "eval" and "predict" (whole
+        # evaluation and prediction tasks). Nested phases are charged
+        # exclusive time, and the pipelined report thread times beside
+        # the step loop: PhaseTimers is per-thread nested and locked.
+        self.timers = PhaseTimers()
+        # ReportPhaseStats: the timers' cumulative snapshot goes to the
+        # master every EDL_SCHED_PHASE_SECS seconds (0 disables; default
+        # 2.0), best-effort
+        self._phase_report_secs = float(os.environ.get(ENV_SCHED_PHASE_SECS, "") or 2.0)
+        self._last_phase_report = float("-inf")
         # window mode's sync seconds: "quantize" (main thread, enqueueing
         # the delta and its compression), "encode" (sync thread: the wait
         # for the window's device work, the copy to the host and the wire
@@ -546,13 +561,42 @@ class Worker:
         # outage together)
         self._recovery_lock = threading.Lock()
 
+    @property
+    def phase_seconds(self) -> dict:
+        """{phase: exclusive seconds} (`self.timers`)."""
+        return self.timers.seconds()
+
+    def _span(self, name: str, **args):
+        """A root span over a step of the worker (`obs/trace.py`), tagged
+        with its id; a null context while tracing is off."""
+        if not obs_trace.enabled():
+            return contextlib.nullcontext()
+        return obs_trace.span(name, cat="worker", root=True, args={"worker": self._id, **args})
+
     @contextlib.contextmanager
-    def _phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
+    def _sync_exposed(self, reason: str):
+        """A root span (`worker.sync_exposed`, tagged with `reason`) over
+        wall time the step loop spends blocked on the sync plane: joins,
+        blocking pulls, backpressure, flushes, drains
+        (`obs/critical_path.sync_exposed_fraction_from_spans`)."""
+        with self._span("worker.sync_exposed", reason=reason):
             yield
-        finally:
-            self.phase_seconds[name] += time.perf_counter() - t0
+
+    def _maybe_report_phase_stats(self):
+        """Send the timers' cumulative snapshot to the master at most
+        every EDL_SCHED_PHASE_SECS seconds. Best-effort: any failure is
+        swallowed, so the stats plane never stalls or kills a worker."""
+        if self._phase_report_secs <= 0:
+            return
+        now = time.monotonic()
+        if now - self._last_phase_report < self._phase_report_secs:
+            return
+        self._last_phase_report = now
+        try:
+            self._master.call("ReportPhaseStats",
+                              {"worker_id": self._id, "phases": self.timers.snapshot()})
+        except Exception:
+            logger.debug("phase-stats report failed (ignored)", exc_info=True)
 
     def _add_sync_seconds(self, name: str, seconds: float):
         with self._stats_lock:
@@ -622,7 +666,11 @@ class Worker:
         is not read); False if the PS holds no model yet. FIXED: load
         exactly `version` (an evaluation task's pinned model) into the
         model's buffers, leaving the training counters and lineage as
-        they are."""
+        they are. A root span, `worker.pull`, when tracing samples it."""
+        with self._span("worker.pull"):
+            return self._pull_model_traced(version, method)
+
+    def _pull_model_traced(self, version: int, method: str) -> bool:
         if method == MethodType.FIXED:
             resp = self._master.call("GetModel", {
                 "version": version, "method": MethodType.FIXED,
@@ -893,7 +941,7 @@ class Worker:
         counts as the "lookup" phase."""
         if not self._prefetch_on():
             for features, labels in batches:
-                with self._phase("lookup"):
+                with self.timers.phase("lookup"):
                     embs = self._prepare_embeddings(features)
                 yield features, labels, embs
             return
@@ -903,7 +951,7 @@ class Worker:
         while batch is not None:
             nxt = next(batches, None)
             nxt_fut = pool.submit(self._prepare_embeddings, nxt[0]) if nxt is not None else None
-            with self._phase("lookup"):
+            with self.timers.phase("lookup"):
                 embs = fut.result()
             yield batch[0], batch[1], embs
             batch, fut = nxt, nxt_fut
@@ -1106,9 +1154,9 @@ class Worker:
             self._ensure_step_ready(task)
             embs = None
             if self._emb_specs:
-                with self._phase("lookup"):
+                with self.timers.phase("lookup"):
                     embs = self._prepare_embeddings(features)
-            with self._phase("compute"):
+            with self.timers.phase("compute"):
                 loss, grad, new_aux, gbets = self._train_step(features, labels, embs)
                 grad_wire = self._grad_to_wire(grad)
                 aux_h = self._aux_tree(new_aux.cpu().numpy()) if new_aux is not None else None
@@ -1118,7 +1166,7 @@ class Worker:
                 }
                 loss_h = float(loss)
             self.steps_computed += 1
-            with self._phase("report"):
+            with self.timers.phase("report_gradient"):
                 resp = self.report_gradient(grad_wire, loss_h, aux_h, edl)
                 self._absorb_report_response(resp)
             if resp["accepted"]:
@@ -1161,7 +1209,7 @@ class Worker:
         if not fresh or version < task.model_version:
             self._join_step_pipeline(task)  # an in-flight response may bring it
         self._ensure_step_ready(task)
-        with self._phase("compute"):
+        with self.timers.phase("compute"):
             loss, grad, new_aux, _gbets = self._train_step(features, labels)
             meta, arrays = self._grad_wire_parts(grad)
             tensors = [*arrays, loss.reshape(1)] + ([new_aux] if new_aux is not None else [])
@@ -1176,8 +1224,10 @@ class Worker:
             compute_version = self._version
             shard_base = list(self._shard_versions) if self._shard_versions else None
         box: dict = {}
+        tctx = obs_trace.current()  # the report's spans chain under the step's
 
         def report_main():
+            prev_ctx = obs_trace.bind(tctx)
             try:
                 host = self._to_host(tensors, event)
                 n = len(arrays)
@@ -1191,6 +1241,8 @@ class Worker:
                 box["at"] = time.perf_counter()
             except Exception as e:  # raised at its join
                 box["err"] = e
+            finally:
+                obs_trace.bind(prev_ctx)
 
         t = threading.Thread(target=report_main, daemon=True)
         self._step_inflight.append((t, box, features, labels))
@@ -1206,13 +1258,13 @@ class Worker:
         next task."""
         t, box, features, labels = self._step_inflight.popleft()
         try:
-            with self._phase("sync_wait"):
+            with self.timers.phase("sync_wait"):
                 t.join()
             self.step_reports_joined += 1
             if "err" in box:
                 raise box["err"]
             resp = box["resp"]
-            with self._phase("report"):
+            with self.timers.phase("report_gradient"):
                 self._absorb_report_response(resp)
             self._last_step_loss = box["loss"]
             if resp["accepted"]:
@@ -1374,20 +1426,22 @@ class Worker:
         with self._report_lock:
             fresh, version = self._fresh, self._version
         if self._pending_steps == 0 and (not fresh or version < task.model_version):
-            with self._phase("sync_wait"):
+            with self.timers.phase("sync_wait"), self._sync_exposed("join"):
                 self._join_sync()  # a model swap settles the chain first
             with self._report_lock:
                 fresh, version = self._fresh, self._version
             if not fresh or version < task.model_version:
                 # the background pull started at the task's start may
                 # bring the model: ride it rather than pull again
-                with self._phase("sync_wait"):
+                with self.timers.phase("sync_wait"), self._sync_exposed("bg_pull"):
                     self._join_bg_pull()
                 if self._apply_staged_model():
                     with self._report_lock:
                         fresh, version = self._fresh, self._version
             if not fresh or version < task.model_version:
-                if not self.pull_model():
+                with self._sync_exposed("pull"):
+                    pulled = self.pull_model()
+                if not pulled:
                     self._lazy_init_model()
                 self._opt_state = None  # params swapped: restart the state
         if self._opt_state is None:
@@ -1398,9 +1452,9 @@ class Worker:
         """One local step; the W-th since the last sync spawns the next."""
         self._ensure_local_ready(task)
         if self._emb_specs and embs is None:
-            with self._phase("lookup"):
+            with self.timers.phase("lookup"):
                 embs = self._prepare_embeddings(features)
-        with self._phase("compute"):
+        with self.timers.phase("compute"):
             loss = self._local_step(features, labels, embs)
         self._pending_steps += 1
         self._latest_step_loss = loss
@@ -1447,6 +1501,12 @@ class Worker:
             return
         t0 = time.perf_counter()
         delta = self._flat - self._base_flat  # its own tensor
+        # the next window's base and this sync's snapshot are the step
+        # loop's copies, taken before the window's sync span opens
+        self._base_flat.copy_(self._flat)
+        snapshot = self._flat.clone()
+        # the non-trainable state at spawn rides with the delta
+        aux_dev = [self._aux_flat.clone()] if self._aux_flat is not None else []
         wire_meta = None
         wire_form = None
         if self._sync_adaptive:
@@ -1456,8 +1516,21 @@ class Worker:
             link_mbps = self._link_weather.mbps()
             delta_f32_bytes = int(delta.numel()) * 4
             wire_form = sync_policy.decide(link_mbps, delta_f32_bytes, self._sync_decisions)
+        # one trace per window: the spawn's quantize and the sync chain
+        # (encode, the push RPCs and the apply) hang off this root, from
+        # the spawn to do_sync's settle, less the wait for the
+        # predecessor sync (a `worker.sync_queue` child): the reference's
+        # root keeps that wait, which counts a queued predecessor's time
+        # twice in the chain wall that the critical path decomposes
+        wspan_args = {"worker": self._id, "steps": self._pending_steps}
+        if wire_form is not None:
+            wspan_args["wire_form"] = wire_form
+        wspan = obs_trace.start_span("worker.window_sync", cat="worker", root=True,
+                                     args=wspan_args)
         if self._lossy_sync():
-            wire_meta, arrays = self._ef_quantize_delta(delta, form=wire_form)
+            with obs_trace.span("worker.quantize", cat="worker",
+                                parent=wspan.ctx if wspan is not None else None):
+                wire_meta, arrays = self._ef_quantize_delta(delta, form=wire_form)
         elif self._transport_dtype == "bfloat16":
             arrays = (delta.to(torch.bfloat16),)
         else:
@@ -1481,10 +1554,6 @@ class Worker:
         edl_dev = [g for _embs, gbets in pending_edl for g in gbets.values()]
         # the tasks' losses and the window's newest step loss, one copy
         loss_dev = torch.stack([l for _, l in losses] + [self._latest_step_loss])
-        self._base_flat.copy_(self._flat)
-        snapshot = self._flat.clone()
-        # the non-trainable state at spawn rides with the delta
-        aux_dev = [self._aux_flat.clone()] if self._aux_flat is not None else []
         event = None
         if self._device.type == "cuda":
             event = torch.cuda.Event()
@@ -1510,23 +1579,39 @@ class Worker:
         self._add_sync_seconds("quantize", time.perf_counter() - t0)
 
         def do_sync():
+            # the window's root context: every hop below (client RPC
+            # spans, the servers' children) chains under it
+            prev_ctx = obs_trace.bind(wspan.ctx) if wspan is not None else None
+            try:
+                do_sync_work()
+            finally:
+                if wspan is not None:
+                    obs_trace.bind(prev_ctx)
+                    wspan.end(steps=steps)
+
+        def do_sync_work():
             if prev is not None:
-                prev.join()
+                t_queue = time.time()
+                with obs_trace.span("worker.sync_queue", cat="worker"):
+                    prev.join()
+                if wspan is not None:
+                    wspan.exclude(time.time() - t_queue)
             with self._report_lock:
                 if self._sync_error is not None or epoch != self._sync_epoch:
                     # a predecessor failed, or the main thread reset: this
                     # delta's base never reached the PS, so it is not sent
                     return
             t1 = time.perf_counter()
-            host = self._to_host([*arrays, loss_dev, *aux_dev, *edl_dev], event)
-            payload, loss_h = host[: len(arrays)], host[len(arrays)]
-            aux_h = self._aux_tree(host[len(arrays) + 1]) if aux_dev else None
-            edl_h = host[len(arrays) + 1 + len(aux_dev):]
-            wire = (
-                self._materialize_wire_delta(wire_meta, payload)
-                if wire_meta is not None
-                else payload[0]
-            )
+            with obs_trace.span("worker.encode", cat="worker"):
+                host = self._to_host([*arrays, loss_dev, *aux_dev, *edl_dev], event)
+                payload, loss_h = host[: len(arrays)], host[len(arrays)]
+                aux_h = self._aux_tree(host[len(arrays) + 1]) if aux_dev else None
+                edl_h = host[len(arrays) + 1 + len(aux_dev):]
+                wire = (
+                    self._materialize_wire_delta(wire_meta, payload)
+                    if wire_meta is not None
+                    else payload[0]
+                )
             req = {
                 "delta_flat": wire,
                 "steps": steps,
@@ -1592,7 +1677,8 @@ class Worker:
 
         if blocking:
             try:
-                do_sync()
+                with self._sync_exposed("flush"):
+                    do_sync()
             except Exception as e:
                 # the window never reached the PS: its tasks are requeued
                 self._flush_deferred_reports(err=f"sync failed: {e}")
@@ -1614,7 +1700,7 @@ class Worker:
         t.start()
         # backpressure: bound the windows in flight
         while len(self._sync_inflight) > self._max_inflight_syncs:
-            with self._phase("sync_wait"):
+            with self.timers.phase("sync_wait"), self._sync_exposed("backpressure"):
                 self._sync_inflight.popleft().join()
 
     def _observe_push(self, wire, seconds: float, wire_form: Optional[str]):
@@ -1879,9 +1965,13 @@ class Worker:
         which keeps every in-flight and future delta's content. The
         younger snapshots shift too, or the next absorb would apply the
         other workers' progress twice."""
-        # a racy read, re-checked under the lock
+        # a racy read, re-checked under the lock: an empty poll mints no span
         if self._sync_result is None:
             return
+        with self._span("worker.absorb"):
+            self._absorb_sync_result_traced()
+
+    def _absorb_sync_result_traced(self):
         t0 = time.perf_counter()
         with self._report_lock:
             res = self._sync_result
@@ -1972,29 +2062,32 @@ class Worker:
         """The background pull: fetch and stage only (the device buffers
         and the version bookkeeping are the main thread's). A failure
         costs nothing, the blocking pull stays, so it is logged and
-        dropped."""
-        try:
-            staged = None
-            if ps is not None:
-                fut = ps.pull_async(versions=known_versions, model_dtype=self._model_wire_dtype())
-                aux = self._master.call("GetAux", {}).get("aux") if want_aux else None
-                versions, vec = fut.result()
-                if all(v >= 0 for v in versions) and vec is not None:
-                    staged = (list(versions), min(versions), vec, aux)
-            else:
-                resp = self._master.call("GetModel", {
-                    "version": cur_version, "method": MethodType.MINIMUM,
-                    "only_if_newer": True, "flat": True,
-                })
-                if resp.get("version", -1) >= 0 and resp.get("params_flat") is not None:
-                    staged = (None, resp["version"], resp["params_flat"], resp.get("aux"))
-            if staged is not None:
-                with self._report_lock:
-                    if epoch == self._sync_epoch and staged[1] > self._version:
-                        self._absorb_staged = staged
-        except Exception as e:
-            logger.debug("Worker %d: background model pull failed (the blocking pull "
-                         "remains): %s", self._id, e)
+        dropped. A root span, `worker.bg_pull`, bound on this thread, so
+        the pull's RPC spans chain under it."""
+        with self._span("worker.bg_pull"):
+            try:
+                staged = None
+                if ps is not None:
+                    fut = ps.pull_async(versions=known_versions,
+                                        model_dtype=self._model_wire_dtype())
+                    aux = self._master.call("GetAux", {}).get("aux") if want_aux else None
+                    versions, vec = fut.result()
+                    if all(v >= 0 for v in versions) and vec is not None:
+                        staged = (list(versions), min(versions), vec, aux)
+                else:
+                    resp = self._master.call("GetModel", {
+                        "version": cur_version, "method": MethodType.MINIMUM,
+                        "only_if_newer": True, "flat": True,
+                    })
+                    if resp.get("version", -1) >= 0 and resp.get("params_flat") is not None:
+                        staged = (None, resp["version"], resp["params_flat"], resp.get("aux"))
+                if staged is not None:
+                    with self._report_lock:
+                        if epoch == self._sync_epoch and staged[1] > self._version:
+                            self._absorb_staged = staged
+            except Exception as e:
+                logger.debug("Worker %d: background model pull failed (the blocking pull "
+                             "remains): %s", self._id, e)
 
     def _apply_staged_model(self) -> bool:
         """Fold a staged model in at a window boundary (main thread, no
@@ -2008,6 +2101,10 @@ class Worker:
         t = self._sync_thread
         if t is not None and t.is_alive():
             return False  # the chain is busy: a later boundary folds it
+        with self._span("worker.absorb_staged"):
+            return self._apply_staged_model_traced()
+
+    def _apply_staged_model_traced(self) -> bool:
         with self._report_lock:
             staged = self._absorb_staged
             if staged is None or self._sync_result is not None:
@@ -2069,7 +2166,8 @@ class Worker:
         if not self._local_updates:
             return
         self._join_bg_pull()
-        self._join_sync()
+        with self._sync_exposed("drain"):
+            self._join_sync()
         if self._pending_steps:
             self._sync_local_updates(blocking=True)
         if self._pending_losses:
@@ -2181,7 +2279,8 @@ class Worker:
 
     def _task_batches(self, task: Task, mode: str):
         reader = self._readers.get(task.shard_file_name)
-        records = list(reader.read_range(task.start, task.end))
+        with self.timers.phase("read_records"):
+            records = list(reader.read_range(task.start, task.end))
         for chunk in iter_minibatches(records, self._minibatch_size):
             yield self._spec.dataset_fn(chunk, mode)
 
@@ -2254,7 +2353,12 @@ class Worker:
             batches = ((features, labels, None) for features, labels in batches)
         pipelined = False
         try:
-            for features, labels, embs in batches:
+            while True:
+                with self.timers.phase("get_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                features, labels, embs = batch
                 if self._local_updates:
                     loss = self._local_minibatch(features, labels, task, embs)
                 elif self._step_pipeline_on():
@@ -2301,15 +2405,17 @@ class Worker:
             if self._drain_requested.is_set():
                 # exit at a task boundary with every window synced and
                 # every deferred report delivered: nothing to requeue
-                with self._phase("sync_wait"):
+                with self.timers.phase("sync_wait"):
                     self._finalize_local_updates()
                 logger.info("Worker %d: drain requested, exiting at task boundary", self._id)
                 self.drained = True
                 return True
-            task, finished = self.get_task()
+            with self.timers.phase("get_task"):
+                task, finished = self.get_task()
+            self._maybe_report_phase_stats()
             if task.type == TaskType.WAIT:
                 if finished:
-                    with self._phase("sync_wait"):
+                    with self.timers.phase("sync_wait"):
                         self._finalize_local_updates()
                     return not self._job_failed
                 if self._is_standby:
@@ -2326,7 +2432,8 @@ class Worker:
                     logger.exception("Worker %d: window sync failed", self._id)
                     if self._is_shard_outage_exc(e):
                         self._await_shard_recovery()
-                time.sleep(0.05)
+                with self.timers.phase("wait_poll"):
+                    time.sleep(0.05)
                 continue
             if self.was_standby and self.promoted_at is None:
                 self.promoted_at = time.perf_counter()
@@ -2337,17 +2444,19 @@ class Worker:
             shard_outage = False
             with self._report_lock:
                 self._flushed_report_ids.clear()
+            # `task_other` is charged only what its inner phases leave
             try:
-                if task.type == TaskType.TRAINING:
-                    reported = self._process_training_task(task)
-                elif task.type == TaskType.EVALUATION:
-                    with self._phase("eval"):
-                        self._process_evaluation_task(task)
-                elif task.type == TaskType.PREDICTION:
-                    with self._phase("predict"):
-                        self._process_prediction_task(task)
-                else:
-                    err = f"unknown task type {task.type}"
+                with self.timers.phase("task_other"):
+                    if task.type == TaskType.TRAINING:
+                        reported = self._process_training_task(task)
+                    elif task.type == TaskType.EVALUATION:
+                        with self.timers.phase("eval"):
+                            self._process_evaluation_task(task)
+                    elif task.type == TaskType.PREDICTION:
+                        with self.timers.phase("predict"):
+                            self._process_prediction_task(task)
+                    else:
+                        err = f"unknown task type {task.type}"
             except Exception as e:
                 logger.exception("Worker %d task %d failed", self._id, task.task_id)
                 err = f"{type(e).__name__}: {e}"

@@ -442,6 +442,11 @@ def test_kv_mirror_forwards_and_snapshots():
             layer, ids, values = _kv_rows()
             kvg.servicers[0].kv_update({"layer": layer, "ids": ids, "values": values})
             assert kvg.servicers[0].mirror_flush(timeout=10.0)
+            # the reference's flush returns once its queue is empty, before
+            # the write it took off the queue has reached the pair (the
+            # port's waits for the delivery): wait for the sent count
+            _wait_until(lambda: kvg.servicers[0].stats()["mirrored_writes"] == 1,
+                        what="the mirror write delivered")
             snap = kvg.servicers[1].kv_mirror_snapshot({"source_shard": 0})
             out.append((_rows(snap["layers"], layer), kvg.servicers[1].stats()["n"],
                         kvg.servicers[0].kv_mirror_snapshot({"source_shard": 1})["layers"]))
@@ -514,6 +519,34 @@ def _floor_run(servicer):
     servicer.report_window_meta({"versions": [3, 5], "loss": 0.1})
     servicer.report_window_meta({"versions": [2, 6], "loss": 0.1})
     return [servicer.shard_version_floor(i) for i in range(3)], servicer.version
+
+
+def test_crossed_fan_outs_leave_the_mirror_behind_as_the_reference():
+    """Two workers' pushes cross between the shards: one reports shard
+    versions [16, 15], the other [15, 16]. Both packages advance the
+    mirror to the maximum of each report's minimum, so it stays at 15
+    while every shard is at 16; each shard's maximum (the restore floor)
+    is 16. A reference quirk, kept: an undercount of one version until
+    the next report."""
+    group = PSShardGroup(2, mode="inproc", use_async=True)
+    jgroup = JPSShardGroup(2, mode="inproc", use_async=True)
+    group.start()
+    jgroup.start()
+    try:
+        spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
+        servicer, _e, _c = build_job(spec, None, ps_group=group)
+        jservicer = JServicer(1, JPSOptimizer(jzoo.optimizer()))
+        jservicer._ps_group = jservicer.ps_group = jgroup
+        out = []
+        for sv in (servicer, jservicer):
+            sv.report_window_meta({"versions": [14, 14], "loss": 0.1})
+            sv.report_window_meta({"versions": [16, 15], "loss": 0.1})
+            sv.report_window_meta({"versions": [15, 16], "loss": 0.1})
+            out.append((sv.version, [sv.shard_version_floor(i) for i in range(2)]))
+        assert out[0] == out[1] == (15, [16, 16])
+    finally:
+        group.stop()
+        jgroup.stop()
 
 
 def test_shard_version_floor_mirror_and_ps_config():
@@ -777,10 +810,28 @@ class _CrashingShard(PSShardServicer):
         return super().push_grad(req)
 
 
+def _one_fan_out_at_a_time(push_grad):
+    """ShardedPS.push_grad with the whole fan-out under one lock: two
+    workers' pushes cannot cross between the shards. Crossed, each
+    worker gets shard versions one behind on a different shard ([16, 15]
+    and [15, 16]), and the master's mirror, the maximum of each report's
+    minimum as in the reference, stays at 15 (pinned by
+    `test_crossed_fan_outs_leave_the_mirror_behind_as_the_reference`)."""
+    lock = threading.Lock()
+
+    def gated(self, *args, **kwargs):
+        with lock:
+            return push_grad(self, *args, **kwargs)
+
+    return gated
+
+
 def _port_job(path, init, crash: bool, monkeypatch):
     """The port's job as the reference's; with `crash`, shard 1 (at
-    generation 0) is a `_CrashingShard`. Returns (shard versions,
-    recoveries, generations, workers)."""
+    generation 0) is a `_CrashingShard`. The workers' fan-outs are gated
+    one at a time, so the master's mirror ends at the shards' versions.
+    Returns (shard versions, recoveries, generations, workers)."""
+    monkeypatch.setattr(ShardedPS, "push_grad", _one_fan_out_at_a_time(ShardedPS.push_grad))
     plane_box = []
     if crash:
         def make(shard_id, num_shards, generation=0, **kw):

@@ -112,6 +112,14 @@ def _calls():
         ("EmbeddingLookup", {"layer": "t", "ids": np.array([9, 4, 3], dtype=np.int64)}),
         ("PSRestoreFromWorker", {"worker_id": 0, "shard_id": 0, "version": 3,
                                  "vec": rng.standard_normal(4).astype(np.float32)}),
+        # the observability plane: a phase snapshot (no sink wired: acked),
+        # the process's spans (tracing off: unchanged between the calls)
+        # and its metrics (their values move with every call: compared by
+        # name in the test)
+        ("ReportPhaseStats", {"worker_id": 0,
+                              "phases": {"compute": {"seconds": 0.5, "count": 2}}}),
+        ("GetTrace", {}),
+        ("GetMetrics", {}),
     ]
 
 
@@ -160,7 +168,11 @@ def test_every_ported_method_over_the_socket_matches_in_process(server):
     assert {m for m, _ in calls} == set(local.handlers())
     try:
         for method, req in calls:
-            _assert_same(client.call(method, req), inproc.call(method, req), method)
+            got, want = client.call(method, req), inproc.call(method, req)
+            if method == "GetMetrics":
+                # one process registry, whose wire counters each call moves
+                got, want = ({k: sorted(v) for k, v in r.items()} for r in (got, want))
+            _assert_same(got, want, method)
     finally:
         client.close()
     assert remote.exactness() == local.exactness() == {
