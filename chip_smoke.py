@@ -298,6 +298,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -2402,6 +2403,189 @@ def phase_shard_failover(tmp):
         segments = [n for n in os.listdir("/dev/shm") if n.startswith("edltshm.")]
         if left or segments:
             raise AssertionError(f"{name}: shard processes {left}, segments {segments} left")
+        return summed_launches(workers)
+
+
+# -- the fault-injection plane: the reference's chaos job on the card
+CHAOS_FILES, CHAOS_RECORDS, CHAOS_TASK = 2, 32, 16  # 2 epochs: 16 pushes a shard, 8 tasks
+
+
+def chaos_spec(once_file) -> dict:
+    """The reference's chaos job spec (`tests/test_chaos.py:560-585`, all
+    on the workers' clients), and one server-side entry on PS shard 1's
+    process: its 2nd PSPull answers UNAVAILABLE (it shows that each shard
+    slot carries its own chaos tags)."""
+    return {"seed": 11, "faults": [
+        {"kind": "latency", "methods": ["PSPull"], "roles": ["worker"], "latency_ms": 20,
+         "every": 1, "max_fires": 4},
+        {"kind": "error", "code": "UNAVAILABLE", "methods": ["PSPushGrad"],
+         "roles": ["worker"], "every": 4, "max_fires": 3},
+        {"kind": "drop", "methods": ["PSPushGrad"], "roles": ["worker"], "nth": 3},
+        {"kind": "crash", "methods": ["GetTask"], "roles": ["worker"], "targets": ["0"],
+         "nth": 2, "when": "after", "once_file": once_file},
+        {"kind": "error", "code": "UNAVAILABLE", "methods": ["PSPull"], "side": "server",
+         "roles": ["ps"], "targets": ["1"], "nth": 2},
+    ]}
+
+
+def shard_chaos_watcher(shard, box):
+    """master.main's `on_start`: keep the servicer; hold every GetTask
+    until workers 0 and 1 have both asked, and, once worker 0 has asked
+    twice (the spec crashes it there), worker 1's until worker 0's
+    replacement (worker 2) has asked too, 120 s at most each: otherwise a
+    worker that boots late finds the job done, worker 0 might never ask
+    twice, and the replacement might take no task and launch nothing.
+    Then read PS shard `shard`'s `edl_chaos_injected_total` over
+    GetMetrics until it shows an injected error (the shard processes are
+    gone when the job returns)."""
+    def on_start(servicer):
+        from elasticdl_tpu_torch.rpc.client import RpcClient
+
+        box["servicer"] = servicer
+        dispatcher = servicer._task_d
+        get, asked, cv = dispatcher.get, {}, threading.Condition()
+
+        def gated(worker_id):
+            with cv:
+                asked[worker_id] = asked.get(worker_id, 0) + 1
+                cv.notify_all()
+                cv.wait_for(lambda: {0, 1} <= set(asked), timeout=120)
+                if worker_id == 1 and asked.get(0, 0) >= 2:
+                    cv.wait_for(lambda: 2 in asked, timeout=120)
+            return get(worker_id)
+
+        dispatcher.get = gated
+
+        def watch():
+            client = RpcClient(servicer.ps_group.endpoints[shard])
+            deadline = time.monotonic() + 600
+            try:
+                while time.monotonic() < deadline:
+                    try:
+                        rows = client.call("GetMetrics", {}, timeout=10)["metrics"].get(
+                            "edl_chaos_injected_total", [])
+                    except Exception:  # noqa: BLE001 - a busy shard answers next time
+                        rows = []
+                    box["shard_faults"] = {r["labels"]["kind"]: r["value"] for r in rows}
+                    if box["shard_faults"].get("error"):
+                        return
+                    time.sleep(0.05)
+            finally:
+                client.close()
+
+        threading.Thread(target=watch, name=f"chaos-watch-ps{shard}", daemon=True).start()
+
+    return on_start
+
+
+def grep_count(log_dir, needle) -> int:
+    count = 0
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            count += f.read().count(needle)
+    return count
+
+
+def phase_chaos(tmp):
+    """The reference's chaos job (`tests/test_chaos.py:465-532`) at the
+    base transformer's width (d512, 8 heads of 64, 8 layers, bf16, b8 x
+    s1024): 2 worker processes on the card over `--num_ps 2 --ps_mode
+    process` on shm, per-step with `--grads_to_wait 1 --staleness_window
+    1`, 2 files of 32 records for 2 epochs in tasks of 16 (16 pushes a
+    shard, 8 tasks), under `EDL_CHAOS_SPEC=@file` (`chaos_spec`): 20 ms
+    on the workers' first 4 PSPulls, UNAVAILABLE on every 4th PSPushGrad
+    (3 at most), the 3rd PSPushGrad's response dropped after the shard
+    applied it, worker 0 crashed (exit 117) right after its 2nd GetTask
+    (once), and shard 1's process answering its 2nd PSPull UNAVAILABLE.
+    Checks rc 0 with every record completed once, each shard at init + 16
+    with 32 pushes applied, a dedup hit, a relaunch, the once file, each
+    client-side kind in the worker logs and the server-side error in
+    shard 1's GetMetrics, finite losses, and each worker that wrote a
+    summary (the crashed one writes none) on the card with steps
+    computed, launches n_layers x steps computed of all three kernels and
+    no fallback. No fault-free twin here: the shards' versions are held
+    to init + pushes (the CPU tests run the twin). Returns the launches
+    summed over the workers that wrote a summary."""
+    from elasticdl_tpu_torch.common.constants import ENV_CHAOS_SPEC
+    from elasticdl_tpu_torch.models.record_codec import write_learnable_token_records
+    from elasticdl_tpu_torch.worker.main import read_summaries
+
+    name = "chaos"
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "chaos")
+    data, logs = os.path.join(root, "data"), os.path.join(root, "logs")
+    os.makedirs(data)
+    for i in range(CHAOS_FILES):
+        write_learnable_token_records(os.path.join(data, f"shard-{i}.rio"), CHAOS_RECORDS,
+                                      SEQ, SLICE["vocab"], seed=i)
+    once = os.path.join(root, "crash.once")
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(chaos_spec(once), f)
+    epochs, records = 2, CHAOS_FILES * CHAOS_RECORDS
+    steps = epochs * records // BATCH
+    argv = master_argv(data, 2, os.path.join(root, "final.ckpt"), SLICE_PARAMS, BATCH,
+                       CHAOS_TASK)
+    argv[argv.index("--num_epochs") + 1] = str(epochs)
+    argv += ["--staleness_window", "1", "--num_ps", "2", "--ps_mode", "process"]
+    box = {}
+    with tier_dir() as uds:
+        rc, summary, wall = run_master(
+            argv, logs, {"EDL_TRANSPORT": "shm", "EDL_UDS_DIR": uds,
+                         ENV_CHAOS_SPEC: f"@{spec_path}"},
+            on_start=shard_chaos_watcher(1, box))
+    with logs_on_failure(logs):
+        if rc != 0 or summary is None:
+            raise AssertionError(f"{name}: master.main exited {rc}")
+        workers = read_summaries(logs)
+        failures = sharded_exactness(name, summary, steps)
+        shards = summary["ps_shards"]
+        completed = box["servicer"]._task_d.completed_records()
+        applied = sum(st["applied_pushes"] for st in shards)
+        dups = sum(st["duplicate_pushes"] for st in shards)
+        if completed != epochs * records:
+            failures.append(f"{completed} records completed, {epochs * records} expected")
+        if applied != len(shards) * steps or dups < 1:
+            failures.append(f"{applied} pushes applied ({len(shards) * steps} expected), "
+                            f"{dups} deduped (1 at least expected)")
+        if summary["relaunches"] < 1 or not os.path.exists(once):
+            failures.append(f"relaunches {summary['relaunches']}, once file "
+                            f"{os.path.exists(once)}: the crash was not ridden out")
+        seen = {kind: grep_count(logs, needle) for kind, needle in (
+            ("latency", "chaos: +20ms latency"), ("error", "chaos: injecting UNAVAILABLE"),
+            ("drop", "chaos: dropping response"), ("crash", "chaos: crashing process"))}
+        if min(seen.values()) < 1 or seen["crash"] != 1:
+            failures.append(f"the worker logs' chaos lines {seen}: each kind, one crash expected")
+        shard_faults = box.get("shard_faults", {})
+        if shard_faults.get("error", 0) < 1:
+            failures.append(f"shard 1's edl_chaos_injected_total {shard_faults}: an error "
+                            "expected")
+        card = torch.cuda.get_device_name(0)
+        n_layers = zoo_model(SLICE_PARAMS).cfg.n_layers
+        computed = sum(s["steps_computed"] for s in workers.values())
+        # the crashed worker writes no summary: its steps are not counted
+        if not 0 < computed <= steps:
+            failures.append(f"workers {sorted(workers)} computed {computed} steps of {steps}")
+        for wid, s in sorted(workers.items()):
+            n = n_layers * s["steps_computed"]
+            want = want_launches(64, {"flash_forward": n, "flash_dq": n, "flash_dkv": n})
+            if (s["device"] != card or not s["steps_computed"] or s["launches"] != want
+                    or s["attention_fallbacks"]):
+                failures.append(f"worker {wid} on {s['device']}: {s['steps_computed']} steps, "
+                                f"launches {s['launches']}, {want} expected, fallbacks "
+                                f"{s['attention_fallbacks']}")
+            if not all(math.isfinite(x) for x in s["losses"]):
+                failures.append(f"worker {wid}: losses {s['losses'][:4]}... not all finite")
+        if failures:
+            raise AssertionError(f"{name}:\n" + "\n".join(failures))
+        versions = [st["version"] for st in shards]
+        print(f"chaos: base transformer, 2 worker processes over 2 PS shard processes on shm, "
+              f"b{BATCH}, {steps} pushes a shard: rc {rc} in {wall:.2f} s (phase "
+              f"{time.perf_counter() - t0:.2f} s); shard versions {versions}, {applied} pushes "
+              f"applied, {dups} deduped, {completed} records completed, {summary['relaunches']} "
+              f"relaunches; worker log lines {seen}; shard 1 injected {shard_faults}; workers "
+              + ", ".join(f"{wid}: {s['steps_computed']} steps, launches {s['launches']}"
+                          for wid, s in sorted(workers.items())))
         return summed_launches(workers)
 
 
@@ -4774,19 +4958,22 @@ def main() -> int:
 
     from elasticdl_tpu_torch.master import embedding_store
 
-    lib = build.library_path("flash_attention")
-    if os.path.exists(lib):
-        os.remove(lib)  # build from the checkout's source in this run
-    t0 = time.perf_counter()
-    build.build("flash_attention")
-    print(f"built flash_attention.cu in {time.perf_counter() - t0:.2f} s")
-    # the native embedding store (host C++, g++) from the checkout's source too
-    lib = embedding_store.library_path()
-    if os.path.exists(lib):
-        os.remove(lib)
-    t0 = time.perf_counter()
-    embedding_store.build_native()
-    print(f"built embedding_store.cc in {time.perf_counter() - t0:.2f} s")
+    # the kernels (nvcc) and the native embedding store (host C++, g++), each
+    # from the checkout's source in this run, the two compilers started together
+    for lib in (build.library_path("flash_attention"), embedding_store.library_path()):
+        if os.path.exists(lib):
+            os.remove(lib)
+
+    def build_seconds(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {"flash_attention.cu": pool.submit(build_seconds, build.build, "flash_attention"),
+                  "embedding_store.cc": pool.submit(build_seconds, embedding_store.build_native)}
+        for source, seconds in builds.items():
+            print(f"built {source} in {seconds.result():.2f} s")
     with open(os.path.join(build.BUILD_DIR, "flash_attention.log")) as f:
         registers = check_ptxas(f.read())
 
@@ -4828,6 +5015,7 @@ def main() -> int:
               f"{SHARDED_ASYNC_RATES[0]:.1f} tokens/s, ratio "
               f"{SHARDED_ASYNC_RATES[DEFAULT_ASYNC_DEPTH] / SHARDED_ASYNC_RATES[0]:.3f}")
         counts["shard_failover_launches"] = timed(phase_shard_failover, tmp)
+        counts["chaos_launches"] = timed(phase_chaos, tmp)
         counts["obs_critical_path_launches"] = timed(phase_obs_critical_path, fa, tmp)
         counts["obs_processes_launches"] = timed(phase_obs_processes, tmp)
         if not any(pulls for pulls, _applied in PAGE_IN.values()):

@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 import elasticdl_tpu_torch
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.rpc.chaos import chaos_env_for
 
 logger = get_logger(__name__)
 
@@ -97,6 +98,10 @@ class ProcessBackend:
             if env.get("PYTHONPATH")
             else _PKG_ROOT
         )
+        # chaos scoping: an inherited EDL_CHAOS_SPEC applies with role and
+        # target filters (inert when chaos is off), and a spec aimed at
+        # workers never fires inside the master
+        env.update(chaos_env_for("worker", worker_id))
         cmd = [sys.executable, "-m", WORKER_MODULE] + list(argv)
         logf = None
         if self._log_dir:

@@ -76,10 +76,37 @@ ENV_FLIGHT_RECORDER_EVENTS = "EDL_FLIGHT_RECORDER_EVENTS"
 ENV_FLIGHT_DIR = "EDL_FLIGHT_DIR"
 ENV_SCHED_PHASE_SECS = "EDL_SCHED_PHASE_SECS"
 
+# The fault-injection plane (rpc/chaos.py) and the retry policy's
+# overrides (rpc/policy.py), the reference's names: the chaos spec
+# (inline JSON or @file) that every spawned process inherits, the role
+# and target id its spawner stamps on each child, and RetryPolicy's
+# attempts, first backoff and jitter seed
+ENV_CHAOS_SPEC = "EDL_CHAOS_SPEC"
+ENV_CHAOS_ROLE = "EDL_CHAOS_ROLE"
+ENV_CHAOS_TARGET_ID = "EDL_CHAOS_TARGET_ID"
+ENV_RPC_RETRIES = "EDL_RPC_RETRIES"
+ENV_RPC_BACKOFF = "EDL_RPC_BACKOFF"
+ENV_RPC_SEED = "EDL_RPC_SEED"
+
 # Every environment variable the port reads, with its help text. The PS
 # and KV shard processes read the transport tier's (EDL_TRANSPORT,
 # EDL_UDS_DIR and the shm ring's), which their group passes on.
 ENV_REGISTRY = {
+    ENV_CHAOS_SPEC: (
+        "chaos activation: inline FaultPlan JSON or @/path/to/spec.json "
+        "(rpc/chaos.py); inherited by every spawned subprocess"
+    ),
+    ENV_CHAOS_ROLE: (
+        "chaos scoping: this process's role (worker/ps/kv/master), "
+        "stamped by the spawner"
+    ),
+    ENV_CHAOS_TARGET_ID: (
+        "chaos scoping: this process's target id (worker/shard index), "
+        "stamped by the spawner"
+    ),
+    ENV_RPC_RETRIES: "RetryPolicy max_attempts override (>=1; 1 = no retries)",
+    ENV_RPC_BACKOFF: "RetryPolicy initial backoff seconds override",
+    ENV_RPC_SEED: "RetryPolicy deterministic-jitter seed override",
     ENV_TB_BACKEND: (
         "TensorBoard event-writer backend override "
         "(master/tensorboard_service.py)"

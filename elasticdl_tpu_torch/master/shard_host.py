@@ -10,7 +10,9 @@ between the two.
 
 Each child gets the parent's environment, the transport tier included,
 with the socket directory pinned (`EDL_UDS_DIR`), so master, shards and
-workers meet in one place, and this checkout on `PYTHONPATH`. The port
+workers meet in one place, this checkout on `PYTHONPATH`, and its
+chaos tags (`rpc/chaos.chaos_env_for`: role "ps" or "kv", target id
+the slot), so an inherited `EDL_CHAOS_SPEC` can aim at one slot. The port
 files' directory is removed once every shard has published, or when the
 boot fails.
 
@@ -18,7 +20,7 @@ A relaunch of one slot (the recovery plane's) boots it alone through the
 same path (`shard_ids=[i]`). `collect_metrics` reads each shard
 process's metrics registry for the master's GetMetrics.
 
-Not ported yet: the k8s pods and the chaos scoping of the children.
+Not ported yet: the k8s pods.
 """
 
 from __future__ import annotations
@@ -40,12 +42,16 @@ logger = get_logger(__name__)
 STOP_GRACE_SECONDS = 5.0
 
 
-def shard_env() -> dict:
+def shard_env(role: str, shard_id: int) -> dict:
     """A shard process's environment: the parent's, with the fast tiers'
-    socket directory pinned and this checkout importable."""
+    socket directory pinned, this checkout importable, and the slot's
+    chaos tags (`role` "ps" or "kv" and the shard id, inert when no
+    EDL_CHAOS_SPEC is set), so an inherited spec can aim at one slot."""
     from elasticdl_tpu_torch.rpc import transport
+    from elasticdl_tpu_torch.rpc.chaos import chaos_env_for
 
     env = dict(os.environ)
+    env.update(chaos_env_for(role, shard_id))
     env.setdefault(ENV_UDS_DIR, transport.uds_dir())
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = pkg_root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -63,11 +69,11 @@ def spawn_shard_processes(
     """Boot n shard subprocesses of `entry_module` (shard i gets
     `flags_fn(i)`); returns (processes, endpoints). `shard_ids` names the
     slots to boot instead of range(n) (a relaunch boots one:
-    shard_ids=[i]). A boot failure stops every process already spawned
-    before it raises."""
+    shard_ids=[i], and keeps the slot's chaos target id). A boot failure
+    stops every process already spawned before it raises."""
     ids = list(shard_ids) if shard_ids is not None else list(range(n))
     port_dir = tempfile.mkdtemp(prefix=prefix)
-    env = shard_env()
+    role = "kv" if "kv" in entry_module.rsplit(".", 1)[-1] else "ps"
     procs: List[subprocess.Popen] = []
     endpoints: List[str] = []
     try:
@@ -76,7 +82,7 @@ def spawn_shard_processes(
             pf = os.path.join(port_dir, f"shard-{i}.port")
             port_files.append(pf)
             argv = [sys.executable, "-m", entry_module, "--port", "0", "--port_file", pf]
-            procs.append(subprocess.Popen(argv + flags_fn(i), env=env))
+            procs.append(subprocess.Popen(argv + flags_fn(i), env=shard_env(role, i)))
         deadline = time.monotonic() + boot_timeout
         for k, pf in enumerate(port_files):
             while not os.path.exists(pf):

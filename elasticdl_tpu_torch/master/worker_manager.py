@@ -10,7 +10,8 @@ worker_manager.py`) over a backend with `ProcessBackend`'s methods:
   unambiguous across generations;
 - SUCCEEDED workers, and workers that exit EXIT_CODE_JOB_FAILED (the job
   finished with dropped tasks), are not relaunched; a worker that exits
-  EXIT_CODE_MASTER_UNREACHABLE is;
+  EXIT_CODE_MASTER_UNREACHABLE is, and so is one that an injected chaos
+  crash ended (`rpc/chaos.CHAOS_CRASH_EXIT_CODE`, 117): any other exit is;
 - `max_relaunches` bounds crash loops;
 - a terminal event for a worker already terminal is ignored;
 - `stop_relaunch_and_remove_workers()` for teardown.

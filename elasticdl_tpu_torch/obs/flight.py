@@ -3,7 +3,9 @@ crash and on demand, so a job that loses a shard leaves a postmortem.
 
 The reference's `elasticdl_tpu/obs/flight.py`. Recorded event kinds
 (the schema is ``{"seq", "ts", "pid", "kind", **fields}``): generation
-bumps, shard relaunches, and the recovery plane's steps. Events are
+bumps, shard relaunches, the recovery plane's steps, and the chaos
+plane's firings (``chaos_fault``, and ``chaos_crash`` just before an
+injected crash exits, `rpc/chaos.py`). Events are
 rare (control plane, not data plane), so recording is always on — no
 sampling knob — and a single lock suffices;
 ``EDL_FLIGHT_RECORDER_EVENTS`` bounds the ring (default 4096).

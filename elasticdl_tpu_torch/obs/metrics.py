@@ -6,7 +6,7 @@ name emitted anywhere in the port MUST be declared here, and
 :class:`MetricsRegistry` raises on an undeclared name. It holds the
 names the port emits, with the reference's help strings; the names of
 planes not ported yet (admission queues, fan-in combine, the prepack
-cache, aggregators, chaos, the scheduler) come with those planes.
+cache, aggregators, the scheduler) come with those planes.
 
 Two emission styles:
 
@@ -55,6 +55,8 @@ METRIC_REGISTRY: Dict[str, str] = {
     # worker phase timers (common/timing.PhaseTimers, via ReportPhaseStats)
     "edl_phase_seconds_total": "Wall seconds spent in a worker phase.",
     "edl_phase_count_total": "Entries into a worker phase.",
+    # chaos (rpc/chaos.FaultPlan firing sites)
+    "edl_chaos_injected_total": "Chaos faults injected, per kind.",
     # recovery / fencing (master/recovery.RecoveryPlane)
     "edl_recovery_events_total": "Recovery-plane events, per kind.",
     # the obs plane's own health

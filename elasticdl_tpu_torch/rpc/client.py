@@ -4,9 +4,14 @@ The reference's `RpcClient` (`elasticdl_tpu/rpc/client.py`) over the
 port's transport tiers: the link takes the tier that
 `select_transport(addr)` picks under `EDL_TRANSPORT` when the client is
 built, and the TCP tier when it picks none; `tier` names the tier the link runs on ("tcp", "uds", "shm" or
-"inproc"). Every call runs under `RetryPolicy` (idempotent methods retry
-UNAVAILABLE and DEADLINE_EXCEEDED inside the caller's deadline), and
-raises `PolicyRpcError` when it fails, whichever tier carries it. It
+"inproc"). Every call runs under `RetryPolicy` (`RetryPolicy.from_env()`
+by default: idempotent methods retry UNAVAILABLE and DEADLINE_EXCEEDED
+inside the caller's deadline) behind the endpoint's `CircuitBreaker`,
+and raises `PolicyRpcError` when it fails, whichever tier carries it.
+The transport runs the client half of chaos (`rpc/chaos.py`) with the
+client's `FaultPlan` (`FaultPlan.from_env()` by default, None when
+`EDL_CHAOS_SPEC` is unset): one plan for whichever tier serves, so its
+counters advance the same way on every tier. It
 exposes `call(method, request)` as `testing.InProcessMaster` does, so a
 Worker takes either.
 
@@ -25,9 +30,8 @@ tracing off the request's bytes are those of an untraced call. `wire`,
 the endpoint's `policy.WireStats`, counts each attempt's payload bytes
 and tier.
 
-Not ported yet: `reconnect` (master failover), the circuit breaker, and
-the `transport` argument that pins one link's tier (the aggregation
-tree's).
+Not ported yet: `reconnect` (master failover) and the `transport`
+argument that pins one link's tier (the aggregation tree's).
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ from typing import Any, Optional
 
 from elasticdl_tpu_torch.common import messages
 from elasticdl_tpu_torch.obs import trace as obs_trace
+from elasticdl_tpu_torch.rpc import chaos
 from elasticdl_tpu_torch.rpc.policy import (
     IDEMPOTENT_METHODS,
+    CircuitBreaker,
     PolicyRpcError,
     RetryPolicy,
     StatusCode,
@@ -50,12 +56,22 @@ from elasticdl_tpu_torch.rpc.transport import TcpTransport, select_transport
 
 
 class RpcClient:
-    def __init__(self, addr: str, policy: Optional[RetryPolicy] = None):
+    def __init__(
+        self,
+        addr: str,
+        policy: Optional[RetryPolicy] = None,
+        breaker: Optional[CircuitBreaker] = None,
+        fault_plan: Optional[chaos.FaultPlan] = None,
+    ):
         host, _, port = addr.rpartition(":")
         self._addr = addr
-        self._transport = select_transport(addr) or TcpTransport(host, int(port))
+        plan = fault_plan if fault_plan is not None else chaos.FaultPlan.from_env()
+        self._transport = select_transport(addr, fault_plan=plan) or TcpTransport(
+            host, int(port), fault_plan=plan
+        )
         self.tier = self._transport.name
-        self._policy = policy if policy is not None else RetryPolicy()
+        self._policy = policy if policy is not None else RetryPolicy.from_env()
+        self._breaker = breaker if breaker is not None else CircuitBreaker(addr)
         self.seconds: Counter = Counter()
         self.codec_seconds: Counter = Counter()
         # window mode's sync threads call beside the main thread
@@ -115,7 +131,7 @@ class RpcClient:
 
         try:
             resp = self._policy.call(attempt, method=method, timeout=timeout,
-                                     idempotent=idempotent)
+                                     idempotent=idempotent, breaker=self._breaker)
         finally:
             if tspan is not None:
                 tspan.end(transport=self.tier)

@@ -14,7 +14,8 @@ server maps `EpochFencedError` to FAILED_PRECONDITION
 (`rpc/transport.ServerDispatcher`), which is not in
 `policy.RETRYABLE_CODES`, so the write falls through to the caller's
 outage handler, which re-resolves endpoints and generations from the
-master and requeues the covered work.
+master and requeues the covered work. An endpoint whose circuit
+breaker is open (`policy.CircuitBreaker`) counts as an outage too.
 
 `epoch == UNFENCED` (-1), or no epoch at all, skips the check.
 """
@@ -70,8 +71,10 @@ def is_fenced_error(e: Exception) -> bool:
 
 def is_shard_outage(e: Exception) -> bool:
     """Does this failure mean "stop re-sending to this endpoint and
-    re-resolve through the master"? Fenced, or UNAVAILABLE or
-    DEADLINE_EXCEEDED past the retry budget."""
+    re-resolve through the master"? Fenced (the generation moved on),
+    UNAVAILABLE or DEADLINE_EXCEEDED past the retry budget, or an open
+    circuit (`policy.CircuitOpenError`, whose code is UNAVAILABLE): all
+    route to the recovery plane's re-resolution."""
     if is_fenced_error(e):
         return True
     return _code(e) in (StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED)

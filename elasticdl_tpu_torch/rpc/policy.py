@@ -11,7 +11,12 @@ without grpc:
 - `RetryPolicy` retries an idempotent call on UNAVAILABLE or
   DEADLINE_EXCEEDED with exponential backoff and deterministic jitter (a
   hash of seed, method and attempt, so a fixed seed reproduces every
-  schedule), inside the caller's total deadline;
+  schedule), inside the caller's total deadline; `from_env` applies the
+  EDL_RPC_RETRIES, EDL_RPC_BACKOFF and EDL_RPC_SEED overrides;
+- `CircuitBreaker` fails an endpoint's calls fast after 5 consecutive
+  failures (`CircuitOpenError`, UNAVAILABLE) and half-opens after 5 s
+  to let one probe through, so a worker does not spend its whole
+  deadline re-dialing a dead shard on every operation;
 - `IDEMPOTENT_METHODS` names the calls safe to re-send. GetTask and
   ReportGradient are not: a lost GetTask response would orphan a task,
   and a re-sent gradient would apply twice. They fall through to task
@@ -21,18 +26,25 @@ without grpc:
   `all_wire_stats`) and one per `RpcServer`; the metrics plane reads
   them (`obs/metrics.py`).
 
-Not ported yet: the circuit breaker, the chaos hooks and the
-environment overrides of the policy.
+The chaos hooks that inject faults under this policy are in
+`rpc/chaos.py`.
 """
 
 from __future__ import annotations
 
 import enum
 import hashlib
+import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, FrozenSet
+from typing import Callable, FrozenSet, Optional
+
+from elasticdl_tpu_torch.common.constants import (
+    ENV_RPC_BACKOFF,
+    ENV_RPC_RETRIES,
+    ENV_RPC_SEED,
+)
 
 
 class StatusCode(enum.Enum):
@@ -104,30 +116,58 @@ class PolicyRpcError(Exception):
         return self._details
 
 
-# The reference's default schedule: `MAX_ATTEMPTS` counts every try; the
-# backoff before retry k is min(INITIAL_BACKOFF * MULTIPLIER**(k-1),
-# MAX_BACKOFF), shrunk by up to JITTER of itself.
-MAX_ATTEMPTS = 4
-INITIAL_BACKOFF = 0.05
-MULTIPLIER = 2.0
-MAX_BACKOFF = 2.0
-JITTER = 0.5
+class DeadlineExhausted(PolicyRpcError):
+    """The per-call deadline budget ran out across attempts."""
+
+
+class CircuitOpenError(PolicyRpcError):
+    """Fail fast: the endpoint's breaker is open (recent repeated errors)."""
+
+    def __init__(self, endpoint: str):
+        super().__init__(StatusCode.UNAVAILABLE, f"circuit open for {endpoint}")
 
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """The module's schedule, its jitter drawn from a hash of (seed,
-    method, k). `sleep_fn` lets a test record the pauses."""
+    """The retry schedule every RpcClient runs under.
 
+    `max_attempts` counts every try (1: no retry). The backoff before
+    retry k (k >= 1) is ``min(initial_backoff * multiplier**(k-1),
+    max_backoff)``, shrunk by up to `jitter` of itself by a hash of
+    (seed, method, k): deterministic for a fixed seed, different across
+    methods and attempts. `sleep_fn` and `clock` are injectable, so a
+    test runs a schedule on a virtual clock."""
+
+    max_attempts: int = 4
+    initial_backoff: float = 0.05
+    multiplier: float = 2.0
+    max_backoff: float = 2.0
+    jitter: float = 0.5
     seed: int = 0
+    retryable_codes: FrozenSet[StatusCode] = RETRYABLE_CODES
     sleep_fn: Callable[[float], None] = field(default=time.sleep, repr=False)
+    clock: Callable[[], float] = field(default=time.monotonic, repr=False)
+
+    @classmethod
+    def from_env(cls, env=None) -> "RetryPolicy":
+        """The default schedule with the EDL_RPC_RETRIES,
+        EDL_RPC_BACKOFF and EDL_RPC_SEED overrides that are set."""
+        env = os.environ if env is None else env
+        kw = {}
+        if env.get(ENV_RPC_RETRIES):
+            kw["max_attempts"] = max(1, int(env[ENV_RPC_RETRIES]))
+        if env.get(ENV_RPC_BACKOFF):
+            kw["initial_backoff"] = float(env[ENV_RPC_BACKOFF])
+        if env.get(ENV_RPC_SEED):
+            kw["seed"] = int(env[ENV_RPC_SEED])
+        return cls(**kw)
 
     def backoff_for(self, method: str, attempt: int) -> float:
         """Backoff before retry number `attempt` (1-based). Deterministic."""
-        base = min(INITIAL_BACKOFF * MULTIPLIER ** (attempt - 1), MAX_BACKOFF)
+        base = min(self.initial_backoff * self.multiplier ** (attempt - 1), self.max_backoff)
         h = hashlib.sha256(f"{self.seed}:{method}:{attempt}".encode()).digest()
         frac = int.from_bytes(h[:8], "big") / 2**64  # [0, 1)
-        return base * (1.0 - JITTER * frac)
+        return base * (1.0 - self.jitter * frac)
 
     def call(
         self,
@@ -135,33 +175,101 @@ class RetryPolicy:
         method: str,
         timeout: float,
         idempotent: bool,
+        breaker: Optional["CircuitBreaker"] = None,
     ):
-        """fn(remaining seconds) under the policy. `timeout` bounds the
-        whole call, retries and backoff included: a retry is made only
-        when its backoff still fits inside the budget."""
-        deadline = time.monotonic() + timeout
+        """fn(remaining seconds) under the policy, behind `breaker` when
+        one is given. `timeout` bounds the whole call, retries and
+        backoff included: a retry is made only when its backoff still
+        fits inside the budget. An open circuit raises CircuitOpenError
+        before the attempt, and is not retried."""
+        deadline = self.clock() + timeout
         attempt = 0
         while True:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - self.clock()
             if remaining <= 0:
-                raise PolicyRpcError(
+                raise DeadlineExhausted(
                     StatusCode.DEADLINE_EXCEEDED,
                     f"{method}: deadline budget spent after {attempt} attempts",
                 )
+            if breaker is not None:
+                breaker.before_call()
             try:
-                return fn(remaining)
+                result = fn(remaining)
             except PolicyRpcError as e:
+                if breaker is not None:
+                    breaker.record_failure()
                 attempt += 1
                 if (
                     not idempotent
-                    or e.code() not in RETRYABLE_CODES
-                    or attempt >= MAX_ATTEMPTS
+                    or e.code() not in self.retryable_codes
+                    or attempt >= self.max_attempts
                 ):
                     raise
                 pause = self.backoff_for(method, attempt)
-                if time.monotonic() + pause >= deadline:
+                if self.clock() + pause >= deadline:
+                    # no room for the backoff and another try: surface
+                    # the real failure rather than sleep into the deadline
                     raise
                 self.sleep_fn(pause)
+                continue
+            if breaker is not None:
+                breaker.record_success()
+            return result
+
+
+class CircuitBreaker:
+    """Per-endpoint breaker: after `failure_threshold` CONSECUTIVE
+    failures the circuit opens and calls fail fast with
+    `CircuitOpenError` (code UNAVAILABLE). After `reset_interval`
+    seconds it half-opens: exactly one probe call goes through; its
+    success closes the circuit, its failure opens it again (and re-arms
+    the timer). The clock is injectable, so tests never sleep."""
+
+    def __init__(
+        self,
+        endpoint: str = "",
+        failure_threshold: int = 5,
+        reset_interval: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.endpoint = endpoint
+        self._threshold = max(1, failure_threshold)
+        self._reset_interval = reset_interval
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._failures = 0
+        self._open = False
+        self._opened_at = 0.0
+        self._probing = False
+
+    @property
+    def is_open(self) -> bool:
+        with self._lock:
+            return self._open
+
+    def before_call(self):
+        with self._lock:
+            if not self._open:
+                return
+            now = self._clock()
+            if now - self._opened_at >= self._reset_interval and not self._probing:
+                self._probing = True  # half-open: this call is the probe
+                return
+            raise CircuitOpenError(self.endpoint)
+
+    def record_success(self):
+        with self._lock:
+            self._failures = 0
+            self._open = False
+            self._probing = False
+
+    def record_failure(self):
+        with self._lock:
+            self._failures += 1
+            self._probing = False
+            if self._failures >= self._threshold:
+                self._open = True
+                self._opened_at = self._clock()
 
 
 class WireStats:

@@ -13,6 +13,11 @@ name the shm listener's segments: a PS or KV shard slot passes its
 job-stable scope and its fencing generation, so that its relaunch sweeps
 a SIGKILLed predecessor's segments (`rpc/transport.ShmServer`).
 
+Server-side chaos is on when `EDL_CHAOS_SPEC` is set (a shard process
+inherits it, tagged with its role and slot) or a `fault_plan` is passed:
+the dispatcher runs the plan's server half on every tier
+(`rpc/chaos.py`).
+
 `wire` counts every tier's payload bytes and calls (`policy.WireStats`);
 `start` registers it with the process's metrics registry as a pull
 collector (`edl_wire_*_total{side="server"}`, dropped again by `stop`)
@@ -25,6 +30,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 from elasticdl_tpu_torch.common.log_util import get_logger
+from elasticdl_tpu_torch.rpc import chaos
 from elasticdl_tpu_torch.rpc import transport as transport_mod
 from elasticdl_tpu_torch.rpc.policy import WireStats
 
@@ -38,9 +44,11 @@ class RpcServer:
         port: int = 0,
         shm_scope: Optional[str] = None,
         shm_generation: int = 0,
+        fault_plan=None,
     ):
         self.wire = WireStats("server")
-        self._dispatcher = transport_mod.ServerDispatcher(handlers, self.wire)
+        plan = fault_plan if fault_plan is not None else chaos.FaultPlan.from_env()
+        self._dispatcher = transport_mod.ServerDispatcher(handlers, self.wire, fault_plan=plan)
         self._collector = None  # the metrics collector, from start to stop
         self._tcp = transport_mod.TcpServer(port, self._dispatcher)
         self.port = self._tcp.port

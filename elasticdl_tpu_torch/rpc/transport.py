@@ -74,9 +74,17 @@ tier, runs the handler under the sender's trace when both ends trace,
 and counts each call's payload bytes in its server's `WireStats`
 (`ServerDispatcher`).
 
+Chaos (`rpc/chaos.py`) runs on every tier and on both sides, with one
+`FaultPlan` per client or server: every client transport runs the
+client half around its call, and `ServerDispatcher` runs the server
+half around the handler, whichever tier delivered the frame. The port
+has no gRPC interceptors, so its TCP tier takes the same two halves as
+the reference's non-gRPC tiers. A drop runs the call to completion (the
+server applies it) before the response is withheld.
+
 Not ported yet: the shm tier's broadcast segments (`ShmBroadcaster`,
 the sharded PS's pull), `AsyncUdsServer` and the event-loop dispatch
-core (`EDL_DISPATCH=loop`), and the chaos hooks.
+core (`EDL_DISPATCH=loop`).
 """
 
 from __future__ import annotations
@@ -101,6 +109,7 @@ from elasticdl_tpu_torch.common.constants import (
 )
 from elasticdl_tpu_torch.common.log_util import get_logger
 from elasticdl_tpu_torch.obs import trace as obs_trace
+from elasticdl_tpu_torch.rpc.chaos import transport_faults_after, transport_faults_before
 from elasticdl_tpu_torch.rpc.fencing import EpochFencedError
 from elasticdl_tpu_torch.rpc.policy import PolicyRpcError, StatusCode, WireStats
 
@@ -277,17 +286,32 @@ class ServerDispatcher:
     span, the child of the sender's, bound as the thread's context so
     the handler's own spans chain under it. `wire`, a
     `policy.WireStats`, counts the payload bytes of each request and
-    response (none for inproc, which moves no bytes) and each call."""
+    response (none for inproc, which moves no bytes) and each call.
 
-    def __init__(self, handlers: Dict[str, Callable], wire: Optional[WireStats] = None):
+    `fault_plan` (`rpc/chaos.FaultPlan`) runs the server half of chaos
+    around the handler on every tier: an error answers before the
+    handler runs, a drop or crash after fires with the handler's state
+    applied."""
+
+    def __init__(self, handlers: Dict[str, Callable], wire: Optional[WireStats] = None,
+                 fault_plan=None):
         self._handlers = dict(handlers)
         self._wire = wire
+        self._plan = fault_plan
         self._lock = threading.Lock()
         self._calls: Counter = Counter()
         self._handler_seconds: Counter = Counter()
         self._codec_seconds: Counter = Counter()
 
     def dispatch(self, method: str, request_bytes, transport: str = "tcp") -> bytes:
+        after = transport_faults_before(self._plan, method, "server")
+        resp = self._invoke(method, request_bytes, transport)
+        # a drop or crash after fires with the handler APPLIED: state
+        # changed, response withheld
+        transport_faults_after(after, method)
+        return resp
+
+    def _invoke(self, method: str, request_bytes, transport: str) -> bytes:
         fn = self._handlers.get(method)
         if fn is None:
             raise PolicyRpcError(StatusCode.UNIMPLEMENTED, f"no handler for {method}")
@@ -520,12 +544,14 @@ class _FrameTransport:
     connections, a per-call socket timeout from the remaining deadline
     budget, and PolicyRpcError for every failure: a timeout is
     DEADLINE_EXCEEDED, a connection failure UNAVAILABLE (both
-    retryable), and an error frame carries the server's code."""
+    retryable), and an error frame carries the server's code.
+    `fault_plan` runs the client half of chaos around each call."""
 
     name = ""
 
-    def __init__(self, where: str):
+    def __init__(self, where: str, fault_plan=None):
         self._where = where
+        self._plan = fault_plan
         self._pool: list = []
         self._pool_lock = threading.Lock()
 
@@ -562,6 +588,7 @@ class _FrameTransport:
 
     def call(self, method: str, payload: bytes, timeout: float) -> bytearray:
         _check_frame(len(payload), "request")
+        after = transport_faults_before(self._plan, method, "client")
         conn = self._checkout(timeout)
         try:
             conn.settimeout(max(0.001, float(timeout)))
@@ -597,6 +624,7 @@ class _FrameTransport:
         finally:
             if conn is not None:
                 self._checkin(conn)
+        transport_faults_after(after, method)
         return body
 
 
@@ -605,8 +633,8 @@ class TcpTransport(_FrameTransport):
 
     name = "tcp"
 
-    def __init__(self, host: str, port: int):
-        super().__init__(f"{host}:{port}")
+    def __init__(self, host: str, port: int, fault_plan=None):
+        super().__init__(f"{host}:{port}", fault_plan)
         self._addr = (host, port)
 
     def _connect(self, timeout: float) -> socket.socket:
@@ -626,8 +654,8 @@ class UdsTransport(_FrameTransport):
 
     name = TRANSPORT_UDS
 
-    def __init__(self, path: str):
-        super().__init__(path)
+    def __init__(self, path: str, fault_plan=None):
+        super().__init__(path, fault_plan)
         self._path = path
 
     def _connect(self, timeout: float) -> socket.socket:
@@ -665,12 +693,14 @@ def inproc_dispatcher(port: int) -> Optional[ServerDispatcher]:
 class InprocTransport:
     """Direct dispatch into a same-interpreter RpcServer: the packed
     frame crosses by reference. The dispatcher is looked up on each
-    call, so a stopped server answers UNAVAILABLE."""
+    call, so a stopped server answers UNAVAILABLE. `fault_plan` runs the
+    client half of chaos around each call."""
 
     name = TRANSPORT_INPROC
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, fault_plan=None):
         self._port = int(port)
+        self._plan = fault_plan
 
     def _dispatcher(self) -> ServerDispatcher:
         dispatcher = inproc_dispatcher(self._port)
@@ -688,8 +718,10 @@ class InprocTransport:
 
     def call(self, method: str, payload: bytes, timeout: float) -> bytes:
         _check_frame(len(payload), "request")
+        after = transport_faults_before(self._plan, method, "client")
         resp = self._dispatcher().dispatch(method, payload, TRANSPORT_INPROC)
         _check_frame(len(resp), "response")
+        transport_faults_after(after, method)
         return resp
 
 
@@ -1033,12 +1065,14 @@ class ShmTransport:
     per-call socket timeouts from the deadline budget, and the other
     tiers' PolicyRpcError codes. A response is copied out of the
     response region into a private buffer before the connection goes
-    back to the pool (the next call on it overwrites the region)."""
+    back to the pool (the next call on it overwrites the region).
+    `fault_plan` runs the client half of chaos around each call."""
 
     name = TRANSPORT_SHM
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, fault_plan=None):
         self._port = int(port)
+        self._plan = fault_plan
         self._doorbell = shm_doorbell_path(port)
         self._pool: list = []
         self._pool_lock = threading.Lock()
@@ -1068,6 +1102,7 @@ class ShmTransport:
     def call(self, method: str, payload: bytes, timeout: float) -> bytearray:
         n = len(payload)
         _check_frame(n, "request")
+        after = transport_faults_before(self._plan, method, "client")
         conn = self._checkout()
         try:
             conn.sock.settimeout(max(0.001, float(timeout)))
@@ -1132,6 +1167,7 @@ class ShmTransport:
         finally:
             if conn is not None:
                 self._checkin(conn)
+        transport_faults_after(after, method)
         return body
 
 
@@ -1162,11 +1198,12 @@ def endpoint_is_local(addr: str) -> bool:
         return False
 
 
-def select_transport(addr: str, tier: Optional[str] = None):
+def select_transport(addr: str, tier: Optional[str] = None, fault_plan=None):
     """The fast-path transport for `addr` under the configured mode, or
     None for the TCP tier. Never raises: any doubt (a remote host, no
     socket file, an unparseable endpoint) means TCP. `tier` overrides
-    EDL_TRANSPORT for this one link; an unknown value is ignored."""
+    EDL_TRANSPORT for this one link; an unknown value is ignored. The
+    transport runs `fault_plan`'s client half of chaos."""
     mode = transport_mode()
     if tier is not None:
         tier = tier.strip().lower()
@@ -1178,13 +1215,13 @@ def select_transport(addr: str, tier: Optional[str] = None):
     if port is None or not endpoint_is_local(addr):
         return None
     if mode in (TRANSPORT_INPROC, "auto") and inproc_dispatcher(port) is not None:
-        return InprocTransport(port)
+        return InprocTransport(port, fault_plan)
     if mode in (TRANSPORT_SHM, "auto"):
         info = read_shm_rendezvous(port)
         if info is not None and os.path.exists(str(info.get("doorbell", ""))):
-            return ShmTransport(port)
+            return ShmTransport(port, fault_plan)
     if mode in (TRANSPORT_UDS, "auto"):
         path = uds_path_for(port)
         if os.path.exists(path):
-            return UdsTransport(path)
+            return UdsTransport(path, fault_plan)
     return None

@@ -179,6 +179,7 @@ sharded PS the aggregation tree and bucketed pushes.
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import threading
 import time
@@ -368,7 +369,16 @@ class Worker:
         self._id = worker_id
         self._master = master
         self._spec = model_spec
-        self._model: torch.nn.Module = model_spec.model
+        # the worker makes its module's parameters views into its own flat
+        # buffer (`_bind_flat`), so two Workers of one process must not bind
+        # one module: a second one handed the same spec (the reference's
+        # in-process workers share one, its parameters being functional)
+        # trains a copy of its own
+        model = model_spec.model
+        if getattr(model, "_edl_bound_by_worker", False):
+            model = copy.deepcopy(model)
+        model._edl_bound_by_worker = True
+        self._model: torch.nn.Module = model
         self._minibatch_size = minibatch_size
         self._device = resolve_device(device)
         self._seed = seed

@@ -88,6 +88,31 @@ def test_port_job_matches_reference_job(records):
     assert np.array_equal(worker._flat.numpy(), tcodec.ravel_np(params))
 
 
+def test_two_workers_of_one_spec_bind_parameters_of_their_own(records):
+    """Two in-process Workers handed one spec, as the reference's
+    in-process workers share theirs: each binds a module of its own, so
+    neither computes with the other's flat buffer (a sharded boot's
+    buffer is uninitialized until its pull fills it), and each runs on
+    the values it was given."""
+    dispatcher = TaskDispatcher({records: RECORDS}, {}, {}, PER_TASK, 1, shuffle_seed=3)
+    spec = spec_from_module(tzoo, model=tzoo.custom_model(vocab=VOCAB))
+    servicer, _eval, _ckpt = build_job(spec, dispatcher, grads_to_wait=1)
+    master = InProcessMaster(servicer)
+    a, b = (Worker(i, master, spec, minibatch_size=BATCH, device="cpu") for i in range(2))
+    try:
+        assert a._model is spec.model and b._model is not spec.model
+        tree_a, tree_b = spec.model.init_params(0), spec.model.init_params(1)
+        a._init_flat_from_tree(tree_a)
+        b._init_flat_from_tree(tree_b)
+        for worker, tree in ((a, tree_a), (b, tree_b)):
+            bound = np.concatenate([p.detach().numpy().ravel() for p in worker._params])
+            assert bound.tobytes() == tcodec.ravel_np(tree).tobytes()
+            assert all(p.data_ptr() >= worker._flat.data_ptr() for p in worker._params)
+    finally:
+        a.close()
+        b.close()
+
+
 def test_lazy_init_offers_the_reference_init_and_retries_stale_reports(records):
     """No init at the PS: the worker's ReportVariable carries the
     reference's init for seed + worker id, bit for bit. A report forced
@@ -167,6 +192,29 @@ def test_the_audit_covers_the_overlap_plane_modules():
         names |= {n.module.split(".")[0] for n in ast.walk(tree)
                   if isinstance(n, ast.ImportFrom) and n.level == 0}
         assert names <= {"__future__", "threading", "collections", "typing"}, names
+
+
+def test_the_audit_covers_the_fault_plane_modules():
+    """The fault-injection plane's module and the modules that carry it
+    (the policy, the tiers, the client and server, the spawners, the
+    fence) are among the audited files; `rpc/chaos.py` imports only the
+    standard library and the port's own modules."""
+    audited = {os.path.relpath(p, REPO) for p in _port_files()}
+    for rel in ("rpc/chaos.py", "rpc/policy.py", "rpc/transport.py", "rpc/client.py",
+                "rpc/server.py", "rpc/fencing.py", "cluster/pod_backend.py",
+                "master/shard_host.py", "master/worker_manager.py", "common/constants.py",
+                "obs/metrics.py", "obs/flight.py"):
+        assert os.path.join("elasticdl_tpu_torch", rel) in audited, rel
+    from elasticdl_tpu_torch.rpc import chaos
+
+    with open(chaos.__file__) as f:
+        tree = ast.parse(f.read())
+    names = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module.split(".")[0] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0}
+    assert names <= {"__future__", "hashlib", "json", "os", "threading", "time",
+                     "dataclasses", "typing", "elasticdl_tpu_torch"}, names
 
 
 def test_port_modules_import_with_jax_and_the_reference_unimportable():

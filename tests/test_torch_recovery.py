@@ -13,8 +13,8 @@ ride through a KV recovery. Where the contract is host numpy (slices,
 versions, rows) both sides are held bit for bit.
 
 Then jobs: a torn-push job over 2 inproc shards whose shard 1 "dies"
-before applying its 5th push (a test double: the chaos plane is not
-ported) ends at the fault-free versions, [16, 16], as its fault-free
+before applying its 5th push (a test double that dies between a push's
+fan-out and its apply) ends at the fault-free versions, [16, 16], as its fault-free
 twin and the reference's fault-free run; a process-mode job over 2 PS
 shard processes rides out a SIGKILLed shard at exact versions; an
 unrecoverable shard makes the master exit 2; and the shm tier's
@@ -393,6 +393,48 @@ def test_ps_failover_restores_from_worker_upload():
     refused, accepted, gens, versions, restored, recoveries, opt_ready = port
     assert (refused, accepted, gens, versions) == (False, True, [0, 1], [1, 1])
     assert restored == _bits(upload[5:10]) and recoveries == [("ps", 1, 1)] and opt_ready
+
+
+@pytest.mark.parametrize("which", ["port", "reference"])
+def _unreported_ack(group_cls, plane_cls, opt_factory):
+    """Shard 1 acknowledged two pushes (v2) but the master saw only the
+    first (its floor for the shard at 1) when the shard died: an upload
+    at v1 meets the fence, and the shard is restored a push short."""
+    group = group_cls(2, mode="inproc", use_async=True, optimizer_factory=opt_factory)
+    group.start()
+    try:
+        n = 10
+        group.ensure_init(np.arange(n, dtype=np.float32), version=0)
+        client = group.client()
+        _v, snapshot = client.push_grad(np.full(n, 0.5, np.float32), [0, 0], return_model=True)
+        acked, _vec = client.push_grad(np.full(n, 0.25, np.float32), [1, 1], return_model=True)
+        plane = plane_cls(_Floors({1: 1}), ps_group=group, restore_deadline=20.0)
+        plane.start()
+        try:
+            plane.on_shard_failure("ps", 1)
+            _wait_until(lambda: 1 in plane.status()["ps"], what="shard 1 fenced")
+            s, e = client.bounds[1]
+            accepted = plane.offer_upload(7, 1, snapshot[s:e], 1)
+            _wait_until(lambda: ("ps", 1, 1) in plane.recoveries(), what="shard 1 recovery")
+            versions, vec = group.assemble()
+            return acked, accepted, versions, _bits(vec[s:e]) == _bits(snapshot[s:e])
+        finally:
+            plane.stop()
+    finally:
+        group.stop()
+
+
+def test_the_restore_fence_is_the_reported_version_as_the_reference():
+    """Both planes take the fence from the versions the master saw
+    reported, when the recovery begins: a push the dead shard had
+    acknowledged whose report was still on its way is below it, so both
+    restore the shard from an older upload, one version short of its
+    partner, and call the restore exact. A reference quirk, kept; the
+    torn-push job test gates each report with its fan-out
+    (`_one_report_at_a_time`)."""
+    port = _unreported_ack(PSShardGroup, RecoveryPlane, tzoo.optimizer)
+    ref = _unreported_ack(JPSShardGroup, JRecoveryPlane, jzoo.optimizer)
+    assert port == ref == ([2, 2], True, [2, 1], True)
 
 
 @pytest.mark.parametrize("which", ["port", "reference"])
@@ -810,28 +852,52 @@ class _CrashingShard(PSShardServicer):
         return super().push_grad(req)
 
 
-def _one_fan_out_at_a_time(push_grad):
-    """ShardedPS.push_grad with the whole fan-out under one lock: two
-    workers' pushes cannot cross between the shards. Crossed, each
-    worker gets shard versions one behind on a different shard ([16, 15]
-    and [15, 16]), and the master's mirror, the maximum of each report's
-    minimum as in the reference, stays at 15 (pinned by
-    `test_crossed_fan_outs_leave_the_mirror_behind_as_the_reference`)."""
+def _one_report_at_a_time(monkeypatch):
+    """Each worker's whole per-step report under one lock: the lock is
+    taken before its fan-out to the shards (ShardedPS.push_grad) and
+    given back once the master has its ReportWindowMeta, or at once
+    when the fan-out fails (the worker then waits out the shard's
+    recovery without it, and takes it again for the replay). So:
+    - two workers' fan-outs cannot cross between the shards. Crossed,
+      each worker gets shard versions one behind on a different shard
+      ([16, 15] and [15, 16]), and the master's mirror, the maximum of
+      each report's minimum as in the reference, stays at 15 (pinned by
+      `test_crossed_fan_outs_leave_the_mirror_behind_as_the_reference`);
+    - no push a shard acknowledged is still unreported when a shard
+      dies. The recovery plane's fence is the highest version the master
+      saw the shard acknowledge, read when the recovery begins; a push
+      acknowledged but not yet reported is under it, an upload from
+      before that push meets it, and the restored shard ends one push
+      short ([16, 15], the mirror at 15), as the reference's would
+      (pinned by `test_the_restore_fence_is_the_reported_version_as_the_reference`)."""
     lock = threading.Lock()
+    push_grad, call = ShardedPS.push_grad, InProcessMaster.call
 
-    def gated(self, *args, **kwargs):
-        with lock:
+    def gated_push(self, *args, **kwargs):
+        lock.acquire()
+        try:
             return push_grad(self, *args, **kwargs)
+        except BaseException:
+            lock.release()
+            raise
 
-    return gated
+    def gated_call(self, method, request=None):
+        try:
+            return call(self, method, request)
+        finally:
+            if method == "ReportWindowMeta":
+                lock.release()
+
+    monkeypatch.setattr(ShardedPS, "push_grad", gated_push)
+    monkeypatch.setattr(InProcessMaster, "call", gated_call)
 
 
 def _port_job(path, init, crash: bool, monkeypatch):
     """The port's job as the reference's; with `crash`, shard 1 (at
-    generation 0) is a `_CrashingShard`. The workers' fan-outs are gated
-    one at a time, so the master's mirror ends at the shards' versions.
+    generation 0) is a `_CrashingShard`. The caller gates the workers'
+    reports one at a time (`_one_report_at_a_time`), so the master's
+    mirror and the restore fence keep up with the shards' versions.
     Returns (shard versions, recoveries, generations, workers)."""
-    monkeypatch.setattr(ShardedPS, "push_grad", _one_fan_out_at_a_time(ShardedPS.push_grad))
     plane_box = []
     if crash:
         def make(shard_id, num_shards, generation=0, **kw):
@@ -876,6 +942,7 @@ def test_torn_push_job_ends_at_the_fault_free_versions(records, monkeypatch):
     at generation 1 from a worker's upload, the torn push is replayed
     under its key, and both shards end at 16, as the fault-free twin and
     the reference's fault-free run."""
+    _one_report_at_a_time(monkeypatch)
     init = _init()
     torn, recoveries, gens, workers = _port_job(records, init, True, monkeypatch)
     twin, twin_recoveries, _g, twin_workers = _port_job(records, init, False, monkeypatch)
